@@ -1,0 +1,199 @@
+"""System facade: center + all edge servers + engine snapshots,
+version-aware.
+
+``EdgeSystem`` is the functional model of the deployment.  The request
+plane — §4.2 routing, typed results, rebuild-window policy — lives in
+``serve.service``; get a front door with ``EdgeSystem.service()``.
+
+Paper map: the service planes implement the §4.2 query rules (rule 1
+same-district local, rule 2 same-district via another client's server,
+rule 3 cross-district through the border table B at the computing
+center); during a rebuild window (center pushed a new index version,
+shortcuts not yet installed) answers are served from the stale L_i
+under the Theorem-3 certificate (λ ≤ Local Bound ⇒ still exact), and
+the uncertified residue is resolved per the policy's rebuild mode.
+``_current_engine`` snapshots one index version into the replicated
+batched serving engine on the system's device and swaps it whenever the
+center's version moves.
+
+Everything that holds tensors lives on ``device``: ``deploy(device=None)``
+means the CUDA card and raises without one; ``device="cpu"`` runs the
+kernels' plain versions.  The sharded engines, the scatter-gather plane,
+delta-scoped updates, topology updates and migration come with later
+slices (ROADMAP Queue 1 items 6–8).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from ..core.graph import Graph
+from ..core.partition import Partition
+from ..device import resolve_device
+from .center import ComputingCenter
+from .server import EdgeServer
+
+if TYPE_CHECKING:                                   # pragma: no cover
+    from ..serve.service import DistanceService, ServingPolicy
+
+# sentinel: "use the EdgeSystem attribute" (None already means auto-pick)
+_SELF = object()
+
+# auto-pick threshold for quantized label storage: once the float32
+# index footprint (B + dense district tables) crosses this, the engines
+# store uint16 codes instead — but ONLY when the fitted spec is lossless
+# (integer-second weights), so auto never changes a single answer
+QUANT_AUTO_BYTES = 32 << 20
+
+
+@dataclass
+class EdgeSystem:
+    graph: Graph
+    partition: Partition
+    center: ComputingCenter
+    servers: list[EdgeServer]
+    stats: dict = field(default_factory=lambda: {
+        "rule1": 0, "rule2": 0, "rule3": 0, "lb_certified": 0,
+        "lb_fallback_attempts": 0})
+    # engine selection: None/False = the replicated engine; True (the
+    # district-sharded engine) raises until the sharded slice lands
+    prefer_sharded: bool | None = None
+    # label storage dtype: None/"auto" = float32 until the index crosses
+    # QUANT_AUTO_BYTES and the fitted uint16 spec is lossless;
+    # "float32" / "uint16" / "int16" force the storage (an explicit
+    # integer dtype is honored even when the fit is lossy)
+    label_dtype: str | None = None
+    # steady-state serving engines, snapshots of one index version: one
+    # per label-storage dtype asked for, all dropped when the version
+    # moves (the only engine cache; services ask it on every plan)
+    _engines: dict = field(default_factory=dict, repr=False)
+    _engines_version: tuple | None = field(default=None, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.center.device
+
+    @classmethod
+    def deploy(cls, g: Graph, part: Partition, builder: str = "reference",
+               device: torch.device | str | None = None) -> "EdgeSystem":
+        device = resolve_device(device)
+        center = ComputingCenter(g, part, builder=builder, device=device)
+        center.rebuild()
+        servers = [EdgeServer.bootstrap(g, part, i, device=device)
+                   for i in range(part.num_districts)]
+        for s in servers:
+            s.install_shortcuts(g, part, center.shortcuts_for(s.district_id),
+                                center.version)
+        return cls(g, part, center, servers)
+
+    def apply_traffic_update(self, new_weights: np.ndarray,
+                             incremental: bool = False) -> dict:
+        """Traffic-epoch update cycle (the paper's full cycle): every
+        edge server refreshes its local index, the center rebuilds B
+        from scratch, shortcuts are pushed back down everywhere.
+        Returns timings.  The delta-scoped cycle (``incremental=True``)
+        comes with the updates slice."""
+        if incremental:
+            raise NotImplementedError(
+                "incremental updates are not ported yet (ROADMAP Queue 1 "
+                "item 6, updates)")
+        g2 = self.graph.with_weights(new_weights)
+        self.graph = g2
+        local_s = [srv.refresh_local(g2, self.partition)
+                   for srv in self.servers]
+        bl_s = self.center.rebuild(new_weights)
+        shortcut_s = [srv.install_shortcuts(
+            g2, self.partition,
+            self.center.shortcuts_for(srv.district_id),
+            self.center.version) for srv in self.servers]
+        return {"local_refresh_s": local_s, "bl_rebuild_s": bl_s,
+                "shortcut_install_s": shortcut_s,
+                "incremental": False}
+
+    def service(self, policy: "ServingPolicy | None" = None
+                ) -> "DistanceService":
+        """A typed request-plane front door over this system (see
+        ``serve.service``).  Each call returns a fresh service with its
+        own counters; the engine snapshots underneath are shared through
+        ``_current_engine``'s cache, so services are cheap."""
+        from ..serve.service import DistanceService
+        return DistanceService(self, policy)
+
+    def _merge_stats(self, counters: dict) -> None:
+        for k, v in counters.items():
+            self.stats[k] += v
+
+    def _resolve_quant(self, label_dtype):
+        """Map a ``label_dtype`` knob value to the QuantSpec the engine
+        packs with (None ⇒ float32 storage).  Auto quantizes only when
+        the float32 index footprint crosses QUANT_AUTO_BYTES AND the
+        fitted uint16 spec round-trips losslessly — so turning auto on
+        can never change an answer.  An explicit integer dtype is
+        honored even when lossy (the caller asked for the bytes)."""
+        from ..core.quantize import LABEL_DTYPES, fit_label_spec
+        if label_dtype == "float32":
+            return None
+        btable = self.center.border_labels.table
+        locals_ = [srv.augmented for srv in self.servers]
+        if label_dtype in (None, "auto"):
+            est = 4 * (btable.size
+                       + sum(len(li.vertices) ** 2 for li in locals_))
+            if est <= QUANT_AUTO_BYTES:
+                return None
+            spec = fit_label_spec(btable, locals_)
+            return spec if spec.lossless else None
+        return fit_label_spec(btable, locals_,
+                              dtype=LABEL_DTYPES[label_dtype])
+
+    def _current_engine(self, prefer_sharded=_SELF, label_dtype=_SELF):
+        """Engine snapshot for the current index version, or None while
+        any district's shortcuts are stale (rebuild window): the
+        replicated ``BatchedQueryEngine`` on the system's device.
+        ``label_dtype`` picks the storage dtype (see ``_resolve_quant``);
+        arguments take precedence over the instance attributes."""
+        if prefer_sharded is _SELF:
+            prefer_sharded = self.prefer_sharded
+        if label_dtype is _SELF:
+            label_dtype = self.label_dtype
+        if prefer_sharded:
+            raise NotImplementedError(
+                "the sharded engines are not ported yet (ROADMAP Queue 1 "
+                "item 7, sharded layouts)")
+        if any(srv.augmented is None
+               or srv.augmented_version != self.center.version
+               for srv in self.servers):
+            return None
+        version = (self.center.version,
+                   tuple(srv.augmented_version for srv in self.servers))
+        if self._engines_version != version:
+            # drop the stale engines' device tables BEFORE building a
+            # replacement: holding both doubles peak device memory
+            self._engines.clear()
+            self._engines_version = version
+        key = label_dtype or "auto"
+        engine = self._engines.get(key)
+        if engine is None:
+            from .engine import BatchedQueryEngine
+            engine = self._engines[key] = BatchedQueryEngine(
+                self.center.border_labels.table,
+                [srv.augmented for srv in self.servers],
+                self.partition.assignment,
+                quant=self._resolve_quant(label_dtype), device=self.device)
+        return engine
+
+    def current_engine(self):
+        """Public accessor for the active serving-engine snapshot (None
+        during a rebuild window)."""
+        return self._current_engine()
+
+    def query_loop(self, ss: np.ndarray, ts: np.ndarray) -> np.ndarray:
+        """Per-query Python reference path (parity + benchmark baseline);
+        the ``ScalarLoopPlane`` of the request plane."""
+        svc = self.service()
+        out = svc.scalar_plane().execute(np.asarray(ss, dtype=np.int64),
+                                         np.asarray(ts, dtype=np.int64))
+        self._merge_stats(svc.stats)
+        return out

@@ -1,0 +1,121 @@
+"""The fused gather + 2-hop label join on the card.
+
+``gather_join`` is the one wrapper of ``csrc/label_join.cu``: for query
+i it joins row ``rs[i]`` of ``s_table`` with row ``rt[i]`` of
+``t_table`` — out[i] = min_j s + t, and with ``with_lb`` also the Local
+Bound min_j s + min_j t — without materializing the gathered rows.
+It replaces the JAX package's Pallas kernels ``join_pallas`` and
+``join_lb_pallas`` (``src/repro/kernels/label_join/kernel.py``) together
+with the XLA gathers in front of them.
+
+On a CUDA tensor the wrapper launches the kernel (building it on first
+use) or raises; on a CPU tensor it runs the plain version of ``ref.py``.
+There is no other path. ``LAUNCHES`` counts kernel launches per kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .. import build
+from .ref import gather_join_ref, storage16
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "label_join.cu"
+
+# kernel launches since the last reset, per kernel (plain-version calls
+# on the CPU are not launches)
+LAUNCHES = {"label_join": 0, "label_join_lb": 0}
+
+_DTYPE_FLOAT32, _DTYPE_UINT16, _DTYPE_INT16 = 0, 1, 2
+_SENTINELS = {0xFFFF: _DTYPE_UINT16, 0x7FFF: _DTYPE_INT16}
+_CODE_DTYPES = tuple(d for d in (torch.int16, getattr(torch, "uint16", None))
+                     if d is not None)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    fn = lib.repro_label_join
+    if fn.argtypes is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, i64, p, p, i64,
+                       i64, i64, ctypes.c_int, ctypes.c_float, p, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(s_table, rs, t_table, rt, quant, with_lb) -> None:
+    dev = s_table.device
+    if any(x.device != dev for x in (rs, t_table, rt)):
+        raise ValueError("gather_join: tables and row ids must share a "
+                         "device")
+    if s_table.dim() != 2 or t_table.dim() != 2 \
+            or s_table.shape[1] != t_table.shape[1]:
+        raise ValueError("gather_join: tables must be 2-D with one width, "
+                         f"got {tuple(s_table.shape)} and "
+                         f"{tuple(t_table.shape)}")
+    if rs.dim() != 1 or rs.shape != rt.shape \
+            or rs.dtype != torch.int64 or rt.dtype != torch.int64:
+        raise ValueError("gather_join: row ids must be two int64 vectors "
+                         "of one length")
+    if quant is None:
+        if s_table.dtype != torch.float32 or t_table.dtype != torch.float32:
+            raise ValueError("gather_join: float tables must be float32")
+    else:
+        if s_table.dtype not in _CODE_DTYPES \
+                or t_table.dtype not in _CODE_DTYPES:
+            raise ValueError("gather_join: code tables must hold 16-bit "
+                             "integer codes")
+        if quant[0] not in _SENTINELS:
+            raise ValueError(f"gather_join: sentinel {quant[0]} is neither "
+                             "the uint16 nor the int16 maximum")
+        if with_lb:
+            raise ValueError("gather_join: the Local Bound is computed on "
+                             "float32 tables only")
+
+
+def gather_join(s_table: torch.Tensor, rs: torch.Tensor,
+                t_table: torch.Tensor, rt: torch.Tensor, *,
+                quant: tuple[int, float] | None = None,
+                with_lb: bool = False):
+    """Fused gather + join. ``quant = (sentinel, scale)`` marks 16-bit
+    code tables (uint16 when the sentinel is 65535, int16 when 32767;
+    uint16 codes may be stored as int16 bits). Returns float32 ``out``
+    of shape ``(Q,)``, or ``(out, lb)`` with ``with_lb``. Row ids must
+    index their tables (the ops layer checks ids from the host)."""
+    _check(s_table, rs, t_table, rt, quant, with_lb)
+    dev = s_table.device
+    if dev.type == "cpu":
+        return gather_join_ref(s_table, rs, t_table, rt, quant=quant,
+                               with_lb=with_lb)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_join: unsupported device {dev}")
+    for name, x in (("s_table", s_table), ("t_table", t_table),
+                    ("rs", rs), ("rt", rt)):
+        if not x.is_contiguous():
+            raise ValueError(f"gather_join: {name} must be contiguous")
+    q, w = rs.shape[0], s_table.shape[1]
+    fn = _lib().repro_label_join if q else None
+    out = torch.empty(q, dtype=torch.float32, device=dev)
+    lb = torch.empty(q, dtype=torch.float32, device=dev) if with_lb else None
+    if q:
+        if quant is None:
+            code, sentinel, scale = _DTYPE_FLOAT32, 0, 1.0
+        else:
+            sentinel, scale = quant
+            code = _SENTINELS[sentinel]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(code, int(with_lb),
+                     storage16(s_table).data_ptr(), rs.data_ptr(),
+                     s_table.shape[0],
+                     storage16(t_table).data_ptr(), rt.data_ptr(),
+                     t_table.shape[0], q, w, int(sentinel), float(scale),
+                     out.data_ptr(), 0 if lb is None else lb.data_ptr(),
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"label_join kernel launch failed: CUDA "
+                               f"error {err}")
+        LAUNCHES["label_join_lb" if with_lb else "label_join"] += 1
+    return (out, lb) if with_lb else out

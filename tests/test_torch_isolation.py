@@ -1,0 +1,134 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no quiet CPU.
+
+* every ``repro_torch`` module, and ``chip_smoke.py``, imports in a
+  process where ``import jax`` fails, and loads no ``repro`` module;
+* entry points default to the CUDA device and raise without one;
+* a CUDA tensor handed to the kernel wrapper launches or raises — it
+  never runs the plain version;
+* ``chip_smoke.py`` exits non-zero without a card, and in a directory
+  that holds nothing else of the repository.
+"""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bfs_grow_partition, grid_road_network
+from repro_torch.edge import BatchedQueryEngine, EdgeSystem
+from repro_torch.kernels.label_join import kernel, ops
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None              # any `import jax` now fails
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+loaded = sorted(k for k in sys.modules
+                if k == "repro" or k.startswith("repro."))
+assert not loaded, loaded
+assert sys.modules["jax"] is None
+print("IMPORTED", len([k for k in sys.modules
+                       if k.startswith("repro_torch")]))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(ROOT)],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split("IMPORTED")[1]) >= 20
+
+
+def _require_cpu_only_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts "
+                    "without one")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _require_cpu_only_host()
+    g = grid_road_network(4, 4, seed=0)
+    part = bfs_grow_partition(g, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EdgeSystem.deploy(g, part)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedQueryEngine(np.zeros((16, 0), np.float32), [],
+                           part.assignment)
+
+
+class _CudaLooking(torch.Tensor):
+    """A host tensor that reports the CUDA device: what the wrapper sees
+    for a tensor on the card, on a host that has none."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("with_lb", [False, True])
+def test_cuda_tensor_launches_or_raises_never_falls_back(monkeypatch,
+                                                         with_lb):
+    _require_cpu_only_host()
+
+    def no_fallback(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(kernel, "gather_join_ref", no_fallback)
+    monkeypatch.setattr(kernel.build, "_LOADED", {})
+    monkeypatch.setenv("PATH", "")           # no nvcc on this host anyway
+    table = torch.zeros((6, 4)).as_subclass(_CudaLooking)
+    rows = torch.arange(3).as_subclass(_CudaLooking)
+    before = dict(kernel.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernel.gather_join(table, rows, table, rows, with_lb=with_lb)
+    assert kernel.LAUNCHES == before
+
+
+def test_ops_on_an_unsupported_device_raise():
+    table = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernel.gather_join(table, torch.zeros(2, dtype=torch.int64,
+                                              device="meta"),
+                           table, torch.zeros(2, dtype=torch.int64,
+                                              device="meta"))
+    with pytest.raises(ValueError):
+        EdgeSystem.deploy(grid_road_network(3, 3), None, device="meta")
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        ops.join_gathered(np.zeros((3, 2), np.float32), [0], [1])
+
+
+def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
+    _require_cpu_only_host()
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
+        out = subprocess.run([sys.executable, str(script)], env=_env(),
+                             cwd=cwd, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
+
+
+def test_gpu_marker_is_registered(pytestconfig):
+    assert any(m.startswith("gpu:")
+               for m in pytestconfig.getini("markers"))

@@ -1,0 +1,237 @@
+"""The port's label joins against the JAX package, bit for bit.
+
+The same numpy-seeded inputs go through the JAX package's Pallas
+kernels (interpret mode, as its own tests run them on the CPU), its
+XLA/NumPy references and serving entry points, and through the port's
+plain PyTorch versions and ops on ``device="cpu"``. Tolerance: none —
+min is exact and order-free, ``s + t`` is one IEEE float32 add, codes
+below 2^16 and their sums are exact in float32, and the quantized
+``· scale`` is one float32 multiply on both sides.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.label_join import ops as rops
+from repro.kernels.label_join.kernel import join_lb_pallas, join_pallas
+from repro.kernels.label_join.ref import (join_ref as rjoin_ref,
+                                          join_sparse_ref as rsparse_ref,
+                                          local_bound_ref as rlb_ref)
+from repro_torch.kernels import build
+from repro_torch.kernels.label_join import kernel, ops, ref
+
+jax.config.update("jax_enable_x64", False)
+
+JOIN_SHAPES = [(1, 1), (5, 7), (64, 128), (100, 257), (512, 512), (3, 1024)]
+LB_SHAPES = [(16, 32), (100, 130), (257, 64)]
+
+
+def _rand_dist(rng, shape, inf_frac=0.3):
+    x = rng.uniform(0.5, 50.0, size=shape).astype(np.float32)
+    x[rng.random(shape) < inf_frac] = np.inf
+    return x
+
+
+def _rand_codes(rng, shape, dtype, inf_frac=0.15):
+    sentinel = np.iinfo(dtype).max
+    c = rng.integers(0, sentinel, size=shape).astype(dtype)
+    c[rng.random(shape) < inf_frac] = sentinel
+    return c, int(sentinel)
+
+
+def _t(x: np.ndarray) -> torch.Tensor:
+    return ops.upload(x, "cpu")
+
+
+@pytest.mark.parametrize("q,h", JOIN_SHAPES)
+def test_join_matches_pallas_and_ref(q, h):
+    rng = np.random.default_rng(q * 31 + h)
+    s, t = _rand_dist(rng, (q, h)), _rand_dist(rng, (q, h))
+    pallas = np.asarray(join_pallas(jnp.asarray(s), jnp.asarray(t),
+                                    bq=32, bh=64, interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(rjoin_ref(jnp.asarray(s), jnp.asarray(t))), pallas)
+    np.testing.assert_array_equal(ref.join_ref(_t(s), _t(t)).numpy(),
+                                  pallas)
+    np.testing.assert_array_equal(ops.join(_t(s), _t(t)).numpy(), pallas)
+
+
+@pytest.mark.parametrize("q,h", LB_SHAPES)
+def test_join_with_bound_matches_pallas_and_ref(q, h):
+    rng = np.random.default_rng(q + h)
+    s, t = _rand_dist(rng, (q, h)), _rand_dist(rng, (q, h))
+    lam, lb = join_lb_pallas(jnp.asarray(s), jnp.asarray(t), bq=32, bh=64,
+                             interpret=True)
+    np.testing.assert_array_equal(
+        np.asarray(rlb_ref(jnp.asarray(s), jnp.asarray(t))), np.asarray(lb))
+    got_lam, got_lb = ops.join_with_bound(_t(s), _t(t))
+    np.testing.assert_array_equal(got_lam.numpy(), np.asarray(lam))
+    np.testing.assert_array_equal(got_lb.numpy(), np.asarray(lb))
+    np.testing.assert_array_equal(ref.local_bound_ref(_t(s), _t(t)).numpy(),
+                                  np.asarray(lb))
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int16])
+@pytest.mark.parametrize("scale", [1.0, 0.37])
+@pytest.mark.parametrize("q,h", [(7, 5), (100, 130), (300, 64)])
+def test_join_quantized_matches_both_reference_paths(q, h, scale, dtype):
+    rng = np.random.default_rng(q * 7 + h)
+    s, sentinel = _rand_codes(rng, (q, h), dtype)
+    t, _ = _rand_codes(rng, (q, h), dtype)
+    want = np.asarray(rops.join_quantized(
+        jnp.asarray(s), jnp.asarray(t), sentinel=sentinel, scale=scale,
+        use_pallas=False))
+    pallas = np.asarray(rops.join_quantized(
+        jnp.asarray(s), jnp.asarray(t), sentinel=sentinel, scale=scale,
+        use_pallas=True))
+    np.testing.assert_array_equal(pallas, want)
+    got = ops.join_quantized(_t(s), _t(t), sentinel=sentinel, scale=scale)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # uint16 tensors are read through their int16 bits
+    if dtype is np.uint16:
+        native = torch.from_numpy(s), torch.from_numpy(t)
+        np.testing.assert_array_equal(
+            ops.join_quantized(*native, sentinel=sentinel,
+                               scale=scale).numpy(), want)
+
+
+def test_join_sparse_matches_reference_and_labels():
+    from repro_torch.core import grid_road_network, pll
+    g = grid_road_network(5, 5, seed=2)
+    labels = pll(g)
+    rng = np.random.default_rng(3)
+    ss = rng.integers(0, g.num_vertices, size=30)
+    ts = rng.integers(0, g.num_vertices, size=30)
+    args = (labels.hubs[ss], labels.dists[ss], labels.hubs[ts],
+            labels.dists[ts])
+    want = np.asarray(rsparse_ref(*map(jnp.asarray, args)))
+    got = ops.join_sparse(*map(torch.from_numpy, args)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, labels.query_many(ss, ts))
+
+
+# -- gathered serving entry points, empty and zero-width cases included -----
+
+GATHERED = [(0, 16), (1, 1), (37, 5), (300, 64), (40, 0), (0, 0)]
+
+
+def _gathered_case(qn, w, seed):
+    rng = np.random.default_rng(seed)
+    rows = 50
+    table = _rand_dist(rng, (rows, w))
+    ss = rng.integers(0, rows, qn)
+    ts = rng.integers(0, rows, qn)
+    return rng, table, ss, ts
+
+
+@pytest.mark.parametrize("qn,w", GATHERED)
+def test_join_gathered_matches_reference(qn, w):
+    _, table, ss, ts = _gathered_case(qn, w, 1 + qn + w)
+    want = rops.join_gathered(table, ss, ts)
+    for tab in (_t(table), ops.upload(table, "cpu")):
+        got = ops.join_gathered(tab, ss, ts)
+        assert got.dtype == np.float32 and got.shape == (qn,)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("qn,w", GATHERED)
+def test_bound_gathered_matches_reference(qn, w):
+    _, table, ss, ts = _gathered_case(qn, w, 2 + qn + w)
+    want = rops.bound_gathered(table, ss, ts)
+    got = ops.bound_gathered(_t(table), ss, ts)
+    assert got.shape == (qn,)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int16])
+@pytest.mark.parametrize("qn,w", GATHERED)
+def test_join_quantized_gathered_matches_reference(qn, w, dtype):
+    rng = np.random.default_rng(3 + qn + w)
+    table, sentinel = _rand_codes(rng, (50, w), dtype)
+    ss, ts = rng.integers(0, 50, qn), rng.integers(0, 50, qn)
+    want = rops.join_quantized_gathered(table, ss, ts, sentinel=sentinel,
+                                        scale=1.0)
+    got = ops.join_quantized_gathered(_t(table), ss, ts, sentinel=sentinel,
+                                      scale=1.0)
+    assert got.shape == (qn,)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("qn", [0, 1, 45])
+def test_join_sparse_gathered_matches_reference(qn):
+    from repro_torch.core import grid_road_network, pll
+    labels = pll(grid_road_network(4, 6, seed=qn))
+    rng = np.random.default_rng(qn)
+    ss = rng.integers(0, labels.num_vertices, qn)
+    ts = rng.integers(0, labels.num_vertices, qn)
+    want = rops.join_sparse_gathered(labels.hubs, labels.dists, ss, ts)
+    got = ops.join_sparse_gathered(torch.from_numpy(labels.hubs),
+                                   torch.from_numpy(labels.dists), ss, ts)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+# -- the fused kernel's plain version and wrapper contract -------------------
+
+@pytest.mark.parametrize("with_lb", [False, True])
+def test_gather_join_plain_reads_two_tables(with_lb):
+    rng = np.random.default_rng(9)
+    s, t = _rand_dist(rng, (30, 40)), _rand_dist(rng, (17, 40))
+    rs, rt = rng.integers(0, 30, 64), rng.integers(0, 17, 64)
+    got = kernel.gather_join(_t(s), torch.from_numpy(rs), _t(t),
+                             torch.from_numpy(rt), with_lb=with_lb)
+    want = np.asarray(rjoin_ref(jnp.asarray(s[rs]), jnp.asarray(t[rt])))
+    lam = got[0] if with_lb else got
+    np.testing.assert_array_equal(lam.numpy(), want)
+    if with_lb:
+        np.testing.assert_array_equal(
+            got[1].numpy(),
+            np.asarray(rlb_ref(jnp.asarray(s[rs]), jnp.asarray(t[rt]))))
+
+
+def test_cpu_calls_run_the_plain_version_and_count_no_launch():
+    before = dict(kernel.LAUNCHES)
+    rng = np.random.default_rng(4)
+    table = _rand_dist(rng, (20, 8))
+    ops.join_gathered(_t(table), np.arange(5), np.arange(5))
+    ops.bound_gathered(_t(table), np.arange(5), np.arange(5))
+    assert kernel.LAUNCHES == before
+
+
+def test_row_ids_out_of_range_raise():
+    table = _t(np.zeros((4, 3), dtype=np.float32))
+    with pytest.raises(IndexError):
+        ops.join_gathered(table, np.array([0, 4]), np.array([1, 1]))
+    with pytest.raises(IndexError):
+        ops.bound_gathered(table, np.array([-1]), np.array([1]))
+
+
+@pytest.mark.parametrize("case", ["f32_as_codes", "codes_as_f32",
+                                  "lb_on_codes", "bad_sentinel",
+                                  "widths", "row_dtype"])
+def test_gather_join_rejects_what_the_kernel_does_not_take(case):
+    f = torch.zeros((4, 3))
+    c = torch.zeros((4, 3), dtype=torch.int16)
+    ids = torch.zeros(2, dtype=torch.int64)
+    args, kw = {
+        "f32_as_codes": ((f, ids, f, ids), {"quant": (65535, 1.0)}),
+        "codes_as_f32": ((c, ids, c, ids), {}),
+        "lb_on_codes": ((c, ids, c, ids), {"quant": (65535, 1.0),
+                                           "with_lb": True}),
+        "bad_sentinel": ((c, ids, c, ids), {"quant": (255, 1.0)}),
+        "widths": ((f, ids, torch.zeros((4, 5)), ids), {}),
+        "row_dtype": ((f, ids.int(), f, ids.int()), {}),
+    }[case]
+    with pytest.raises(ValueError):
+        kernel.gather_join(*args, **kw)
+
+
+def test_build_targets_hopper_without_fast_math():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "-fmad=false" in flags
+    lib = build.library_path(kernel.SOURCE)
+    assert lib.parent == build.BUILD_DIR
+    assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
