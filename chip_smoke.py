@@ -3,18 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, drives the port's
-serving path end to end — deploy → ``DistanceService.submit`` in float32
-and uint16 storage → a rebuild window under all three modes → back to
-steady state — and the rule-3 join at 102 400 vertices, checks answers
-against the scalar loop, the plain versions and Dijkstra, and times
-every kernel at the path's shapes with CUDA events, with its rows read
-from HBM and again with them warm in L2. Prints one JSON
-object per phase, the ``kernels`` line, the card's name and power limit,
-and last ``{"ok": true, "device": ...}``. Any failure exits non-zero
-before the last line; so does a host without a CUDA device, or a
-directory that lacks ``src/repro_torch``. Imports nothing of JAX.
+Builds the CUDA kernels from the sources in this checkout (one ``nvcc``
+per source, all at once), holds each kernel against its plain PyTorch
+version on the card, and drives the port's two paths:
+
+* serving at n = 4096 — deploy with the staged builder on the card
+  (``builder="torch"``) → ``DistanceService.submit`` in float32 and
+  uint16 storage → a rebuild window (B rebuilt by the staged builder)
+  under all three modes → back to steady state;
+* the computing center at n = 102 400 — B built on the card by the
+  staged builder, held against the host's Dijkstra stage A and
+  hierarchical builder, then the rule-3 join.
+
+It checks answers against the scalar loop, the plain versions, the host
+builders and Dijkstra, and times every kernel at the paths' shapes with
+CUDA events, with its inputs read from HBM where the shape allows it.
+Prints one JSON object per phase, the ``kernels`` line, the card's name
+and power limit, and last ``{"ok": true, "device": ...}``. Any failure
+exits non-zero before the last line; so does a host without a CUDA
+device, or a directory that lacks ``src/repro_torch``. Imports nothing
+of JAX.
 """
 from __future__ import annotations
 
@@ -33,6 +41,10 @@ SRC = ROOT / "src"
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# the min-plus bound counts 2 instructions per term (FADD, FMNMX) on 128
+# FP32 lanes per SM per clock — the same as FMNMX alone at 64 results
+# per SM per clock, the cc 9.0 rate for compare/min/max
+MINPLUS_LANES_PER_SM = 128
 # H100 SXM L2 size; timed calls cycle through copies of their inputs so
 # that rows come from HBM, within a device-memory budget for the copies
 L2_BYTES = 50 << 20
@@ -123,6 +135,56 @@ def phase_kernels(torch, dev, kernel, ref, errs: dict) -> dict:
             "ok": True}
 
 
+# min-plus shapes (batch or None, m, k, n): unaligned ones, then the
+# builder's — the closure squarings at q = 93 / 96 and stage C at both
+# sizes, (m, kmax, bmax) x (m, bmax, q)
+MINPLUS_SHAPES = [(None, 1, 1, 1), (None, 5, 7, 3), (None, 130, 70, 33),
+                  (3, 37, 0, 5), (2, 200, 300, 65), (None, 93, 93, 93),
+                  (None, 96, 96, 96), (16, 256, 8, 93), (16, 6400, 8, 96)]
+# relax shapes (batch or None, s, v): unaligned ones, then stage A's
+# sweep at both sizes, (m, bmax, kmax) x (m, kmax, kmax)
+RELAX_SHAPES = [(None, 1, 1), (None, 8, 33), (2, 13, 300), (3, 5, 129),
+                (16, 8, 256), (16, 8, 6400)]
+
+
+def rand_dist(torch, gen, shape, inf_frac: float):
+    """Seeded distances in [0.5, 50) with a share of +inf, on the card."""
+    dev = gen.device
+    x = torch.rand(shape, generator=gen, device=dev) * 49.5 + 0.5
+    x[torch.rand(shape, generator=gen, device=dev) < inf_frac] = \
+        float("inf")
+    return x
+
+
+def phase_minplus_kernels(torch, dev, errs: dict) -> dict:
+    from repro_torch.kernels.minplus import kernel, ref
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for batch, m, k, n in MINPLUS_SHAPES:
+        lead = () if batch is None else (batch,)
+        a = rand_dist(torch, gen, (*lead, m, k), 0.3)
+        b = rand_dist(torch, gen, (*lead, k, n), 0.3)
+        got = kernel.minplus(a, b)
+        sync(torch, dev)
+        want = ref.minplus_ref(a, b)
+        check(torch.equal(got, want), f"minplus {lead}x{m}x{k}x{n}")
+        errs["minplus"] = max(errs["minplus"], max_abs_err(got, want))
+    for batch, s, v in RELAX_SHAPES:
+        lead = () if batch is None else (batch,)
+        d = rand_dist(torch, gen, (*lead, s, v), 0.5)
+        a = rand_dist(torch, gen, (*lead, v, v), 0.99 if v > 1000 else 0.9)
+        kept = d.clone()
+        got = kernel.relax(d, a)
+        sync(torch, dev)
+        want = ref.relax_ref(d, a)
+        check(torch.equal(got, want), f"relax {lead}x{s}x{v}")
+        check(torch.equal(d, kept), f"relax {lead}x{s}x{v} wrote its input")
+        errs["relax"] = max(errs["relax"], max_abs_err(got, want))
+        del a, want
+    return {"phase": "kernels_vs_plain_minplus",
+            "minplus_shapes": MINPLUS_SHAPES, "relax_shapes": RELAX_SHAPES,
+            "dtype": "float32", "tolerance": "bitwise", "ok": True}
+
+
 # -- phase 3: the serving path at n = 4096 -----------------------------------
 
 def mixed_batch(part, rng, size: int):
@@ -151,11 +213,23 @@ def spot_check_dijkstra(g, ss, ts, got, dijkstra, count: int) -> int:
     return count
 
 
+def reset_launches(*modules) -> None:
+    for mod in modules:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def launch_counts(*modules) -> dict:
+    return {k: v for mod in modules for k, v in mod.LAUNCHES.items()}
+
+
 def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
-    from repro_torch.core import dijkstra, perturb_weights
+    from repro_torch.core import (build_border_labels_reference, dijkstra,
+                                  perturb_weights)
     from repro_torch.edge import BatchedQueryEngine, EdgeSystem
     from repro_torch.ingest import synthetic_continent
     from repro_torch.kernels.label_join import kernel, ref
+    from repro_torch.kernels.minplus import kernel as mp_kernel
     from repro_torch.serve import (CERTIFY_OR_WAIT, INSTALL_NOW, STALE_OK,
                                    ServingPolicy)
 
@@ -164,11 +238,15 @@ def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
     rng = np.random.default_rng(11)
     ss, ts, client = mixed_batch(part, rng, BATCH)
 
-    for k in kernel.LAUNCHES:
-        kernel.LAUNCHES[k] = 0
+    reset_launches(kernel, mp_kernel)
     t0 = time.perf_counter()
-    system = EdgeSystem.deploy(g, part, device=dev)
+    system = EdgeSystem.deploy(g, part, builder="torch", device=dev)
     deploy_s = time.perf_counter() - t0
+    center_build_s = system.center.last_build_seconds
+    build_timings = dict(system.center.incremental_builder().timings)
+    check(np.array_equal(system.center.border_labels.table,
+                         build_border_labels_reference(g, part).table),
+          "card-built B differs from the host reference B")
     svc32 = system.service(ServingPolicy(label_dtype="float32"))
     svc16 = system.service(ServingPolicy(label_dtype="uint16"))
     b32 = svc32.submit(ss, ts, client_districts=client)
@@ -185,6 +263,9 @@ def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
         srv.refresh_local(g2, part)
     system.center.rebuild(w2)
     check(system.current_engine() is None, "window did not open")
+    check(np.array_equal(system.center.border_labels.table,
+                         build_border_labels_reference(g2, part).table),
+          "card-rebuilt B differs from the host reference B")
     t0 = time.perf_counter()
     stale = system.service(ServingPolicy(rebuild=STALE_OK)).submit(
         ss, ts, client_districts=client)
@@ -203,7 +284,7 @@ def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
                                   system.center.version)
     after32 = svc32.submit(ss, ts, client_districts=client)
     after16 = svc16.submit(ss, ts, client_districts=client)
-    launches.update(kernel.LAUNCHES)
+    launches.update(launch_counts(kernel, mp_kernel))
 
     # steady state: f32 == u16 == scalar loop == plain ops on the tables
     check(np.array_equal(b32.distances, b16.distances), "f32 vs uint16")
@@ -249,7 +330,7 @@ def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
           and np.array_equal(after16.distances, now.distances),
           "post-window steady state vs install_now")
     spots += spot_check_dijkstra(g2, ss, ts, after32.distances, dijkstra, 6)
-    check(launches["label_join"] > 0 and launches["label_join_lb"] > 0,
+    check(all(v > 0 for v in launches.values()),
           f"main path missed a kernel: {launches}")
 
     shapes = {
@@ -272,37 +353,69 @@ def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
            "combined_table": list(eng32.table.shape),
            "batch": BATCH, "rules_1_2_3": rules,
            "certified": int(cert.sum()), "residue": int(residue.sum()),
-           "deploy_s": deploy_s, "window_submit_s": window_s,
+           "deploy_s": deploy_s, "center_build_s": center_build_s,
+           "edge_local_build_s": deploy_s - center_build_s,
+           "center_build_steps": build_timings,
+           "b_equals_host_reference": True, "window_submit_s": window_s,
            "dijkstra_spot_pairs": spots, "launches": dict(launches),
            "ok": True}
     return out, {"system": system, "svc32": svc32, "svc16": svc16,
-                 "ss": ss, "ts": ts, "client": client, "shapes": shapes}
+                 "ss": ss, "ts": ts, "client": client, "shapes": shapes,
+                 "build_state": system.center.incremental_builder().state}
 
 
 # -- phase 4: the rule-3 join at n = 102 400 ---------------------------------
 
-def phase_center(torch, dev, errs: dict) -> tuple[dict, dict]:
+def host_stage_a(g, part, packed) -> np.ndarray:
+    """The host's stage A (restricted Dijkstra from every border) in the
+    staged builder's padded (m, bmax, kmax) layout."""
+    from repro_torch.core.border_labeling import intra_district_distances
+    out = np.full((packed.num_districts, packed.bmax, packed.kmax), np.inf,
+                  dtype=np.float32)
+    for i, dd in enumerate(intra_district_distances(g, part)):
+        out[i, :dd.dist.shape[0], :dd.dist.shape[1]] = dd.dist
+    return out
+
+
+def phase_center(torch, dev, errs: dict) -> tuple[dict, dict, object]:
     from repro_torch.core import (QuantSpec, build_border_labels_hierarchical,
                                   dijkstra)
     from repro_torch.edge import ComputingCenter
     from repro_torch.ingest import synthetic_continent
     from repro_torch.kernels.label_join import kernel, ops, ref
+    from repro_torch.kernels.minplus import kernel as mp_kernel
 
     csr, part = synthetic_continent(**LARGE)
     g = csr.to_graph()
     t0 = time.perf_counter()
-    bl = build_border_labels_hierarchical(g, part)
+    host_b = build_border_labels_hierarchical(g, part).table
     build_s = time.perf_counter() - t0
-    center = ComputingCenter(g, part, border_labels=bl, version=1,
-                             device=dev)
+
+    # B built on the card by the staged builder
+    reset_launches(kernel, mp_kernel)
+    center = ComputingCenter(g, part, builder="torch", device=dev)
+    staged_s = center.rebuild()
+    build_launches = launch_counts(mp_kernel)
+    state = center.incremental_builder().state
+    steps = dict(center.incremental_builder().timings)
+    bl = center.border_labels
+    check(np.array_equal(bl.table, host_b),
+          "card-built B differs from the host hierarchical B at n = 102400")
+    t0 = time.perf_counter()
+    check(np.array_equal(state.intra, host_stage_a(g, part, state.packed)),
+          "card stage A differs from the host Dijkstra stage A")
+    host_stage_a_s = time.perf_counter() - t0
+    check(all(v > 0 for v in build_launches.values()),
+          f"the staged build missed a kernel: {build_launches}")
+
     spec = QuantSpec.fit(bl.table)
     check(spec.lossless, "B does not quantize losslessly")
     codes = ops.upload(spec.quantize(bl.table), dev)
     btab = center.border_table_device()
+    check(btab is state.table_device, "B was uploaded again")
     rng = np.random.default_rng(5)
     n = g.num_vertices
-    for k in kernel.LAUNCHES:
-        kernel.LAUNCHES[k] = 0
+    reset_launches(kernel)
     shapes = {}
     spots = 0
     for q in CENTER_BATCHES:
@@ -325,12 +438,22 @@ def phase_center(torch, dev, errs: dict) -> tuple[dict, dict]:
         shapes[f"rule3_f32_q{q}"] = (btab, ss, ts, None)
         shapes[f"rule3_u16_q{q}"] = (codes, ss, ts, spec.key())
     out = {"phase": "rule3_n102400", "n": int(n),
+           "districts": int(part.num_districts),
+           "kmax": state.packed.kmax, "bmax": state.packed.bmax,
            "borders": int(bl.table.shape[1]),
+           "adjacency_gb": state.packed.adj.nbytes / 1e9,
            "b_table_mb": bl.table.nbytes / 1e6,
-           "hierarchical_build_s": build_s, "batches": list(CENTER_BATCHES),
-           "dijkstra_spot_pairs": spots, "launches": dict(kernel.LAUNCHES),
-           "ok": True}
-    return out, shapes
+           "staged_build_s": staged_s, "staged_build_steps": steps,
+           "stage_a_sweeps": steps["stage_a_sweeps"],
+           "hierarchical_build_s": build_s,
+           "host_stage_a_s": host_stage_a_s,
+           "b_equals_host_hierarchical": True,
+           "intra_equals_host_dijkstra": True,
+           "build_launches": build_launches,
+           "batches": list(CENTER_BATCHES),
+           "dijkstra_spot_pairs": spots,
+           "join_launches": dict(kernel.LAUNCHES), "ok": True}
+    return out, shapes, state
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -371,17 +494,17 @@ def device_ms(torch, fn, inputs: list, calls: int = 20,
     return event_ms(torch, graph.replay, replays) / calls
 
 
-def cold_inputs(table, rs, rt, touched: int) -> tuple[list, bool]:
-    """Copies of ``(table, rs, rt)`` to cycle through, so that between
-    two reads of one copy the other copies' touched rows (``touched``
-    bytes per call) sweep at least twice the L2 and every call reads its
-    rows from HBM. Returns the copies and whether that margin was
+def cold_inputs(args: tuple, touched: int) -> tuple[list, bool]:
+    """Copies of the tensors ``args`` to cycle through, so that between
+    two reads of one copy the other copies' touched bytes (``touched``
+    per call) sweep at least twice the L2 and every call reads its
+    inputs from HBM. Returns the copies and whether that margin was
     reached (a tiny call would need more copies than ``MAX_COPIES``)."""
     want = -(-2 * L2_BYTES // max(touched, 1)) + 1
-    budget = COPY_BUDGET_BYTES // (table.numel() * table.element_size() + 1)
+    size = sum(x.numel() * x.element_size() for x in args)
+    budget = COPY_BUDGET_BYTES // (size + 1)
     k = int(max(2, min(want, MAX_COPIES, budget)))
-    copies = [(table, rs, rt)] + [(table.clone(), rs.clone(), rt.clone())
-                                  for _ in range(k - 1)]
+    copies = [args] + [tuple(x.clone() for x in args) for _ in range(k - 1)]
     return copies, (k - 1) * touched >= 2 * L2_BYTES
 
 
@@ -400,7 +523,7 @@ def time_shape(torch, kernel, ref, name, table, ss, ts, quant) -> dict:
     ops = (4 if with_lb else 2) * q * w
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-    cold, from_hbm = cold_inputs(table, rs, rt, table_bytes + 16 * q)
+    cold, from_hbm = cold_inputs((table, rs, rt), table_bytes + 16 * q)
     warm = [(table, rs, rt)]
 
     def launch(tab, a, b):
@@ -435,6 +558,81 @@ def time_shape(torch, kernel, ref, name, table, ss, ts, quant) -> dict:
             "share_of_bound": bound_ms / kernel_ms if from_hbm else None}
 
 
+def builder_shapes(torch, tag: str, st) -> dict:
+    """The staged builder's kernel inputs at one size, rebuilt on the
+    card from its host ``BuildState``: stage A's sweep (the converged
+    distances and the dense adjacency), stage B's squaring and stage
+    C's product."""
+    slot = st.packed.border_slot
+    crows = np.where((slot >= 0)[..., None],
+                     st.closure[np.clip(slot, 0, None)], np.inf)
+    up = [torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).cuda()
+          for x in (st.intra, st.packed.adj, st.closure,
+                    st.intra.transpose(0, 2, 1), crows)]
+    intra, adj, clo, intra_t, crows = up
+    return {f"stage_a_{tag}": ("relax", intra, adj),
+            f"closure_{tag}": ("minplus", clo, clo),
+            f"stage_c_{tag}": ("minplus", intra_t, crows)}
+
+
+def time_builder_shape(torch, name: str, kernel_name: str, x, y,
+                       sm_count: int, clock_hz: float) -> dict:
+    from repro_torch.kernels.minplus import kernel, ref
+    fn = getattr(kernel, kernel_name)
+    plain = ref.relax_ref if kernel_name == "relax" else ref.minplus_ref
+    before = dict(kernel.LAUNCHES)
+    out = fn(x, y)
+    batch = x.shape[0] if x.dim() == 3 else 1
+    terms = batch * x.shape[-2] * x.shape[-1] * y.shape[-1]
+    in_bytes = (x.numel() + y.numel()) * 4
+    nbytes = in_bytes + out.numel() * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 2 * terms / (sm_count * MINPLUS_LANES_PER_SM * clock_hz) * 1e3
+    if in_bytes >= 2 * L2_BYTES:        # each call streams from HBM
+        inputs, from_hbm, calls, replays = [(x, y)], True, 4, 3
+    else:
+        (inputs, from_hbm), calls, replays = \
+            cold_inputs((x, y), in_bytes), 20, 20
+    kernel_ms = device_ms(torch, fn, inputs, calls, replays)
+    kernel.LAUNCHES.update(before)      # timing launches are not the path's
+    plain_ms = device_ms(torch, plain, inputs, min(calls, 4),
+                         min(replays, 3))
+    copies = len(inputs)
+    del inputs
+    bound_ms = max(bytes_ms, ops_ms)
+    return {"shape": name, "kernel": kernel_name,
+            "dims": [list(x.shape), list(y.shape)], "terms": terms,
+            "bytes": nbytes, "copies": copies,
+            "inputs_from_hbm": from_hbm, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound_ms / kernel_ms if from_hbm else None}
+
+
+def phase_builder_times(torch, states: dict) -> dict:
+    props = torch.cuda.get_device_properties(0)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    rows = []
+    for tag, st in states.items():
+        for name, (kname, x, y) in builder_shapes(torch, tag, st).items():
+            rows.append(time_builder_shape(torch, name, kname, x, y,
+                                           props.multi_processor_count,
+                                           clock_mhz * 1e6))
+    return {"phase": "builder_times", "timer": "device ms per launch from "
+            "CUDA-graph replays timed with CUDA events; below 2x the L2 the "
+            "calls cycle through copies of the inputs (inputs_from_hbm), "
+            "above it each call streams its inputs from HBM", "bound":
+            "max(inputs + output at 3.35 TB/s, terms x 2 instructions / "
+            "(SMs x 128 lanes x max SM clock))", "library_ms": "null: no "
+            "single PyTorch call computes a (min, +) product",
+            "sm_count": props.multi_processor_count,
+            "max_sm_clock_mhz": clock_mhz, "rows": rows, "ok": True}
+
+
 def phase_times(torch, state: dict, shapes: dict) -> dict:
     from repro_torch.kernels.label_join import kernel, ref
 
@@ -467,25 +665,34 @@ def phase_times(torch, state: dict, shapes: dict) -> dict:
             "submit_latency_host_ms_batch4096": latency, "ok": True}
 
 
-def kernels_line(times: dict, launches: dict, errs: dict) -> dict:
-    # each kernel at the shape the main path (phase 3) gives it
-    pick = {"label_join": "engine_f32", "label_join_lb": "lb_window"}
-    replaces = {"label_join": "src/repro/kernels/label_join/kernel.py:63",
-                "label_join_lb": "src/repro/kernels/label_join/kernel.py:86"}
-    by_shape = {r["shape"]: r for r in times["rows"]}
+# each kernel at the shape the main path (phase 3) gives it, and the
+# TPU kernel it replaces
+KERNELS = {
+    "label_join": ("engine_f32", "label_join/csrc/label_join.cu",
+                   "src/repro/kernels/label_join/kernel.py:63"),
+    "label_join_lb": ("lb_window", "label_join/csrc/label_join.cu",
+                      "src/repro/kernels/label_join/kernel.py:86"),
+    "minplus": ("closure_n4096", "minplus/csrc/minplus.cu",
+                "src/repro/kernels/minplus/kernel.py:83"),
+    "relax": ("stage_a_n4096", "minplus/csrc/minplus.cu",
+              "src/repro/kernels/minplus/kernel.py:108"),
+}
+
+
+def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
+    by_shape = {r["shape"]: r for r in rows}
     out = []
-    for name in ("label_join", "label_join_lb"):
-        r = by_shape[pick[name]]
+    for name, (shape, source, replaces) in KERNELS.items():
+        r = by_shape[shape]
         out.append({"name": name, "route": "cuda",
-                    "source": "src/repro_torch/kernels/label_join/csrc/"
-                              "label_join.cu",
-                    "replaces": replaces[name], "launches": launches[name],
+                    "source": "src/repro_torch/kernels/" + source,
+                    "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": r["kernel_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"], "shape": r["shape"],
-                    "l2_warm_ms": r["l2_warm_ms"],
-                    "rows_from_hbm": r["rows_from_hbm"]})
+                    "inputs_from_hbm": r.get("rows_from_hbm",
+                                             r.get("inputs_from_hbm"))})
     return {"kernels": out}
 
 
@@ -503,31 +710,37 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.kernels.label_join import kernel, ref
+    from repro_torch.kernels.minplus import kernel as mp_kernel
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    logs = build.build([kernel.SOURCE])
+    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE])
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for log in logs.values()
-             for line in log.splitlines() if "registers" in line]
+             for line in log.splitlines()
+             if "registers" in line or "spill" in line]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
 
-    errs = {"label_join": 0.0, "label_join_lb": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
     launches: dict = {}
     dev = torch.device("cuda")
     emit(phase_kernels(torch, dev, kernel, ref, errs))
+    emit(phase_minplus_kernels(torch, dev, errs))
     serving, state = phase_serving(torch, dev, launches)
     emit(serving)
-    center, center_shapes = phase_center(torch, dev, errs)
+    center, center_shapes, large_state = phase_center(torch, dev, errs)
     emit(center)
     shapes = {**state["shapes"], **center_shapes}
     times = phase_times(torch, state, shapes)
     emit(times)
-    emit(kernels_line(times, launches, errs))
+    builder_times = phase_builder_times(
+        torch, {"n4096": state["build_state"], "n102400": large_state})
+    emit(builder_times)
+    emit(kernels_line(times["rows"] + builder_times["rows"], launches, errs))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

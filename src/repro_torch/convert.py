@@ -1,4 +1,5 @@
-"""Carry a built index across to the port, without rebuilding it.
+"""Carry a built index, or a builder's state, across to the port,
+without rebuilding it.
 
 ``index_to_numpy`` reads a deployed system — the port's own, or any
 object with the same attributes, such as the JAX package's
@@ -7,6 +8,10 @@ flat dict of numpy arrays. ``system_from_numpy`` builds the port's
 ``EdgeSystem`` from that dict on a torch device. Serving can then be
 held against the reference on the reference's exact index, apart from
 building.
+
+``build_state_to_numpy`` / ``build_state_from_numpy`` do the same for
+the staged builder's ``BuildState`` (the JAX package's or the port's):
+the cache that delta-scoped repairs warm-start from.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from .core.graph import Graph
 from .core.labels import BorderLabels, SparseLabels
 from .core.local_index import LocalIndex
 from .core.partition import Partition
+from .core.torch_builder import BuildState, PackedDistricts
 from .device import resolve_device
 from .edge.center import ComputingCenter
 from .edge.router import EdgeSystem
@@ -83,3 +89,38 @@ def system_from_numpy(state: dict[str, np.ndarray],
         srv.augmented_version = int(state[f"d{i}/augmented_version"])
         servers.append(srv)
     return EdgeSystem(g, part, center, servers)
+
+
+_PACKED = ("adj", "vertex_ids", "border_pos", "border_ids", "border_slot")
+_STAGES = ("intra", "overlay", "closure", "unpruned", "table")
+
+
+def build_state_to_numpy(state) -> dict[str, np.ndarray]:
+    """A builder's ``BuildState`` as named numpy arrays: ``packed/<field>``
+    for the packed districts (``packed/kmax`` and ``packed/bmax`` as
+    scalars), one array per stage output, the CSR ``weights``, and
+    ``prune_order`` (absent when the table is unpruned)."""
+    packed = state.packed
+    out = {f"packed/{k}": np.asarray(getattr(packed, k)) for k in _PACKED}
+    out["packed/kmax"] = np.int64(packed.kmax)
+    out["packed/bmax"] = np.int64(packed.bmax)
+    out.update({k: np.asarray(getattr(state, k)) for k in _STAGES})
+    out["weights"] = np.asarray(state.weights)
+    if state.prune_order is not None:
+        out["prune_order"] = np.asarray(state.prune_order)
+    return out
+
+
+def build_state_from_numpy(d: dict[str, np.ndarray]) -> BuildState:
+    """The port's ``BuildState`` holding exactly the arrays of ``d`` (as
+    written by ``build_state_to_numpy``); host-side, with no device
+    table."""
+    packed = PackedDistricts(*(np.asarray(d[f"packed/{k}"])
+                               for k in _PACKED),
+                             kmax=int(d["packed/kmax"]),
+                             bmax=int(d["packed/bmax"]))
+    order = d.get("prune_order")
+    return BuildState(packed, *(np.asarray(d[k]) for k in _STAGES),
+                      prune_order=None if order is None
+                      else np.asarray(order),
+                      weights=np.asarray(d["weights"]))

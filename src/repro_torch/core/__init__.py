@@ -3,7 +3,9 @@ shortcuts, quantized storage, local indexes and the §4.2 routing rules.
 
 Host NumPy copies of the matching ``repro.core`` modules (the port
 imports nothing of the JAX package); ``local_index`` additionally keeps
-its serving layouts on a torch device."""
+its serving layouts on a torch device, and ``torch_builder`` (the
+counterpart of ``repro.core.jax_builder``) builds B on a torch device
+with the min-plus kernels."""
 from .graph import (Graph, from_edges, grid_road_network,
                     random_geometric_network, dijkstra, perturb_weights,
                     bidirectional_dijkstra, all_pairs_dijkstra, is_connected)
@@ -15,6 +17,10 @@ from .pll import pll, pll_subgraph
 from .border_labeling import (build_border_labels_reference,
                               build_border_labels_hierarchical,
                               minplus, minplus_closure)
+from .torch_builder import (BuildState, PackedDistricts,
+                            build_border_labels_stages,
+                            build_border_labels_torch, hub_prune_order,
+                            pack_districts)
 from .shortcuts import border_shortcut_matrix, shortcut_edges
 from .local_index import LocalIndex, build_local_index
 from .query import (Rule, route, local_bound, certified_local_query,

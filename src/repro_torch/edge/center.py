@@ -6,11 +6,14 @@ Index versions are double-buffered: while version k+1 is building, version
 k keeps serving (the paper instead lets edge servers fall back to the
 Local Bound).
 
-B is built on the host (``builder="reference"``: Algorithm 1, pruned
-Dijkstra from every border) and kept resident on ``device`` per version
-for the rule-3 join. The staged dense builder (``builder="jax"`` in the
-JAX package) and the delta-scoped repairs ``apply_delta`` /
-``apply_structural`` come with later slices.
+B is built either on the host (``builder="reference"``: Algorithm 1,
+pruned Dijkstra from every border) or on ``device`` by the staged dense
+builder (``builder="torch"``, the counterpart of the JAX package's
+``builder="jax"``: ``update.IncrementalBuilder.build_full`` over
+``core.torch_builder``, stages A–C on the min-plus CUDA kernels). Either
+way B is kept resident on ``device`` per version for the rule-3 join;
+the staged builder hands over its own device tensor. The delta-scoped
+repairs ``apply_delta`` / ``apply_structural`` come with a later slice.
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from ..core.partition import Partition, borders_of
 from ..core.shortcuts import border_shortcut_matrix
 from ..device import resolve_device
 from ..kernels.label_join import ops as lj
+from ..update.incremental import IncrementalBuilder
 
-BUILDERS = ("reference",)
+BUILDERS = ("reference", "torch")
 
 
 @dataclass
@@ -38,6 +42,8 @@ class ComputingCenter:
     border_labels: BorderLabels | None = None
     version: int = 0
     last_build_seconds: float = 0.0
+    # "reference" (Algorithm 1 on the host) or "torch" (the staged dense
+    # pipeline on ``device``)
     builder: str = "reference"
     # where B is kept for the rule-3 join (None = the CUDA device)
     device: torch.device | str | None = None
@@ -49,25 +55,42 @@ class ComputingCenter:
     # (version, B on device)
     _btable_dev: tuple[int, torch.Tensor] | None = field(default=None,
                                                          repr=False)
+    _inc: IncrementalBuilder | None = field(default=None, repr=False)
 
     def __post_init__(self):
+        if self.builder == "jax":
+            raise ValueError("builder='jax' is the JAX package's staged "
+                             "builder; the port's counterpart is 'torch'")
         if self.builder not in BUILDERS:
-            raise NotImplementedError(
-                f"builder={self.builder!r} is not ported yet (ROADMAP "
-                "Queue 1 item 5, the staged builder); use 'reference'")
+            raise ValueError(f"builder={self.builder!r}: expected one of "
+                             f"{BUILDERS}")
         self.device = resolve_device(self.device)
+
+    def incremental_builder(self) -> IncrementalBuilder:
+        """The staged builder behind ``builder="torch"`` (its ``state``
+        and ``timings`` describe the last rebuild)."""
+        if self._inc is None:
+            self._inc = IncrementalBuilder(device=self.device)
+        return self._inc
 
     def rebuild(self, new_weights: np.ndarray | None = None) -> float:
         """Rebuild B from fresh edge weights; returns build seconds."""
         if new_weights is not None:
             self.graph = self.graph.with_weights(new_weights)
         t0 = time.perf_counter()
-        self.border_labels = build_border_labels_reference(
-            self.graph, self.partition)
+        table_dev = None
+        if self.builder == "torch":
+            inc = self.incremental_builder()
+            self.border_labels = inc.build_full(self.graph, self.partition)
+            table_dev = inc.state.table_device
+        else:
+            self.border_labels = build_border_labels_reference(
+                self.graph, self.partition)
         self.last_build_seconds = time.perf_counter() - t0
         self.version += 1
         self._shortcut_cache.clear()
-        self._btable_dev = None
+        self._btable_dev = None if table_dev is None \
+            else (self.version, table_dev)
         return self.last_build_seconds
 
     def _borders(self) -> list[np.ndarray]:

@@ -79,6 +79,9 @@ class EdgeSystem:
     @classmethod
     def deploy(cls, g: Graph, part: Partition, builder: str = "reference",
                device: torch.device | str | None = None) -> "EdgeSystem":
+        """Build B at the center (``builder="reference"`` on the host,
+        ``"torch"`` with the staged builder on ``device``), every edge
+        server's local index, and push the shortcuts down."""
         device = resolve_device(device)
         center = ComputingCenter(g, part, builder=builder, device=device)
         center.rebuild()
@@ -93,7 +96,8 @@ class EdgeSystem:
                              incremental: bool = False) -> dict:
         """Traffic-epoch update cycle (the paper's full cycle): every
         edge server refreshes its local index, the center rebuilds B
-        from scratch, shortcuts are pushed back down everywhere.
+        from scratch with its builder (``"reference"`` or ``"torch"``),
+        shortcuts are pushed back down everywhere.
         Returns timings.  The delta-scoped cycle (``incremental=True``)
         comes with the updates slice."""
         if incremental:

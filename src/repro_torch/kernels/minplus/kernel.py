@@ -1,0 +1,120 @@
+"""The min-plus (tropical) products on the card.
+
+``minplus`` and ``relax`` wrap the two entry points of
+``csrc/minplus.cu``, which replace the JAX package's Pallas kernels
+``minplus_pallas`` and ``relax_pallas``
+(``src/repro/kernels/minplus/kernel.py``). Both take an optional
+leading batch (district) axis:
+
+* ``minplus(a, b)``: C = A ⊗ B, a (..., m, k), b (..., k, n);
+* ``relax(d, a)``: D' = min(D, D ⊗ A), d (..., s, v), a (..., v, v),
+  one fused Bellman-Ford sweep, written out of place.
+
+Inputs are float32 distances: non-negative or +inf, never NaN or −inf
+(the ops layer widens other dtypes). On a CUDA tensor the wrapper
+launches the kernel (building it on first use) or raises; on a CPU
+tensor it runs the plain version of ``ref.py``. There is no other path.
+``LAUNCHES`` counts kernel launches per kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .. import build
+from .ref import minplus_ref, relax_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "minplus.cu"
+
+# kernel launches since the last reset, per kernel (plain-version calls
+# on the CPU are not launches)
+LAUNCHES = {"minplus": 0, "relax": 0}
+
+_MAX_BATCH = 65535                      # gridDim.z
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    if lib.repro_minplus.argtypes is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.repro_minplus.argtypes = [p, p, p, i64, i64, i64, i64, p]
+        lib.repro_minplus.restype = ctypes.c_int
+        lib.repro_relax.argtypes = [p, p, p, i64, i64, i64, p]
+        lib.repro_relax.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, y: torch.Tensor) -> None:
+    if x.device != y.device:
+        raise ValueError(f"{name}: operands must share a device")
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError(f"{name}: operands must be float32 (ops.{name} "
+                         "widens other dtypes)")
+    if x.dim() not in (2, 3) or y.dim() != x.dim() \
+            or x.shape[:-2] != y.shape[:-2]:
+        raise ValueError(f"{name}: operands must be 2-D, or 3-D with one "
+                         f"batch size, got {tuple(x.shape)} and "
+                         f"{tuple(y.shape)}")
+
+
+def _launch(name: str, fn, out: torch.Tensor, *args) -> None:
+    dev = out.device
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _cuda_operands(name: str, *xs: torch.Tensor) -> None:
+    dev = xs[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for i, x in enumerate(xs):
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: operand {i} must be contiguous")
+    batch = xs[0].shape[0] if xs[0].dim() == 3 else 1
+    if batch > _MAX_BATCH:
+        raise ValueError(f"{name}: batch {batch} exceeds {_MAX_BATCH}")
+
+
+def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[..., i, j] = min_k A[..., i, k] + B[..., k, j], float32."""
+    _check("minplus", a, b)
+    if a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"minplus: inner sizes differ, {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return minplus_ref(a, b)
+    _cuda_operands("minplus", a, b)
+    fn = _lib().repro_minplus
+    m, k = a.shape[-2], a.shape[-1]
+    n = b.shape[-1]
+    out = torch.empty((*a.shape[:-1], n), dtype=torch.float32,
+                      device=a.device)
+    if out.numel():
+        batch = a.shape[0] if a.dim() == 3 else 1
+        _launch("minplus", fn, out, a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), batch, m, k, n)
+    return out
+
+
+def relax(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """D' = min(D, D ⊗ A), float32, in a new tensor."""
+    _check("relax", d, a)
+    v = d.shape[-1]
+    if a.shape[-2:] != (v, v):
+        raise ValueError(f"relax: adjacency must be ({v}, {v}), got "
+                         f"{tuple(a.shape)}")
+    if d.device.type == "cpu":
+        return relax_ref(d, a)
+    _cuda_operands("relax", d, a)
+    fn = _lib().repro_relax
+    out = torch.empty(d.shape, dtype=torch.float32, device=d.device)
+    if out.numel():
+        batch = d.shape[0] if d.dim() == 3 else 1
+        _launch("relax", fn, out, d.data_ptr(), a.data_ptr(),
+                out.data_ptr(), batch, d.shape[-2], v)
+    return out

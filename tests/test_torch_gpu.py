@@ -7,9 +7,10 @@ shared fixtures out):
 
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
-The kernel must equal its plain version bit for bit (same IEEE float32
-operations), and a deployment on the card must answer exactly as the
-same deployment on the CPU.
+Every kernel must equal its plain version bit for bit (same IEEE
+float32 operations), B built on the card by the staged builder must
+equal the host reference's, and a deployment on the card must answer
+exactly as the same deployment on the CPU.
 """
 import numpy as np
 import pytest
@@ -100,3 +101,62 @@ def test_card_rebuild_window_matches_host(cuda):
     for a, b in zip(*out):
         np.testing.assert_array_equal(a.distances, b.distances)
         np.testing.assert_array_equal(a.exactness_codes, b.exactness_codes)
+
+
+@pytest.mark.parametrize("batch,m,k,n", [(None, 1, 1, 1), (None, 93, 93, 93),
+                                         (None, 130, 70, 33),
+                                         (16, 256, 8, 93), (3, 37, 0, 5)])
+def test_minplus_kernel_matches_plain_version(cuda, batch, m, k, n):
+    from repro_torch.kernels.minplus import kernel as mp, ref as mp_ref
+    rng = np.random.default_rng(m + k + n)
+    lead = () if batch is None else (batch,)
+    a = torch.from_numpy(_rand_dist(rng, (*lead, m, k))).to(cuda)
+    b = torch.from_numpy(_rand_dist(rng, (*lead, k, n))).to(cuda)
+    before = mp.LAUNCHES["minplus"]
+    got = mp.minplus(a, b)
+    torch.cuda.synchronize()
+    assert mp.LAUNCHES["minplus"] == before + 1
+    assert torch.equal(got, mp_ref.minplus_ref(a, b))
+
+
+@pytest.mark.parametrize("batch,s,v", [(None, 1, 1), (None, 8, 33),
+                                       (4, 8, 256), (2, 13, 300),
+                                       (16, 8, 129)])
+def test_relax_kernel_matches_plain_version(cuda, batch, s, v):
+    from repro_torch.kernels.minplus import kernel as mp, ref as mp_ref
+    rng = np.random.default_rng(s * v)
+    lead = () if batch is None else (batch,)
+    d = torch.from_numpy(_rand_dist(rng, (*lead, s, v))).to(cuda)
+    a = _rand_dist(rng, (*lead, v, v))
+    a[rng.random(a.shape) < 0.9] = np.inf
+    a = torch.from_numpy(a).to(cuda)
+    keep = d.clone()
+    before = mp.LAUNCHES["relax"]
+    got = mp.relax(d, a)
+    torch.cuda.synchronize()
+    assert mp.LAUNCHES["relax"] == before + 1
+    assert torch.equal(got, mp_ref.relax_ref(d, a))
+    assert torch.equal(d, keep)                 # out of place
+
+
+def test_card_builder_equals_the_host_reference(cuda):
+    from repro_torch.core import build_border_labels_reference
+    from repro_torch.edge import ComputingCenter
+    from repro_torch.kernels.minplus import kernel as mp
+    csr, part = synthetic_continent((2, 2), (8, 8), seed=3)
+    g = csr.to_graph()
+    before = dict(mp.LAUNCHES)
+    center = ComputingCenter(g, part, builder="torch", device=cuda)
+    center.rebuild()
+    assert mp.LAUNCHES["minplus"] > before["minplus"]
+    assert mp.LAUNCHES["relax"] > before["relax"]
+    want = build_border_labels_reference(g, part)
+    np.testing.assert_array_equal(center.border_labels.table, want.table)
+    assert center.border_table_device().is_cuda
+    system = EdgeSystem.deploy(g, part, builder="torch", device=cuda)
+    host = EdgeSystem.deploy(g, part, device="cpu")
+    rng = np.random.default_rng(4)
+    ss = rng.integers(0, g.num_vertices, 500)
+    ts = rng.integers(0, g.num_vertices, 500)
+    np.testing.assert_array_equal(system.service().submit(ss, ts).distances,
+                                  host.service().submit(ss, ts).distances)

@@ -21,6 +21,7 @@ import torch
 from repro_torch.core import bfs_grow_partition, grid_road_network
 from repro_torch.edge import BatchedQueryEngine, EdgeSystem
 from repro_torch.kernels.label_join import kernel, ops
+from repro_torch.kernels.minplus import kernel as mp_kernel
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -102,6 +103,25 @@ def test_cuda_tensor_launches_or_raises_never_falls_back(monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc"):
         kernel.gather_join(table, rows, table, rows, with_lb=with_lb)
     assert kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", ["minplus", "relax"])
+def test_cuda_tensor_launches_or_raises_never_falls_back_minplus(
+        monkeypatch, name):
+    _require_cpu_only_host()
+
+    def no_fallback(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(mp_kernel, "minplus_ref", no_fallback)
+    monkeypatch.setattr(mp_kernel, "relax_ref", no_fallback)
+    monkeypatch.setattr(mp_kernel.build, "_LOADED", {})
+    monkeypatch.setenv("PATH", "")           # no nvcc on this host anyway
+    x = torch.zeros((2, 4, 4)).as_subclass(_CudaLooking)
+    before = dict(mp_kernel.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        getattr(mp_kernel, name)(x, x)
+    assert mp_kernel.LAUNCHES == before
 
 
 def test_ops_on_an_unsupported_device_raise():

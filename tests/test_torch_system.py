@@ -32,6 +32,7 @@ from repro.edge.sharded_oracle import prepare_queries as rprepare
 from repro_torch import convert
 from repro_torch.edge.sharded_oracle import pack_tables as tpack
 from repro_torch.edge.sharded_oracle import prepare_queries as tprepare
+from repro_torch.update import IncrementalBuilder
 
 CASES = ["grid", "continent"]
 DTYPES = ["float32", "uint16", "int16", "auto"]
@@ -409,7 +410,13 @@ def test_unported_placements_and_paths_raise(deployed):
             conv.service().submit(np.array([0]), np.array([1]))
     finally:
         conv.prefer_sharded = None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'torch'"):
         tedge.ComputingCenter(rg, rpart, builder="jax", device="cpu")
+    with pytest.raises(ValueError, match="builder"):
+        tedge.ComputingCenter(rg, rpart, builder="xla", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         conv.apply_traffic_update(rg.weights, incremental=True)
+    builder = IncrementalBuilder(device="cpu")
+    for repair in (builder.apply_delta, builder.apply_structural):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            repair(rg, rpart)
