@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc``
 per source, all at once), holds each kernel against its plain PyTorch
-version on the card, and drives the port's two paths:
+version on the card, and drives the port's three paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -13,11 +13,18 @@ version on the card, and drives the port's two paths:
   under all three modes → back to steady state;
 * the computing center at n = 102 400 — B built on the card by the
   staged builder, held against the host's Dijkstra stage A and
-  hierarchical builder, then the rule-3 join.
+  hierarchical builder, then the rule-3 join;
+* the dense-LM serving path at the full width of Qwen3-4B (random
+  weights from a seed) — ``make_prefill_step`` through the flash-
+  attention kernel (36 layers, bf16, 2 x 4096 tokens) against the dense
+  prefill, an f32 4-layer check of flash against dense and of
+  ``decode_step`` against the forward pass, and ``BatchedDecoder``
+  answering 8 requests.
 
 It checks answers against the scalar loop, the plain versions, the host
-builders and Dijkstra, and times every kernel at the paths' shapes with
-CUDA events, with its inputs read from HBM where the shape allows it.
+builders and Dijkstra, the dense attention path, and times every
+kernel at the paths' shapes with CUDA events, with its inputs read from
+HBM where the shape allows it.
 Prints one JSON object per phase, the ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": ...}``. Any failure
 exits non-zero before the last line; so does a host without a CUDA
@@ -41,6 +48,8 @@ SRC = ROOT / "src"
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# bf16 dense tensor-core peak: the bound of attention's products
+PEAK_BF16_TENSOR_FLOPS_PER_S = 989e12
 # the min-plus bound counts 2 instructions per term (FADD, FMNMX) on 128
 # FP32 lanes per SM per clock — the same as FMNMX alone at 64 results
 # per SM per clock, the cc 9.0 rate for compare/min/max
@@ -665,8 +674,373 @@ def phase_times(torch, state: dict, shapes: dict) -> dict:
             "submit_latency_host_ms_batch4096": latency, "ok": True}
 
 
-# each kernel at the shape the main path (phase 3) gives it, and the
-# TPU kernel it replaces
+# -- phase 6: flash attention against its plain version ----------------------
+
+# (B, S, T, H, KV, hd, causal, dtype): the five cases of the JAX
+# package's tests/test_flash_attention.py in float32, its bf16 case, an
+# unaligned Qwen-shaped case (in both types), a non-causal one, then the
+# LM path's shape
+FLASH_SHAPES = [(1, 16, 16, 4, 4, 32, True, "float32"),
+                (2, 32, 32, 4, 2, 32, True, "float32"),
+                (1, 64, 64, 8, 2, 16, False, "float32"),
+                (2, 24, 24, 6, 2, 32, True, "float32"),
+                (1, 128, 128, 4, 1, 64, True, "float32"),
+                (1, 32, 32, 4, 4, 32, True, "bfloat16"),
+                (1, 1000, 1000, 32, 8, 128, True, "float32"),
+                (1, 1000, 1000, 32, 8, 128, True, "bfloat16"),
+                (2, 300, 300, 32, 8, 128, False, "bfloat16"),
+                (2, 4096, 4096, 32, 8, 128, True, "bfloat16")]
+# float32: both sides compute in f32 on unit-normal inputs; only the
+# order of the sums and the online rescaling differ (the JAX package's
+# own test allows 2e-4). bf16: both compute in f32 from the same bf16
+# inputs, so before their one rounding they differ by at most the f32
+# bound; two values that close round at most one bf16 ulp apart plus
+# that bound (near zero a bf16 ulp is smaller than the f32 bound)
+FLASH_F32_ATOL = 2e-5
+
+
+def bf16_ulps_apart(got, want) -> tuple[bool, int]:
+    """Whether every element of two bf16 tensors is within one bf16 ulp
+    (at the larger magnitude) plus ``FLASH_F32_ATOL``, and how many
+    elements are more than one ulp apart."""
+    import torch
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (g - w).abs()
+    return (bool((diff <= ulp + FLASH_F32_ATOL).all()),
+            int((diff > ulp).sum()))
+
+
+def flash_inputs(torch, dev, b, s, t, h, kv, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return (torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt),
+            torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dt),
+            torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dt))
+
+
+def phase_flash_kernels(torch, dev, errs: dict) -> dict:
+    from repro_torch.kernels.flash_attention import kernel, ref
+    rows = []
+    for i, (b, s, t, h, kv, hd, causal, dtype) in enumerate(FLASH_SHAPES):
+        q, k, v = flash_inputs(torch, dev, b, s, t, h, kv, hd, dtype, i)
+        got = kernel.flash_attention(q, k, v, causal=causal)
+        sync(torch, dev)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        err = max_abs_err(got, want)
+        shape = [b, s, t, h, kv, hd, causal, dtype]
+        check(got.dtype == q.dtype and got.shape == q.shape
+              and bool(torch.isfinite(got).all()), f"flash {shape} output")
+        row = {"shape": shape, "max_abs_err": err}
+        if dtype == "float32":
+            check(err <= FLASH_F32_ATOL,
+                  f"flash {shape}: {err} > {FLASH_F32_ATOL}")
+        else:
+            ok, row["over_one_ulp"] = bf16_ulps_apart(got, want)
+            check(ok, f"flash {shape}: beyond one bf16 ulp + "
+                  f"{FLASH_F32_ATOL} (max abs {err})")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        rows.append(row)
+        del q, k, v, got, want
+    return {"phase": "kernels_vs_plain_flash", "rows": rows,
+            "tolerance": f"float32: <= {FLASH_F32_ATOL} absolute; bf16: "
+            f"<= 1 bf16 ulp of the larger of the two + {FLASH_F32_ATOL}, "
+            "elementwise (over_one_ulp: elements beyond one ulp)",
+            "ok": True}
+
+
+# -- phase 7: the dense-LM serving path at Qwen3-4B's full width -------------
+
+LM_ARCH = "qwen3_4b"
+LM_PREFILL = (2, 4096)                  # batch, tokens per sequence
+LM_TIGHT = (4, 2, 256)                  # layers, batch, tokens (float32)
+# f32 throughout (TF32 off): flash and dense attention, and decode over
+# the cache against the full forward, differ only in the order of sums
+# and the online rescaling, ~1e-6 relative per operation
+LM_TIGHT_REL = 1e-4
+# bf16 flash prefill against bf16 dense prefill at full depth: the dense
+# path rounds its scores to bf16 before the softmax and its weights
+# before the PV product (2^-9 relative each, on scores of order 1), the
+# flash kernel keeps both in f32; the difference passes through 36
+# random layers. Measured 0.0199 on an H100 80GB (seed 1); the bound
+# leaves 5x room, and the measured value is reported beside it
+LM_BF16_REL = 0.1
+LM_SERVER = dict(batch=4, max_len=128, requests=8, prompt=(8, 32), new=16)
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| / max |b|."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def timed(torch, fn, reps: int) -> tuple[object, list]:
+    """``fn()`` ``reps`` times, each between two synchronisations; the
+    last result and the host seconds of each call."""
+    out, secs = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def lm_tight_check(torch, dev) -> dict:
+    """Full width, 4 layers, float32: flash prefill against dense, and
+    decode_step fed the same tokens one at a time against the forward
+    pass (flash) at every position."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import (decode_step, forward, init_cache,
+                                       init_params, lm_head_weight)
+    from repro_torch.train.train_step import make_prefill_step
+    layers, b, s = LM_TIGHT
+    cfg = replace(get_config(LM_ARCH), num_layers=layers,
+                  compute_dtype="float32")
+    flash = replace(cfg, attention_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device=dev)
+    got = make_prefill_step(flash)(params, {"tokens": tok})
+    want = make_prefill_step(cfg)(params, {"tokens": tok})
+    prefill_rel = rel_diff(got, want)
+    check(prefill_rel <= LM_TIGHT_REL,
+          f"f32 flash prefill vs dense: {prefill_rel} > {LM_TIGHT_REL}")
+    full = forward(params, flash, {"tokens": tok}) \
+        @ lm_head_weight(params, flash)
+    cache = init_cache(cfg, b, s, dev)
+    rels = torch.empty(s, dtype=torch.float64, device=dev)
+    for i in range(s):
+        logits, cache = decode_step(params, cfg, cache, tok[:, i:i + 1], i)
+        d = (logits[:, 0] - full[:, i]).double()
+        rels[i] = d.abs().max() / full[:, i].double().abs().max()
+    decode_rel = float(rels.max())
+    check(decode_rel <= LM_TIGHT_REL,
+          f"f32 decode vs forward: {decode_rel} > {LM_TIGHT_REL}")
+    return {"layers": layers, "batch": b, "tokens": s,
+            "prefill_flash_vs_dense_rel": prefill_rel,
+            "decode_vs_forward_rel_max": decode_rel,
+            "tolerance_rel": LM_TIGHT_REL}
+
+
+def phase_lm(torch, dev, launches: dict) -> dict:
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.lm import (cast_params, decode_step, init_cache,
+                                       init_params)
+    from repro_torch.serve import BatchedDecoder, Request
+    from repro_torch.train.train_step import make_prefill_step
+
+    tight = lm_tight_check(torch, dev)
+    torch.cuda.empty_cache()
+
+    cfg = get_config(LM_ARCH)
+    flash = replace(cfg, attention_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    t0 = time.perf_counter()
+    params = cast_params(init_params(cfg, gen, dev), cfg)   # f32 freed
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    weight_gb = sum(t.numel() * t.element_size() for t in
+                    _leaves(params)) / 1e9
+    b, s = LM_PREFILL
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev)}
+    prefill = make_prefill_step(flash)
+
+    # the main path: one flash prefill, read its launches, then decode
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    logits, first = timed(torch, lambda: prefill(params, batch), 1)
+    launches["flash_attention"] = fa.LAUNCHES["flash_attention"]
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"flash prefill launched {launches['flash_attention']} times, "
+          f"not {cfg.num_layers}")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cache = init_cache(cfg, b, 8, dev)
+    before = fa.LAUNCHES["flash_attention"]
+    step_logits, _ = decode_step(params, cfg, cache,
+                                 batch["tokens"][:, :1], 0)
+    sync(torch, dev)
+    check(fa.LAUNCHES["flash_attention"] == before,
+          "decode_step launched the flash kernel")
+    check(bool(torch.isfinite(step_logits).all()), "decode logits")
+
+    # the server: 8 requests in two lockstep groups of 4
+    rng = np.random.default_rng(13)
+    dec = BatchedDecoder(cfg, params, batch_size=LM_SERVER["batch"],
+                         max_len=LM_SERVER["max_len"], device=dev)
+    steps = [0]
+    step = dec._step
+
+    def counted(*args):
+        steps[0] += 1
+        return step(*args)
+
+    dec._step = counted
+    lo, hi = LM_SERVER["prompt"]
+    for rid in range(LM_SERVER["requests"]):
+        prompt = rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(lo, hi + 1))).tolist()
+        dec.submit(Request(rid=rid, prompt=prompt,
+                           max_new_tokens=LM_SERVER["new"]))
+    before = fa.LAUNCHES["flash_attention"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = dec.run()
+    server_s = time.perf_counter() - t0
+    check(fa.LAUNCHES["flash_attention"] == before,
+          "the server's decode launched the flash kernel")
+    check(sorted(r.rid for r in done) == list(range(LM_SERVER["requests"])),
+          "not every request completed")
+    check(all(len(r.tokens) == LM_SERVER["new"]
+              and all(0 <= x < cfg.vocab_size for x in r.tokens)
+              for r in done), "a request missed its token budget")
+    lat_ms = [r.latency_s * 1e3 for r in done]
+    decode_profile = profile_decode(torch, params, cfg, dev)
+
+    # timed prefills: flash (each +36 launches), then the dense yardstick
+    before = fa.LAUNCHES["flash_attention"]
+    _, flash_s = timed(torch, lambda: prefill(params, batch), 2)
+    check(fa.LAUNCHES["flash_attention"] - before == 2 * cfg.num_layers,
+          "a timed flash prefill did not launch once per layer")
+    dense_prefill = make_prefill_step(cfg)
+    dense_logits, dense_s = timed(
+        torch, lambda: dense_prefill(params, batch), 3)
+    bf16_rel = rel_diff(logits, dense_logits)
+    check(bool(torch.isfinite(dense_logits).all()), "dense prefill logits")
+    check(bf16_rel <= LM_BF16_REL,
+          f"bf16 flash prefill vs dense: {bf16_rel} > {LM_BF16_REL}")
+    del params, dec, cache
+    return {"phase": "lm_qwen3_4b", "arch": LM_ARCH,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "weights_gb_bf16": weight_gb,
+            "init_s": init_s, "tight_f32": tight,
+            "prefill": {"batch": b, "tokens": b * s,
+                        "flash_first_s": first[0], "flash_s": flash_s,
+                        "flash_tokens_per_s": b * s / min(flash_s),
+                        "dense_s": dense_s[1:],
+                        "dense_tokens_per_s": b * s / min(dense_s[1:]),
+                        "flash_vs_dense_rel_bf16": bf16_rel,
+                        "tolerance_rel_bf16": LM_BF16_REL,
+                        "peak_memory_gb_flash": peak_gb,
+                        "flash_launches": launches["flash_attention"],
+                        "timer": "host clock between synchronisations"},
+            "server": {**LM_SERVER, "completed": len(done),
+                       "decode_steps": steps[0],
+                       "ms_per_decode_step": server_s * 1e3 / steps[0],
+                       "server_s": server_s,
+                       "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+                       "latency_ms_max": float(max(lat_ms)),
+                       "timer": "host clock; a step includes its argmax "
+                       "and the copy of the tokens to the host"},
+            "decode_profile": decode_profile,
+            "decode_launches_flash": 0, "ok": True}
+
+
+def profile_decode(torch, params, cfg, dev, steps: int = 3) -> dict:
+    """Where a decode step's time goes: ``steps`` steps at the server's
+    batch under ``torch.profiler`` — CUDA kernels launched per step, the
+    device time they take, and the host time per step (profiler on, so
+    the host time is inflated)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.lm import decode_step, init_cache
+    b = LM_SERVER["batch"]
+    cache = init_cache(cfg, b, LM_SERVER["max_len"], dev)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    decode_step(params, cfg, cache, tok, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            decode_step(params, cfg, cache, tok, i + 1)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"steps": steps, "kernels_per_step":
+            sum(e.count for e in kernels) / steps,
+            "device_ms_per_step": device_us / 1e3 / steps,
+            "host_ms_per_step_profiled": host_s * 1e3 / steps,
+            "device_idle_share": 1 - device_us / 1e6 / host_s,
+            "top_kernels_ms_per_step": {
+                e.key[:60]: e.self_device_time_total / 1e3 / steps
+                for e in top}}
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def phase_flash_times(torch, dev) -> dict:
+    """The flash kernel at the LM path's shape, its plain version and
+    the library yardstick (SDPA; timed here only, never called by the
+    port), with inputs read from HBM."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    b, s, h, kv, hd = LM_PREFILL[0], LM_PREFILL[1], 32, 8, 128
+    q, k, v = flash_inputs(torch, dev, b, s, s, h, kv, hd, "bfloat16", 99)
+    nbytes = ops.hbm_bytes_per_call(q.shape, k.shape, 2)
+    flops = 2 * b * h * s * s * hd          # causal: half of 4·B·H·S·T·hd
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_BF16_TENSOR_FLOPS_PER_S * 1e3
+    in_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
+    cold, from_hbm = cold_inputs((q, k, v), in_bytes)
+    before = dict(kernel.LAUNCHES)
+    kernel_ms = device_ms(torch, kernel.flash_attention, cold, 4, 3)
+    kernel.LAUNCHES.update(before)      # timing launches are not the path's
+    plain_ms = device_ms(torch, ref.attention_ref, cold, 2, 2)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    library_ms = device_ms(torch, sdpa, cold, 4, 3)
+    copies = len(cold)
+    del cold
+    bound_ms = max(bytes_ms, ops_ms)
+    row = {"shape": "flash_b2_s4096", "kernel": "flash_attention",
+           "dims": [b, s, s, h, kv, hd], "dtype": "bfloat16",
+           "causal": True, "bytes": nbytes, "flops": flops,
+           "copies": copies, "inputs_from_hbm": from_hbm,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bytes_ms": bytes_ms,
+           "ops_ms": ops_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "share_of_bound": bound_ms / kernel_ms,
+           "kernel_tflops": flops / kernel_ms / 1e9}
+    return {"phase": "flash_times", "timer": "device ms per launch from "
+            "CUDA-graph replays timed with CUDA events, cycling through "
+            "copies of the inputs", "bound": "max(q, k, v, out bytes at "
+            "3.35 TB/s, 2·B·H·S·T·hd at the 989 TFLOP/s bf16 dense "
+            "tensor-core peak)", "library": "torch.nn.functional."
+            "scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+            "on (B, H, S, hd) views", "rows": [row], "ok": True}
+
+
+# each kernel at the shape its path's main run gives it (phase 3 for the
+# distance kernels, phase 7's prefill for flash attention), and the TPU
+# kernel it replaces
 KERNELS = {
     "label_join": ("engine_f32", "label_join/csrc/label_join.cu",
                    "src/repro/kernels/label_join/kernel.py:63"),
@@ -676,6 +1050,9 @@ KERNELS = {
                 "src/repro/kernels/minplus/kernel.py:83"),
     "relax": ("stage_a_n4096", "minplus/csrc/minplus.cu",
               "src/repro/kernels/minplus/kernel.py:108"),
+    "flash_attention": ("flash_b2_s4096",
+                        "flash_attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:94"),
 }
 
 
@@ -709,6 +1086,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.label_join import kernel, ref
     from repro_torch.kernels.minplus import kernel as mp_kernel
 
@@ -716,7 +1094,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE])
+    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE, fa_kernel.SOURCE])
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for log in logs.values()
              for line in log.splitlines()
@@ -740,7 +1118,15 @@ def main() -> int:
     builder_times = phase_builder_times(
         torch, {"n4096": state["build_state"], "n102400": large_state})
     emit(builder_times)
-    emit(kernels_line(times["rows"] + builder_times["rows"], launches, errs))
+    del state, shapes, center_shapes, large_state
+    torch.cuda.empty_cache()
+    emit(phase_flash_kernels(torch, dev, errs))
+    emit(phase_lm(torch, dev, launches))
+    torch.cuda.empty_cache()
+    flash_times = phase_flash_times(torch, dev)
+    emit(flash_times)
+    emit(kernels_line(times["rows"] + builder_times["rows"]
+                      + flash_times["rows"], launches, errs))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

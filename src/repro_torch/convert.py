@@ -12,6 +12,10 @@ building.
 ``build_state_to_numpy`` / ``build_state_from_numpy`` do the same for
 the staged builder's ``BuildState`` (the JAX package's or the port's):
 the cache that delta-scoped repairs warm-start from.
+
+``lm_params_from_numpy`` carries an LM's params across: the JAX
+package's ``init_params`` tree as numpy arrays becomes the port's params
+on a torch device, so both packages compute with the same weights.
 """
 from __future__ import annotations
 
@@ -124,3 +128,24 @@ def build_state_from_numpy(d: dict[str, np.ndarray]) -> BuildState:
                       prune_order=None if order is None
                       else np.asarray(order),
                       weights=np.asarray(d["weights"]))
+
+
+def _tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.array(a)                          # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes.bfloat16, from JAX
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_numpy(tree: dict, *,
+                         device: torch.device | str | None = None) -> dict:
+    """The port's LM params holding exactly the arrays of ``tree`` (the
+    JAX package's ``init_params`` tree as numpy arrays: nested dicts,
+    layer leaves stacked along a leading ``L`` axis), on ``device``.
+    bfloat16 arrays are carried through their 16-bit patterns, so every
+    value arrives unchanged."""
+    device = resolve_device(device)
+    return {k: lm_params_from_numpy(v, device=device)
+            if isinstance(v, dict) else _tensor_from_numpy(v, device)
+            for k, v in tree.items()}

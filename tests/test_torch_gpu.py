@@ -7,10 +7,13 @@ shared fixtures out):
 
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
-Every kernel must equal its plain version bit for bit (same IEEE
-float32 operations), B built on the card by the staged builder must
-equal the host reference's, and a deployment on the card must answer
-exactly as the same deployment on the CPU.
+The distance kernels must equal their plain versions bit for bit (same
+IEEE float32 operations), B built on the card by the staged builder
+must equal the host reference's, and a deployment on the card must
+answer exactly as the same deployment on the CPU. The flash-attention
+kernel, whose sums run in another order, must agree with its plain
+version within the tolerances stated at its tests, and the LM path
+through it with the dense path.
 """
 import numpy as np
 import pytest
@@ -160,3 +163,111 @@ def test_card_builder_equals_the_host_reference(cuda):
     ts = rng.integers(0, g.num_vertices, 500)
     np.testing.assert_array_equal(system.service().submit(ss, ts).distances,
                                   host.service().submit(ss, ts).distances)
+
+
+# flash attention: (B, S, T, H, KV, hd, causal, dtype) — the JAX
+# package's test cases in float32, its bf16 case, then Qwen3-4B's head
+# layout at ragged lengths
+FLASH_CASES = [(1, 16, 16, 4, 4, 32, True, torch.float32),
+               (2, 32, 32, 4, 2, 32, True, torch.float32),
+               (1, 64, 64, 8, 2, 16, False, torch.float32),
+               (2, 24, 24, 6, 2, 32, True, torch.float32),
+               (1, 128, 128, 4, 1, 64, True, torch.float32),
+               (1, 32, 32, 4, 4, 32, True, torch.bfloat16),
+               (1, 200, 200, 32, 8, 128, True, torch.bfloat16),
+               (2, 77, 77, 32, 8, 128, False, torch.bfloat16),
+               (1, 100, 130, 32, 8, 128, True, torch.float32)]
+
+
+def _within_one_bf16_ulp(got, want, f32_atol: float = 2e-5) -> bool:
+    """One bf16 ulp (at the larger magnitude) plus the f32 bound: the two
+    f32 results may differ by ``f32_atol`` before their one rounding."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((g - w).abs() <= ulp + f32_atol).all())
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd,
+                                            causal, dtype):
+    """float32: within 2e-5 of the plain version (both f32; only the
+    order of the sums and the online rescaling differ). bf16: within one
+    bf16 ulp plus that f32 bound (both compute in f32 from the same
+    inputs and round once)."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    gen = torch.Generator(device=cuda).manual_seed(s * 31 + hd)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa_ref.attention_ref(q, k, v, causal=causal)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+def test_flash_kernel_reads_strided_inputs(cuda):
+    """q, k, v as the head-split views of fused projections (strided in
+    the sequence and head axes, contiguous in hd)."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn((2, 50, 48, 64), generator=gen, device=cuda)
+    q, k, v = qkv[:, :, :32], qkv[:, :, 32:40], qkv[:, :, 40:]
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got - fa_ref.attention_ref(q, k, v)).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("what", ["head_dim", "float16", "groups"])
+def test_flash_kernel_rejects_unsupported_inputs_on_cuda(cuda, what):
+    from repro_torch.kernels.flash_attention import kernel as fa
+    shapes = {"head_dim": ((1, 8, 4, 48), (1, 8, 2, 48), torch.float32),
+              "float16": ((1, 8, 4, 32), (1, 8, 2, 32), torch.float16),
+              "groups": ((1, 8, 3, 32), (1, 8, 2, 32), torch.float32)}
+    qs, kvs, dtype = shapes[what]
+    q = torch.zeros(qs, dtype=dtype, device=cuda)
+    kv = torch.zeros(kvs, dtype=dtype, device=cuda)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, kv, kv)
+    assert fa.LAUNCHES == before
+
+
+def test_lm_prefill_launches_flash_once_per_layer_and_decode_never(cuda):
+    """A 2-layer smoke model on the card: flash prefill agrees with the
+    dense prefill, launches the kernel once per layer; decode_step
+    launches it never and agrees with the forward pass."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import make_prefill_step
+    cfg = get_smoke_config("qwen3_4b").reduced(num_layers=2,
+                                               compute_dtype="float32")
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = lm.init_params(cfg, gen, cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                        device=cuda)
+    before = fa.LAUNCHES["flash_attention"]
+    got = make_prefill_step(flash)(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + cfg.num_layers
+    want = make_prefill_step(cfg)(params, {"tokens": tok})
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    full = lm.forward(params, flash, {"tokens": tok}) \
+        @ lm.lm_head_weight(params, flash)
+    cache = lm.init_cache(cfg, 2, 40, cuda)
+    before = fa.LAUNCHES["flash_attention"]
+    for i in range(40):
+        logits, cache = lm.decode_step(params, cfg, cache, tok[:, i:i + 1],
+                                       i)
+        assert float((logits[:, 0] - full[:, i]).abs().max()
+                     / full[:, i].abs().max()) <= 1e-4
+    assert fa.LAUNCHES["flash_attention"] == before

@@ -20,8 +20,12 @@ import torch
 
 from repro_torch.core import bfs_grow_partition, grid_road_network
 from repro_torch.edge import BatchedQueryEngine, EdgeSystem
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.label_join import kernel, ops
 from repro_torch.kernels.minplus import kernel as mp_kernel
+from repro_torch.models import lm
+from repro_torch.serve import BatchedDecoder
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -53,7 +57,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env=_env(), capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split("IMPORTED")[1]) >= 20
+    # 66 modules: the serving path, the staged builder, the configs and
+    # the dense LM (models, train, launch, kernels/flash_attention)
+    assert int(out.stdout.split("IMPORTED")[1]) >= 66
 
 
 def _require_cpu_only_host():
@@ -71,6 +77,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedQueryEngine(np.zeros((16, 0), np.float32), [],
                            part.assignment)
+    cfg = get_smoke_config("qwen3_4b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedDecoder(cfg, {})
 
 
 class _CudaLooking(torch.Tensor):
@@ -122,6 +135,25 @@ def test_cuda_tensor_launches_or_raises_never_falls_back_minplus(
     with pytest.raises(RuntimeError, match="nvcc"):
         getattr(mp_kernel, name)(x, x)
     assert mp_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tensor_launches_or_raises_never_falls_back_flash(
+        monkeypatch, dtype):
+    _require_cpu_only_host()
+
+    def no_fallback(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fa_kernel, "attention_ref", no_fallback)
+    monkeypatch.setattr(fa_kernel.build, "_LOADED", {})
+    monkeypatch.setenv("PATH", "")           # no nvcc on this host anyway
+    q = torch.zeros((1, 8, 4, 32), dtype=dtype).as_subclass(_CudaLooking)
+    kv = torch.zeros((1, 8, 2, 32), dtype=dtype).as_subclass(_CudaLooking)
+    before = dict(fa_kernel.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa_kernel.flash_attention(q, kv, kv)
+    assert fa_kernel.LAUNCHES == before
 
 
 def test_ops_on_an_unsupported_device_raise():
