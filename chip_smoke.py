@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc``
 per source, all at once), holds each kernel against its plain PyTorch
-version on the card, and drives the port's three paths:
+version on the card, and drives the port's five paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -14,6 +14,17 @@ version on the card, and drives the port's three paths:
 * the computing center at n = 102 400 — B built on the card by the
   staged builder, held against the host's Dijkstra stage A and
   hierarchical builder, then the rule-3 join;
+* the APSP entry point — ``sssp_relax.ops.floyd_warshall`` on every
+  district of n = 102 400 ((6400, 6400) each) through the Floyd–Warshall
+  kernel, held against its plain version, stage A's border rows and
+  Dijkstra;
+* updates — ``IncrementalBuilder.apply_delta`` on the card-built B at
+  n = 102 400 for four traffic scenarios and ``apply_structural`` for
+  three closure-storm epochs (scoped and full rungs), each held against
+  a full staged build on the new graph; then one
+  ``apply_traffic_update(incremental=True)`` and one
+  ``apply_topology_update`` of the deployed n = 4096 system, whose
+  answers are held against Dijkstra;
 * the dense-LM serving path at the full width of Qwen3-4B (random
   weights from a seed) — ``make_prefill_step`` through the flash-
   attention kernel (36 layers, bf16, 2 x 4096 tokens) against the dense
@@ -33,6 +44,7 @@ of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -149,11 +161,14 @@ def phase_kernels(torch, dev, kernel, ref, errs: dict) -> dict:
 # sizes, (m, kmax, bmax) x (m, bmax, q)
 MINPLUS_SHAPES = [(None, 1, 1, 1), (None, 5, 7, 3), (None, 130, 70, 33),
                   (3, 37, 0, 5), (2, 200, 300, 65), (None, 93, 93, 93),
-                  (None, 96, 96, 96), (16, 256, 8, 93), (16, 6400, 8, 96)]
+                  (None, 96, 96, 96), (16, 256, 8, 93), (16, 6400, 8, 96),
+                  (1, 6400, 8, 96)]
 # relax shapes (batch or None, s, v): unaligned ones, then stage A's
-# sweep at both sizes, (m, bmax, kmax) x (m, kmax, kmax)
+# sweep at both sizes, (m, bmax, kmax) x (m, kmax, kmax), and the
+# repairs' subset sweeps over 1, 2 or 4 districts
 RELAX_SHAPES = [(None, 1, 1), (None, 8, 33), (2, 13, 300), (3, 5, 129),
-                (16, 8, 256), (16, 8, 6400)]
+                (16, 8, 256), (16, 8, 6400), (1, 8, 256), (1, 8, 6400),
+                (2, 8, 6400), (4, 8, 6400)]
 
 
 def rand_dist(torch, gen, shape, inf_frac: float):
@@ -230,6 +245,49 @@ def reset_launches(*modules) -> None:
 
 def launch_counts(*modules) -> dict:
     return {k: v for mod in modules for k, v in mod.LAUNCHES.items()}
+
+
+@contextlib.contextmanager
+def hold_first_calls(mod, seen: set, held: list):
+    """While active, the first call of ``mod.relax`` / ``mod.minplus``
+    at each pair of operand shapes not in ``seen`` keeps copies of its
+    operands and its result in ``held``, for ``check_held``. Each call
+    still launches the kernel once, as the path does."""
+    real = {name: getattr(mod, name) for name in ("relax", "minplus")}
+
+    def holding(name):
+        def call(x, y):
+            out = real[name](x, y)
+            key = (name, tuple(x.shape), tuple(y.shape))
+            if key not in seen:
+                seen.add(key)
+                held.append((key, x.clone(), y.clone(), out.clone()))
+            return out
+        return call
+
+    for name in real:
+        setattr(mod, name, holding(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(mod, name, fn)
+
+
+def check_held(torch, held: list, errs: dict, what: str) -> list:
+    """Holds each kept kernel result against the plain version on the
+    same operands, bit for bit; returns the shapes and empties ``held``."""
+    from repro_torch.kernels.minplus import ref
+    shapes = []
+    for (name, xs, ys), x, y, out in held:
+        want = getattr(ref, f"{name}_ref")(x, y)
+        check(torch.equal(out, want), f"{what}: {name} {list(xs)} x "
+              f"{list(ys)} differs from its plain version")
+        errs[name] = max(errs[name], max_abs_err(out, want))
+        shapes.append([name, list(xs), list(ys)])
+        del want
+    held.clear()
+    return shapes
 
 
 def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
@@ -386,7 +444,8 @@ def host_stage_a(g, part, packed) -> np.ndarray:
     return out
 
 
-def phase_center(torch, dev, errs: dict) -> tuple[dict, dict, object]:
+def phase_center(torch, dev, errs: dict
+                 ) -> tuple[dict, dict, object, dict]:
     from repro_torch.core import (QuantSpec, build_border_labels_hierarchical,
                                   dijkstra)
     from repro_torch.edge import ComputingCenter
@@ -462,7 +521,8 @@ def phase_center(torch, dev, errs: dict) -> tuple[dict, dict, object]:
            "batches": list(CENTER_BATCHES),
            "dijkstra_spot_pairs": spots,
            "join_launches": dict(kernel.LAUNCHES), "ok": True}
-    return out, shapes, state
+    return out, shapes, state, {"inc": center.incremental_builder(),
+                                "graph": g, "partition": part}
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -640,6 +700,346 @@ def phase_builder_times(torch, states: dict) -> dict:
             "single PyTorch call computes a (min, +) product",
             "sm_count": props.multi_processor_count,
             "max_sm_clock_mhz": clock_mhz, "rows": rows, "ok": True}
+
+
+# -- phase 5b: the Floyd–Warshall APSP entry point ---------------------------
+
+# (n, integral) cases held against the plain version: bit for bit on
+# integral weights, rtol 1e-5 on real ones (the JAX package's tolerance
+# for its blocked kernel against the rank-1 loop)
+FW_SIZES = (1, 33, 100, 130, 257)
+FW_RTOL = 1e-5
+
+
+def fw_bound(n: int, sm_count: int, clock_hz: float) -> tuple:
+    """(bytes, terms, bytes_ms, ops_ms) of one (n, n) APSP: the matrix
+    read once and written once; n^3 (min, +) terms at 2 instructions."""
+    nbytes = 2 * n * n * 4
+    terms = n ** 3
+    return (nbytes, terms, nbytes / PEAK_BYTES_PER_S * 1e3,
+            2 * terms / (sm_count * MINPLUS_LANES_PER_SM * clock_hz) * 1e3)
+
+
+def district_graph(adj: np.ndarray):
+    """The district's subgraph from its dense adjacency (host)."""
+    from repro_torch.core import from_edges
+    u, v = np.nonzero(np.isfinite(adj) & ~np.eye(len(adj), dtype=bool))
+    keep = u < v
+    return from_edges(len(adj), u[keep].astype(np.int32),
+                      v[keep].astype(np.int32), adj[u[keep], v[keep]])
+
+
+def phase_fw_kernels(torch, dev, errs: dict, launches: dict, st,
+                     sm_count: int, clock_hz: float) -> dict:
+    from repro_torch.core import dijkstra
+    from repro_torch.kernels.sssp_relax import kernel, ops, ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for n in FW_SIZES:
+        for integral in (True, False):
+            adj = rand_dist(torch, gen, (n, n), 0.8)
+            if integral:
+                adj = torch.ceil(adj)
+            adj = torch.minimum(adj, adj.T).contiguous()
+            got = kernel.floyd_warshall(adj)
+            sync(torch, dev)
+            want = ref.floyd_warshall_ref(adj)
+            err = max_abs_err(got, want)
+            if integral:
+                check(torch.equal(got, want), f"floyd_warshall {n} integral")
+            else:
+                fin = torch.isfinite(want)
+                check(torch.equal(torch.isfinite(got), fin)
+                      and bool(((got - want).abs()[fin]
+                                <= FW_RTOL * want.abs()[fin]).all()),
+                      f"floyd_warshall {n} real: beyond rtol {FW_RTOL}")
+            errs["floyd_warshall"] = max(errs["floyd_warshall"], err)
+            cases.append({"n": n, "integral": integral, "max_abs_err": err})
+    small = torch.ceil(rand_dist(torch, gen, (70, 70), 0.7) / 10)
+    small = torch.minimum(small, small.T).contiguous()
+    got16 = ops.floyd_warshall(small.bfloat16())
+    check(got16.dtype == torch.bfloat16 and torch.equal(
+        got16, ref.floyd_warshall_ref(small).bfloat16()),
+          "floyd_warshall bf16")
+
+    # the main path: the per-district APSP of every district at n = 102 400
+    packed = st.packed
+    m, kmax = packed.num_districts, packed.kmax
+    adjs = [torch.from_numpy(packed.adj[i]).to(dev) for i in range(m)]
+    reset_launches(kernel)
+    t0 = time.perf_counter()
+    apsp = [ops.floyd_warshall(a) for a in adjs]
+    sync(torch, dev)
+    all_s = time.perf_counter() - t0
+    launches["floyd_warshall"] = kernel.LAUNCHES["floyd_warshall"]
+    check(launches["floyd_warshall"] == m * kernel.launches_per_call(kmax),
+          f"the APSP path launched {launches['floyd_warshall']} times")
+    for i in range(m):
+        k = int((packed.vertex_ids[i] >= 0).sum())
+        pos = packed.border_pos[i][packed.border_pos[i] >= 0]
+        rows = apsp[i][torch.from_numpy(pos).to(dev)].cpu().numpy()
+        check(np.array_equal(rows[:, :k], st.intra[i, :len(pos), :k]),
+              f"district {i}: APSP border rows differ from stage A")
+    want0 = ref.floyd_warshall_ref(adjs[0])
+    check(torch.equal(apsp[0], want0),
+          "floyd_warshall differs from its plain version at n = 6400")
+    host0 = apsp[0].cpu().numpy()
+    sub = district_graph(packed.adj[0])
+    spots = [0, kmax // 2 + 17, kmax - 1]
+    for s in spots:
+        check(np.array_equal(host0[s], dijkstra(sub, s)),
+              f"district 0: APSP row {s} differs from Dijkstra")
+    del apsp, want0
+
+    # times at the main shape: the 164 MB matrix streams from HBM
+    nbytes, terms, bytes_ms, ops_ms = fw_bound(kmax, sm_count, clock_hz)
+    before = dict(kernel.LAUNCHES)
+    kernel_ms = device_ms(torch, kernel.floyd_warshall, [(adjs[0],)], 4, 3)
+    kernel.LAUNCHES.update(before)      # timing launches are not the path's
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(2):
+        ref.floyd_warshall_ref(adjs[0])
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop) / 2
+    bound_ms = max(bytes_ms, ops_ms)
+    row = {"shape": f"fw_n{kmax}", "kernel": "floyd_warshall",
+           "dims": [kmax, kmax], "terms": terms, "bytes": nbytes,
+           "cuda_launches_per_call": kernel.launches_per_call(kmax),
+           "inputs_from_hbm": True, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bytes_ms": bytes_ms,
+           "ops_ms": ops_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "share_of_bound": bound_ms / kernel_ms}
+    del adjs
+    return {"phase": "floyd_warshall_kernels", "cases": cases,
+            "tolerance": f"integral: bitwise; real: rtol {FW_RTOL}; bf16 "
+            "(small integers): bitwise", "districts": m, "kmax": kmax,
+            "all_districts_s": all_s, "border_rows_equal_stage_a": True,
+            "dijkstra_rows": spots, "plain_bitwise_n6400": True,
+            "launches": launches["floyd_warshall"], "timer": "kernel: "
+            "device ms per call from CUDA-graph replays (4 calls x 3 "
+            "replays); plain: CUDA events around 2 eager calls",
+            "bound": "max(matrix read + written at 3.35 TB/s, n^3 terms x 2 "
+            "instructions / (SMs x 128 lanes x max SM clock))",
+            "library_ms": "null: no single PyTorch call computes a (min, +) "
+            "closure", "rows": [row], "ok": True}
+
+
+# -- phase 5c: delta-scoped repairs of B at n = 102 400 ----------------------
+
+def off_bb_paths(st, g, part, w2) -> bool:
+    """Whether every edge that ``w2`` moves is an intra-district edge off
+    every border-to-border shortest path of its district, and only gets
+    slower: then no border-to-border distance moves and the repair can
+    reuse the closure (the builder's own stage-A rows decide)."""
+    src = g.arc_sources()
+    dirty = np.nonzero(g.weights != w2)[0]
+    packed = st.packed
+    local = np.full(g.num_vertices, -1, dtype=np.int64)
+    live = packed.vertex_ids >= 0
+    local[packed.vertex_ids[live]] = np.nonzero(live)[1]
+    for a in dirty:
+        u, v = int(src[a]), int(g.indices[a])
+        i = int(part.assignment[u])
+        if i != int(part.assignment[v]) or w2[a] < g.weights[a]:
+            return False
+        bp = packed.border_pos[i][packed.border_pos[i] >= 0]
+        d = st.intra[i, :len(bp)]
+        lhs = d[:, local[u]][:, None] + g.weights[a] + d[:, local[v]][None, :]
+        if (lhs == d[:, bp]).any():
+            return False
+    return True
+
+
+def phase_updates_large(torch, dev, ctx: dict, errs: dict) -> dict:
+    from repro_torch.ingest import closure_storm
+    from repro_torch.kernels.minplus import kernel as mp_kernel
+    from repro_torch.update import IncrementalBuilder, scenario_weights
+    inc, g, part = ctx["inc"], ctx["graph"], ctx["partition"]
+    # scenario, intensity: a side-street incident (its seed picked so the
+    # closure is reused), a corridor and a regional slowdown (scoped),
+    # then jitter over every district (the full rung)
+    seed = next(s for s in range(100) if off_bb_paths(
+        inc.state, g, part, scenario_weights(
+            "incident", g, part, np.random.default_rng(s), 0.0005)))
+    plan = [("incident", 0.0005, seed), ("rush_hour", 0.002, 1),
+            ("regional", 0.05, 2), ("jitter", 0.01, 3)]
+    epochs = []
+    cur = g
+    for name, intensity, s in plan:
+        w2 = scenario_weights(name, cur, part, np.random.default_rng(s),
+                              intensity)
+        cur = cur.with_weights(w2)
+        epochs.append(("delta", name, intensity, cur))
+    # closures: two side-street epochs (scoped), then one on highways
+    # (border churn: the full rung)
+    for bias, intensity, s in ((1.0, 0.0005, 4), (0.0, 0.001, 5)):
+        for g_new, _ in closure_storm(cur, part, num_epochs=2 if bias
+                                      else 1, intensity=intensity,
+                                      intra_bias=bias, sites=1, seed=s):
+            epochs.append(("structural", f"closure_storm_bias{bias}",
+                           intensity, g_new))
+        cur = g_new
+    rows = []
+    total = {"relax": 0, "minplus": 0}
+    seen, held, held_shapes = set(), [], []
+    for kind, name, intensity, g_new in epochs:
+        reset_launches(mp_kernel)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with hold_first_calls(mp_kernel, seen, held):
+            labels, rep = getattr(inc, f"apply_{kind}")(g_new, part)
+        sync(torch, dev)
+        repair_s = time.perf_counter() - t0
+        repair_launches = launch_counts(mp_kernel)
+        steps = dict(inc.timings)
+        shapes_now = check_held(torch, held, errs, name)
+        held_shapes += shapes_now
+        full = IncrementalBuilder(device=dev)
+        t0 = time.perf_counter()
+        want = full.build_full(g_new, part)
+        full_s = time.perf_counter() - t0
+        check(np.array_equal(labels.table, want.table)
+              and np.array_equal(labels.border_ids, want.border_ids),
+              f"{name}: repaired B differs from a full build")
+        check(np.array_equal(inc.state.table_device.cpu().numpy(),
+                             labels.table),
+              f"{name}: the device table is not the repaired one")
+        for k in total:
+            total[k] += repair_launches[k]
+        rows.append({"kind": kind, "scenario": name, "intensity": intensity,
+                     "incremental": rep["incremental"],
+                     "border_changed": rep.get("border_changed"),
+                     "dirty_districts": len(rep["dirty_districts"]),
+                     "affected_districts": len(rep.get(
+                         "affected_districts", rep["dirty_districts"])),
+                     "closure_reused": rep["closure_reused"],
+                     "repruned_rows": rep["repruned_rows"],
+                     "changed_rows": int(rep["changed_rows"].sum()),
+                     "repair_s": repair_s, "repair_steps": steps,
+                     "stage_a_sweeps": steps.get("stage_a_sweeps"),
+                     "launches": repair_launches,
+                     "held_against_plain": shapes_now, "full_build_s": full_s,
+                     "full_build_steps": dict(full.timings),
+                     "equals_full_build": True})
+        del full, want
+    m = part.num_districts
+    check(any(r["incremental"] and r["dirty_districts"] < m for r in rows
+              if r["kind"] == "delta"), "no scoped weight repair")
+    check(any(r["closure_reused"] or isinstance(r["repruned_rows"], int)
+              for r in rows if r["incremental"] and r["changed_rows"]),
+          "no repair reached closure reuse or the scoped stage D")
+    check(any(r["incremental"] for r in rows if r["kind"] == "structural"),
+          "no scoped structural repair")
+    check(any(not r["incremental"] for r in rows
+              if r["kind"] == "structural"), "no structural full rung")
+    check(total["relax"] > 0 and total["minplus"] > 0,
+          f"the repairs missed a kernel: {total}")
+    check(any(s[0] == "relax" and 0 < s[1][0] < m for s in held_shapes)
+          and any(s[0] == "minplus" for s in held_shapes),
+          f"no subset sweep or min-plus product held: {held_shapes}")
+    return {"phase": "updates_n102400", "n": int(g.num_vertices),
+            "districts": m, "incident_seed": seed, "epochs": rows,
+            "launches": total, "held_against_plain": "the first relax / "
+            "minplus call at each operand shape of the repairs, kernel "
+            "result == plain version on the same operands, bitwise",
+            "timer": "host clock, device synchronised (repair_s includes "
+            "device copies of the held calls' operands); full_build_s: a "
+            "fresh staged build on the same graph", "ok": True}
+
+
+# -- phase 5d: the update cycle of the deployed n = 4096 system --------------
+
+def scipy_dijkstra(g, sources: np.ndarray) -> np.ndarray:
+    """Exact distances from ``sources`` (float64 sums of the float32
+    weights; integral weights make them exact in float32 too)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    n = g.num_vertices
+    mat = csr_matrix((g.weights.astype(np.float64), g.indices, g.indptr),
+                     shape=(n, n))
+    return dijkstra(mat, directed=True, indices=sources)
+
+
+def phase_updates_small(torch, dev, state: dict, errs: dict) -> dict:
+    from repro_torch.core import dijkstra
+    from repro_torch.ingest import closure_storm
+    from repro_torch.kernels.label_join import kernel as lj_kernel
+    from repro_torch.kernels.minplus import kernel as mp_kernel
+    from repro_torch.update import scenario_weights
+    system = state["system"]
+    part = system.partition
+    reset_launches(mp_kernel, lj_kernel)
+    steps = {}
+    before = [srv.augmented for srv in system.servers]
+    w2 = scenario_weights("incident", system.graph, part,
+                          np.random.default_rng(21), 0.002)
+    seen, held = set(), []
+    t0 = time.perf_counter()
+    with hold_first_calls(mp_kernel, seen, held):
+        traffic = system.apply_traffic_update(w2, incremental=True)
+    steps["traffic_s"] = time.perf_counter() - t0
+    held_shapes = check_held(torch, held, errs, "traffic update")
+    for i in traffic["clean_districts"]:
+        check(system.servers[i].augmented is before[i]
+              and system.servers[i].augmented_version
+              == system.center.version,
+              f"clean district {i} entered a rebuild window")
+    check(traffic["incremental"] and system.current_engine() is not None,
+          "traffic update left the system without an engine")
+    g_new, _ = next(iter(closure_storm(system.graph, part, num_epochs=1,
+                                       intensity=0.002, intra_bias=1.0,
+                                       sites=1, seed=8)))
+    before = [srv.augmented for srv in system.servers]
+    t0 = time.perf_counter()
+    with hold_first_calls(mp_kernel, seen, held):
+        topology = system.apply_topology_update(g_new)
+    steps["topology_s"] = time.perf_counter() - t0
+    held_shapes += check_held(torch, held, errs, "topology update")
+    for i in topology["clean_districts"]:
+        check(system.servers[i].augmented is before[i],
+              f"clean district {i} entered a rebuild window")
+    check(system.current_engine() is not None,
+          "topology update left the system without an engine")
+    ss, ts, client = mixed_batch(part, np.random.default_rng(23), BATCH)
+    t0 = time.perf_counter()
+    got = system.service().submit(ss, ts, client_districts=client)
+    steps["submit_s"] = time.perf_counter() - t0
+    launches = launch_counts(mp_kernel, lj_kernel)
+    check(all(launches[k] > 0 for k in ("relax", "minplus", "label_join")),
+          f"the update path missed a kernel: {launches}")
+    check(any(s[0] == "relax" for s in held_shapes),
+          f"no subset sweep held: {held_shapes}")
+    g = system.graph
+    uniq, inv = np.unique(ss, return_inverse=True)
+    exact = scipy_dijkstra(g, uniq)[inv, ts].astype(np.float32)
+    check(np.array_equal(got.distances, exact),
+          "answers after the updates differ from Dijkstra")
+    spots = spot_check_dijkstra(g, ss, ts, got.distances, dijkstra, 6)
+    check(got.exact.all(), "answers after the updates not flagged exact")
+    m = part.num_districts
+
+    def summary(rep):
+        return {"incremental": rep["incremental"],
+                "border_changed": rep.get("border_changed"),
+                "dirty_districts": rep["dirty_districts"],
+                "stale_shortcut_districts": rep["stale_shortcut_districts"],
+                "clean_districts": rep["clean_districts"],
+                "bl_repair_s": rep["bl_rebuild_s"],
+                "local_refresh_s": sum(rep["local_refresh_s"].values()),
+                "shortcut_install_s": sum(
+                    rep["shortcut_install_s"].values())}
+
+    return {"phase": "updates_n4096", "n": int(g.num_vertices),
+            "districts": m, "traffic": summary(traffic),
+            "topology": summary(topology), "steps_s": steps,
+            "batch": BATCH, "equals_dijkstra": "all answers (scipy "
+            "Dijkstra) + spot pairs (the port's)", "dijkstra_spot_pairs":
+            spots, "launches": launches, "held_against_plain": held_shapes,
+            "ok": True}
 
 
 def phase_times(torch, state: dict, shapes: dict) -> dict:
@@ -1039,8 +1439,8 @@ def phase_flash_times(torch, dev) -> dict:
 
 
 # each kernel at the shape its path's main run gives it (phase 3 for the
-# distance kernels, phase 7's prefill for flash attention), and the TPU
-# kernel it replaces
+# distance kernels, phase 7's prefill for flash attention, one district
+# of n = 102 400 for Floyd–Warshall), and the TPU kernel it replaces
 KERNELS = {
     "label_join": ("engine_f32", "label_join/csrc/label_join.cu",
                    "src/repro/kernels/label_join/kernel.py:63"),
@@ -1053,6 +1453,8 @@ KERNELS = {
     "flash_attention": ("flash_b2_s4096",
                         "flash_attention/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:94"),
+    "floyd_warshall": ("fw_n6400", "sssp_relax/csrc/floyd_warshall.cu",
+                       "src/repro/kernels/sssp_relax/kernel.py:77"),
 }
 
 
@@ -1089,12 +1491,14 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.label_join import kernel, ref
     from repro_torch.kernels.minplus import kernel as mp_kernel
+    from repro_torch.kernels.sssp_relax import kernel as fw_kernel
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE, fa_kernel.SOURCE])
+    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE, fa_kernel.SOURCE,
+                        fw_kernel.SOURCE])
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for log in logs.values()
              for line in log.splitlines()
@@ -1110,7 +1514,8 @@ def main() -> int:
     emit(phase_minplus_kernels(torch, dev, errs))
     serving, state = phase_serving(torch, dev, launches)
     emit(serving)
-    center, center_shapes, large_state = phase_center(torch, dev, errs)
+    center, center_shapes, large_state, repair_ctx = phase_center(
+        torch, dev, errs)
     emit(center)
     shapes = {**state["shapes"], **center_shapes}
     times = phase_times(torch, state, shapes)
@@ -1118,7 +1523,16 @@ def main() -> int:
     builder_times = phase_builder_times(
         torch, {"n4096": state["build_state"], "n102400": large_state})
     emit(builder_times)
-    del state, shapes, center_shapes, large_state
+    fw = phase_fw_kernels(torch, dev, errs, launches, large_state,
+                          builder_times["sm_count"],
+                          builder_times["max_sm_clock_mhz"] * 1e6)
+    emit(fw)
+    del shapes, center_shapes, large_state
+    torch.cuda.empty_cache()
+    emit(phase_updates_large(torch, dev, repair_ctx, errs))
+    del repair_ctx
+    emit(phase_updates_small(torch, dev, state, errs))
+    del state
     torch.cuda.empty_cache()
     emit(phase_flash_kernels(torch, dev, errs))
     emit(phase_lm(torch, dev, launches))
@@ -1126,7 +1540,7 @@ def main() -> int:
     flash_times = phase_flash_times(torch, dev)
     emit(flash_times)
     emit(kernels_line(times["rows"] + builder_times["rows"]
-                      + flash_times["rows"], launches, errs))
+                      + flash_times["rows"] + fw["rows"], launches, errs))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

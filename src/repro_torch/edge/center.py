@@ -12,8 +12,16 @@ builder (``builder="torch"``, the counterpart of the JAX package's
 ``builder="jax"``: ``update.IncrementalBuilder.build_full`` over
 ``core.torch_builder``, stages A–C on the min-plus CUDA kernels). Either
 way B is kept resident on ``device`` per version for the rule-3 join;
-the staged builder hands over its own device tensor. The delta-scoped
-repairs ``apply_delta`` / ``apply_structural`` come with a later slice.
+the staged builder hands over its own device tensor.
+
+``apply_delta`` (weights) and ``apply_structural`` (closures/openings)
+repair B delta-scoped through ``update.IncrementalBuilder`` on
+``device``, whatever ``builder`` is (as in the JAX package, the repair
+is defined over the staged builder's cached stage outputs, and is bit
+for bit equal to a full staged rebuild), and invalidate only the
+districts whose shortcut inputs (their borders' B rows) moved. The
+repaired table's device tensor becomes B's device copy for the new
+version.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ from ..core.partition import Partition, borders_of
 from ..core.shortcuts import border_shortcut_matrix
 from ..device import resolve_device
 from ..kernels.label_join import ops as lj
+from ..topo.structural import classify_structural
+from ..update.delta import classify_delta
 from ..update.incremental import IncrementalBuilder
 
 BUILDERS = ("reference", "torch")
@@ -92,6 +102,103 @@ class ComputingCenter:
         self._btable_dev = None if table_dev is None \
             else (self.version, table_dev)
         return self.last_build_seconds
+
+    def set_topology(self, g_new: Graph) -> None:
+        """Take a new topology (same vertex set and partition) before a
+        ``rebuild``: the border lists and every shortcut matrix are
+        derived from it, so both are dropped."""
+        self.graph = g_new
+        self._forget_borders()
+
+    def _forget_borders(self) -> None:
+        self._border_lists = None
+        self._shortcut_cache.clear()
+
+    def _adopt_repair(self, g_new: Graph, labels: BorderLabels,
+                      seconds: float) -> None:
+        """Install a repaired B as the next version, with the repaired
+        table's device tensor as its device copy."""
+        self.last_build_seconds = seconds
+        self.graph = g_new
+        self.border_labels = labels
+        self.version += 1
+        table_dev = self.incremental_builder().state.table_device
+        self._btable_dev = None if table_dev is None \
+            else (self.version, table_dev)
+
+    def _invalidate(self, changed: np.ndarray) -> list[int]:
+        """Scoped invalidation: district i's shortcut matrix reads only
+        the B rows of its own borders — drop it iff one of those rows
+        moved. Returns the stale districts."""
+        stale = [i for i, b in enumerate(self._borders())
+                 if len(b) and changed[b].any()]
+        for i in stale:
+            self._shortcut_cache.pop(i, None)
+        return stale
+
+    def apply_delta(self, new_weights: np.ndarray) -> dict:
+        """Delta-scoped rebuild: repair B for a weight update and bump the
+        version, invalidating only the shortcut matrices whose inputs
+        moved. Returns a report::
+
+            {"seconds", "incremental", "delta", "stale_districts",
+             "changed_rows", "noop"}
+
+        ``stale_districts`` are the districts whose Border Auxiliary
+        Shortcuts changed (their edge servers must reinstall);
+        everything else keeps serving the same shortcuts. A delta with
+        no dirty edges is a no-op (no version bump).
+        """
+        delta = classify_delta(self.graph, self.partition, new_weights)
+        if delta.is_empty and self.border_labels is not None:
+            return {"seconds": 0.0, "incremental": True, "delta": delta,
+                    "stale_districts": [], "noop": True,
+                    "changed_rows": np.zeros(self.graph.num_vertices,
+                                             dtype=bool)}
+        g2 = self.graph.with_weights(new_weights)
+        t0 = time.perf_counter()
+        labels, rep = self.incremental_builder().apply_delta(
+            g2, self.partition, delta)
+        self._adopt_repair(g2, labels, time.perf_counter() - t0)
+        changed = rep["changed_rows"]
+        return {"seconds": self.last_build_seconds,
+                "incremental": rep["incremental"], "delta": delta,
+                "stale_districts": self._invalidate(changed),
+                "changed_rows": changed, "noop": False}
+
+    def apply_structural(self, g_new: Graph) -> dict:
+        """Structural rebuild for a topology change (closures/openings):
+        classify via ``topo``, repair B with the scoped structural path,
+        bump the version, and invalidate only the shortcut matrices
+        whose inputs moved. Same report as ``apply_delta`` plus
+        ``"border_changed"``.
+
+        Border lists are topology-derived, so unlike the weight path
+        they are re-derived whenever the border sets moved (and the
+        whole shortcut cache dropped with them — stale border lists
+        would index B with the wrong rows)."""
+        delta = classify_structural(self.graph, self.partition, g_new)
+        if delta.is_empty and self.border_labels is not None:
+            self.graph = g_new      # fresh CSR identity, same topology
+            return {"seconds": 0.0, "incremental": True, "delta": delta,
+                    "stale_districts": [], "noop": True,
+                    "border_changed": False,
+                    "changed_rows": np.zeros(self.graph.num_vertices,
+                                             dtype=bool)}
+        t0 = time.perf_counter()
+        labels, rep = self.incremental_builder().apply_structural(
+            g_new, self.partition, delta)
+        self._adopt_repair(g_new, labels, time.perf_counter() - t0)
+        changed = rep["changed_rows"]
+        if delta.border_changed or rep.get("border_changed"):
+            self._forget_borders()
+            stale = list(range(self.partition.num_districts))
+        else:
+            stale = self._invalidate(changed)
+        return {"seconds": self.last_build_seconds,
+                "incremental": rep["incremental"], "delta": delta,
+                "stale_districts": stale, "changed_rows": changed,
+                "border_changed": delta.border_changed, "noop": False}
 
     def _borders(self) -> list[np.ndarray]:
         if self._border_lists is None:

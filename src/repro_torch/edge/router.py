@@ -18,9 +18,12 @@ center's version moves.
 
 Everything that holds tensors lives on ``device``: ``deploy(device=None)``
 means the CUDA card and raises without one; ``device="cpu"`` runs the
-kernels' plain versions.  The sharded engines, the scatter-gather plane,
-delta-scoped updates, topology updates and migration come with later
-slices (ROADMAP Queue 1 items 6–8).
+kernels' plain versions.  Traffic updates run the paper's full cycle
+or the delta-scoped one (``apply_traffic_update(incremental=True)``),
+topology updates (closures/openings) the scoped structural one; the
+center repairs B on ``device`` either way.  The sharded engines, the
+scatter-gather plane and migration come with later slices (ROADMAP
+Queue 1 items 7–8).
 """
 from __future__ import annotations
 
@@ -94,16 +97,30 @@ class EdgeSystem:
 
     def apply_traffic_update(self, new_weights: np.ndarray,
                              incremental: bool = False) -> dict:
-        """Traffic-epoch update cycle (the paper's full cycle): every
-        edge server refreshes its local index, the center rebuilds B
-        from scratch with its builder (``"reference"`` or ``"torch"``),
-        shortcuts are pushed back down everywhere.
-        Returns timings.  The delta-scoped cycle (``incremental=True``)
-        comes with the updates slice."""
+        """Traffic-epoch update cycle; returns timings.
+
+        ``incremental=False`` — the paper's full cycle: every edge server
+        refreshes its local index, the center rebuilds B from scratch
+        with its builder (``"reference"`` or ``"torch"``), shortcuts are
+        pushed back down everywhere.
+
+        ``incremental=True`` — delta-scoped cycle (``update``): only
+        districts with a dirty intra edge refresh their local index,
+        the center repairs B on ``device`` (bit for bit equal to a full
+        staged rebuild), and shortcuts are reinstalled only where the
+        shortcut matrix or the local index moved.  Clean districts'
+        servers just adopt the new version number: their L_i⁺ inputs
+        are bitwise unchanged, so they keep serving without entering a
+        rebuild window.
+        """
         if incremental:
-            raise NotImplementedError(
-                "incremental updates are not ported yet (ROADMAP Queue 1 "
-                "item 6, updates)")
+            rep = self.center.apply_delta(new_weights)
+            if rep["noop"]:
+                return self._noop_report()
+            self.graph = self.center.graph      # same topology, new weights
+            dirty = set(int(i) for i in rep["delta"].dirty_districts)
+            return {**self._scoped_refresh(dirty, rep),
+                    "incremental": rep["incremental"]}
         g2 = self.graph.with_weights(new_weights)
         self.graph = g2
         local_s = [srv.refresh_local(g2, self.partition)
@@ -116,6 +133,79 @@ class EdgeSystem:
         return {"local_refresh_s": local_s, "bl_rebuild_s": bl_s,
                 "shortcut_install_s": shortcut_s,
                 "incremental": False}
+
+    def apply_topology_update(self, g_new: Graph,
+                              incremental: bool = True) -> dict:
+        """Structural update cycle — road closures/openings.
+
+        ``incremental=True`` (default): classify the topology diff
+        (``topo``), repair B with the scoped structural path, and
+        refresh only the edge servers whose inputs moved — a district's
+        local index reads its intra arc set (dirty districts refresh)
+        and its Definition-4 border list (every server refreshes when
+        ``border_changed``).  ``incremental=False`` runs the paper's
+        full redeploy cycle.  Either way the partition and vertex set
+        are fixed.
+        """
+        if not incremental:
+            self.graph = g_new
+            self.center.set_topology(g_new)
+            local_s = [srv.refresh_local(g_new, self.partition)
+                       for srv in self.servers]
+            bl_s = self.center.rebuild()
+            shortcut_s = [srv.install_shortcuts(
+                g_new, self.partition,
+                self.center.shortcuts_for(srv.district_id),
+                self.center.version) for srv in self.servers]
+            return {"local_refresh_s": local_s, "bl_rebuild_s": bl_s,
+                    "shortcut_install_s": shortcut_s,
+                    "incremental": False, "border_changed": True}
+        rep = self.center.apply_structural(g_new)
+        self.graph = self.center.graph
+        if rep["noop"]:
+            return {**self._noop_report(), "border_changed": False}
+        if rep["border_changed"]:
+            # border sets moved: every server's L_i border rows are laid
+            # out against the new border lists — refresh everywhere
+            dirty = set(range(len(self.servers)))
+        else:
+            dirty = set(int(i) for i in rep["delta"].dirty_districts)
+        return {**self._scoped_refresh(dirty, rep),
+                "incremental": rep["incremental"],
+                "border_changed": rep["border_changed"]}
+
+    def _noop_report(self) -> dict:
+        return {"local_refresh_s": {}, "bl_rebuild_s": 0.0,
+                "shortcut_install_s": {}, "incremental": True,
+                "dirty_districts": [], "stale_shortcut_districts": [],
+                "clean_districts": list(range(len(self.servers)))}
+
+    def _scoped_refresh(self, dirty: set, rep: dict) -> dict:
+        """After a scoped center repair: dirty districts refresh their
+        local index, dirty and stale ones reinstall shortcuts, the rest
+        adopt the new version in place."""
+        g = self.graph
+        stale = set(rep["stale_districts"])
+        local_s: dict[int, float] = {}
+        shortcut_s: dict[int, float] = {}
+        clean: list[int] = []
+        for i, srv in enumerate(self.servers):
+            if i in dirty:
+                local_s[i] = srv.refresh_local(g, self.partition)
+            if i in dirty or i in stale or srv.augmented is None:
+                shortcut_s[i] = srv.install_shortcuts(
+                    g, self.partition, self.center.shortcuts_for(i),
+                    self.center.version)
+            else:
+                # nothing this server depends on moved — keep serving
+                srv.augmented_version = self.center.version
+                clean.append(i)
+        return {"local_refresh_s": local_s,
+                "bl_rebuild_s": rep["seconds"],
+                "shortcut_install_s": shortcut_s,
+                "dirty_districts": sorted(dirty),
+                "stale_shortcut_districts": sorted(stale),
+                "clean_districts": clean}
 
     def service(self, policy: "ServingPolicy | None" = None
                 ) -> "DistanceService":

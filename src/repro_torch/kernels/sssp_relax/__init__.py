@@ -1,3 +1,4 @@
-"""Multi-source relaxation (stage A of the staged builder) over the
-min-plus sweep kernel; the blocked Floyd–Warshall waits for its
-kernel."""
+"""Shortest paths on dense district adjacencies: the blocked
+Floyd–Warshall APSP (CUDA kernel, plain PyTorch version, public entry
+point) and the multi-source relaxation of the staged builder's stage A
+over the min-plus sweep kernel."""

@@ -8,9 +8,11 @@ shared fixtures out):
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 The distance kernels must equal their plain versions bit for bit (same
-IEEE float32 operations), B built on the card by the staged builder
-must equal the host reference's, and a deployment on the card must
-answer exactly as the same deployment on the CPU. The flash-attention
+IEEE float32 operations; Floyd–Warshall on integral weights, within
+rtol 1e-5 on real ones), B built on the card by the staged builder
+must equal the host reference's, repairs of B on the card must equal
+the same repairs on the CPU, and a deployment on the card must answer
+exactly as the same deployment on the CPU. The flash-attention
 kernel, whose sums run in another order, must agree with its plain
 version within the tolerances stated at its tests, and the LM path
 through it with the dense path.
@@ -271,3 +273,98 @@ def test_lm_prefill_launches_flash_once_per_layer_and_decode_never(cuda):
         assert float((logits[:, 0] - full[:, i]).abs().max()
                      / full[:, i].abs().max()) <= 1e-4
     assert fa.LAUNCHES["flash_attention"] == before
+
+
+# Floyd–Warshall: bit for bit on integral weights (every path sum is
+# exact, whatever the blocked order), rtol 1e-5 on real ones (the JAX
+# package's tolerance for its blocked kernel against the rank-1 loop)
+@pytest.mark.parametrize("integral", [True, False])
+@pytest.mark.parametrize("n", [1, 33, 64, 100, 130, 257])
+def test_floyd_warshall_kernel_matches_plain_version(cuda, n, integral):
+    from repro_torch.kernels.sssp_relax import kernel as fw, ref as fw_ref
+    rng = np.random.default_rng(n)
+    adj = _rand_dist(rng, (n, n))
+    if integral:
+        adj = np.ceil(adj)
+    adj[rng.random((n, n)) < 0.8] = np.inf
+    adj = torch.from_numpy(np.minimum(adj, adj.T)).to(cuda)
+    keep = adj.clone()
+    before = fw.LAUNCHES["floyd_warshall"]
+    got = fw.floyd_warshall(adj)
+    torch.cuda.synchronize()
+    assert fw.LAUNCHES["floyd_warshall"] == before + fw.launches_per_call(n)
+    assert torch.equal(adj, keep)               # out of place
+    want = fw_ref.floyd_warshall_ref(adj)
+    if integral:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_floyd_warshall_bf16_and_district_rows_on_card(cuda):
+    """bf16 through the entry point, and each district's APSP border
+    rows against stage A of the card's staged build, bit for bit."""
+    from repro_torch.core import torch_builder
+    from repro_torch.kernels.sssp_relax import ops as fw_ops, ref as fw_ref
+    rng = np.random.default_rng(3)
+    small = rng.integers(1, 5, (70, 70)).astype(np.float32)
+    small[rng.random(small.shape) < 0.7] = np.inf
+    small = torch.from_numpy(np.minimum(small, small.T)).to(cuda)
+    got = fw_ops.floyd_warshall(small.bfloat16())
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.float(), fw_ref.floyd_warshall_ref(small))
+    csr, part = synthetic_continent((2, 2), (12, 12), seed=3)
+    _, state = torch_builder.build_border_labels_stages(
+        csr.to_graph(), part, device=cuda)
+    packed = state.packed
+    for i in range(packed.num_districts):
+        k = int((packed.vertex_ids[i] >= 0).sum())
+        apsp = fw_ops.floyd_warshall(
+            torch.from_numpy(packed.adj[i, :k, :k]).to(cuda)).cpu().numpy()
+        pos = packed.border_pos[i][packed.border_pos[i] >= 0]
+        np.testing.assert_array_equal(apsp[pos],
+                                      state.intra[i, :len(pos), :k])
+
+
+def test_repairs_on_card_equal_repairs_on_host(cuda):
+    """apply_delta and apply_structural on the card against the same
+    repairs on the CPU: every BuildState field and report field equal,
+    and the card's device table the repaired one."""
+    from repro_torch.ingest import closure_storm
+    from repro_torch.kernels.minplus import kernel as mp
+    from repro_torch.update import IncrementalBuilder, scenario_weights
+    csr, part = synthetic_continent((2, 2), (12, 12), seed=3)
+    g = csr.to_graph()
+    builders = [IncrementalBuilder(device=d) for d in (cuda, "cpu")]
+    for b in builders:
+        b.build_full(g, part)
+    epochs = []
+    cur = g
+    for name in ("incident", "regional", "jitter"):
+        cur = cur.with_weights(scenario_weights(
+            name, cur, part, np.random.default_rng(len(name)), 0.02))
+        epochs.append(("delta", cur))
+    # side streets first (the scoped rung), then highways (border churn)
+    for bias, seed in ((1.0, 1), (0.0, 2)):
+        for g_new, _ in closure_storm(cur, part, num_epochs=2,
+                                      intensity=0.02, intra_bias=bias,
+                                      seed=seed):
+            epochs.append(("structural", g_new))
+        cur = g_new
+    for kind, g_new in epochs:
+        before = dict(mp.LAUNCHES)
+        reps = [getattr(b, f"apply_{kind}")(g_new, part)[1]
+                for b in builders]
+        card, host = builders
+        if reps[0]["incremental"] and len(reps[0]["dirty_districts"]):
+            assert mp.LAUNCHES["relax"] > before["relax"]
+        for k in reps[1]:
+            if k != "seconds":
+                np.testing.assert_array_equal(np.asarray(reps[0][k]),
+                                              np.asarray(reps[1][k]))
+        for f in ("intra", "overlay", "closure", "unpruned", "table"):
+            np.testing.assert_array_equal(getattr(card.state, f),
+                                          getattr(host.state, f))
+        assert card.state.table_device.is_cuda
+        np.testing.assert_array_equal(card.state.table_device.cpu().numpy(),
+                                      card.state.table)

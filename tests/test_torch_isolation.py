@@ -19,13 +19,15 @@ import pytest
 import torch
 
 from repro_torch.core import bfs_grow_partition, grid_road_network
-from repro_torch.edge import BatchedQueryEngine, EdgeSystem
+from repro_torch.edge import BatchedQueryEngine, ComputingCenter, EdgeSystem
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.label_join import kernel, ops
 from repro_torch.kernels.minplus import kernel as mp_kernel
+from repro_torch.kernels.sssp_relax import kernel as fw_kernel
 from repro_torch.models import lm
 from repro_torch.serve import BatchedDecoder
+from repro_torch.update import IncrementalBuilder
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -57,9 +59,43 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env=_env(), capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
-    # 66 modules: the serving path, the staged builder, the configs and
-    # the dense LM (models, train, launch, kernels/flash_attention)
-    assert int(out.stdout.split("IMPORTED")[1]) >= 66
+    # 71 modules: the serving path, the staged builder, the configs, the
+    # dense LM (models, train, launch, kernels/flash_attention), the
+    # updates (update/delta, update/scenarios, topo) and Floyd–Warshall
+    # (kernels/sssp_relax/kernel)
+    assert int(out.stdout.split("IMPORTED")[1]) >= 71
+
+
+_IMPORT_NEW = r"""
+import importlib, sys
+sys.modules["jax"] = None              # any `import jax` now fails
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+loaded = sorted(k for k in sys.modules
+                if k == "repro" or k.startswith("repro."))
+assert not loaded, loaded
+assert sys.modules["jax"] is None
+print("OK")
+"""
+
+# the modules of the updates slice and of the Floyd–Warshall kernel
+UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
+                  "repro_torch.update.incremental", "repro_torch.update",
+                  "repro_torch.topo.structural", "repro_torch.topo",
+                  "repro_torch.ingest.synth",
+                  "repro_torch.kernels.sssp_relax.ref",
+                  "repro_torch.kernels.sssp_relax.kernel",
+                  "repro_torch.kernels.sssp_relax.ops",
+                  "repro_torch.edge.center", "repro_torch.edge.router"]
+
+
+@pytest.mark.parametrize("module", UPDATE_MODULES)
+def test_update_modules_import_alone_without_jax(module):
+    out = subprocess.run([sys.executable, "-c", _IMPORT_NEW, module],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "OK"
 
 
 def _require_cpu_only_host():
@@ -77,6 +113,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedQueryEngine(np.zeros((16, 0), np.float32), [],
                            part.assignment)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IncrementalBuilder()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ComputingCenter(g, part, builder="torch")
     cfg = get_smoke_config("qwen3_4b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_params(cfg, torch.Generator())
@@ -135,6 +175,23 @@ def test_cuda_tensor_launches_or_raises_never_falls_back_minplus(
     with pytest.raises(RuntimeError, match="nvcc"):
         getattr(mp_kernel, name)(x, x)
     assert mp_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n", [1, 33, 130])
+def test_cuda_tensor_launches_or_raises_never_falls_back_fw(monkeypatch, n):
+    _require_cpu_only_host()
+
+    def no_fallback(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fw_kernel, "floyd_warshall_ref", no_fallback)
+    monkeypatch.setattr(fw_kernel.build, "_LOADED", {})
+    monkeypatch.setenv("PATH", "")           # no nvcc on this host anyway
+    adj = torch.zeros((n, n)).as_subclass(_CudaLooking)
+    before = dict(fw_kernel.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fw_kernel.floyd_warshall(adj)
+    assert fw_kernel.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -394,7 +394,7 @@ def test_apply_traffic_update_matches_reference(case):
 # -- what this slice leaves out raises ---------------------------------------
 
 def test_unported_placements_and_paths_raise(deployed):
-    _, (rg, rpart, _), _, conv = deployed
+    _, (rg, rpart, _), (tg, tpart, _), conv = deployed
     for engine in ("sharded", "scatter_gather"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.ServingPolicy(engine=engine)
@@ -414,9 +414,13 @@ def test_unported_placements_and_paths_raise(deployed):
         tedge.ComputingCenter(rg, rpart, builder="jax", device="cpu")
     with pytest.raises(ValueError, match="builder"):
         tedge.ComputingCenter(rg, rpart, builder="xla", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conv.apply_traffic_update(rg.weights, incremental=True)
-    builder = IncrementalBuilder(device="cpu")
-    for repair in (builder.apply_delta, builder.apply_structural):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            repair(rg, rpart)
+    # the delta-scoped updates are ported (tests/test_torch_update.py):
+    # an unchanged weight array is a no-op that keeps every server clean,
+    # and a builder with no cache takes the full rung
+    rep = conv.apply_traffic_update(rg.weights, incremental=True)
+    assert rep["incremental"] and conv.center.version == 1
+    assert rep["clean_districts"] == list(range(rpart.num_districts))
+    for repair in ("apply_delta", "apply_structural"):
+        _, rep = getattr(IncrementalBuilder(device="cpu"), repair)(tg, tpart)
+        assert not rep["incremental"] and rep["repruned_rows"] == "full"
+        assert rep["changed_rows"].all()
