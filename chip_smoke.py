@@ -1078,8 +1078,9 @@ def phase_times(torch, state: dict, shapes: dict) -> dict:
 
 # (B, S, T, H, KV, hd, causal, dtype): the five cases of the JAX
 # package's tests/test_flash_attention.py in float32, its bf16 case, an
-# unaligned Qwen-shaped case (in both types), a non-causal one, then the
-# LM path's shape
+# unaligned Qwen-shaped case (in both types), a non-causal one, bf16 at
+# every other head dim the tensor-core kernel takes (192: Nemotron-4-340B)
+# and at ragged S != T, then the LM path's shape
 FLASH_SHAPES = [(1, 16, 16, 4, 4, 32, True, "float32"),
                 (2, 32, 32, 4, 2, 32, True, "float32"),
                 (1, 64, 64, 8, 2, 16, False, "float32"),
@@ -1089,27 +1090,43 @@ FLASH_SHAPES = [(1, 16, 16, 4, 4, 32, True, "float32"),
                 (1, 1000, 1000, 32, 8, 128, True, "float32"),
                 (1, 1000, 1000, 32, 8, 128, True, "bfloat16"),
                 (2, 300, 300, 32, 8, 128, False, "bfloat16"),
+                (1, 77, 77, 4, 4, 16, True, "bfloat16"),
+                (2, 130, 100, 8, 8, 64, False, "bfloat16"),
+                (2, 500, 500, 16, 4, 192, True, "bfloat16"),
+                (1, 300, 1000, 32, 8, 128, True, "bfloat16"),
+                (1, 1000, 300, 32, 8, 128, False, "bfloat16"),
                 (2, 4096, 4096, 32, 8, 128, True, "bfloat16")]
+# (B, S, H, KV, hd): q, k, v as the head-split views of one fused (B, S,
+# H + 2 KV, hd) projection, strided in the sequence and head axes
+FLASH_STRIDED = [(2, 1000, 32, 8, 128)]
 # float32: both sides compute in f32 on unit-normal inputs; only the
 # order of the sums and the online rescaling differ (the JAX package's
-# own test allows 2e-4). bf16: both compute in f32 from the same bf16
-# inputs, so before their one rounding they differ by at most the f32
-# bound; two values that close round at most one bf16 ulp apart plus
-# that bound (near zero a bf16 ulp is smaller than the f32 bound)
+# own test allows 2e-4)
 FLASH_F32_ATOL = 2e-5
+# bf16: the tensor-core kernel rounds each p to bf16 before P.V (relative
+# error <= 2^-9, bf16's unit roundoff) while l sums the unrounded p, so
+# its f32 result is off by at most 2^-9 * sum_j p_j |v_j| / l. The bound
+# allows twice that, plus the f32 bound above for the order of sums, plus
+# one bf16 ulp (at the larger magnitude) for the output's one rounding:
+#   |got - want| <= ulp + 2^-8 * attention(q, k, |v|) + FLASH_F32_ATOL
+FLASH_P_ROUNDING = 2.0 ** -8
 
 
-def bf16_ulps_apart(got, want) -> tuple[bool, int]:
-    """Whether every element of two bf16 tensors is within one bf16 ulp
-    (at the larger magnitude) plus ``FLASH_F32_ATOL``, and how many
-    elements are more than one ulp apart."""
+def bf16_bound_ratio(got, q, k, v, causal: bool) -> float:
+    """Largest |got - want| over the bound above, elementwise; want and
+    attention(q, k, |v|) from the plain version in f32 on the same bf16
+    inputs."""
     import torch
-    g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+
+    from repro_torch.kernels.flash_attention import ref
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = ref.attention_ref(qf, kf, vf, causal=causal)
+    mass = ref.attention_ref(qf, kf, vf.abs(), causal=causal)
+    g = got.float()
+    mag = torch.maximum(g.abs(), want.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    diff = (g - w).abs()
-    return (bool((diff <= ulp + FLASH_F32_ATOL).all()),
-            int((diff > ulp).sum()))
+    bound = ulp + FLASH_P_ROUNDING * mass + FLASH_F32_ATOL
+    return float(((g - want).abs() / bound).max())
 
 
 def flash_inputs(torch, dev, b, s, t, h, kv, hd, dtype, seed):
@@ -1120,11 +1137,25 @@ def flash_inputs(torch, dev, b, s, t, h, kv, hd, dtype, seed):
             torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dt))
 
 
+def flash_strided_inputs(torch, dev, b, s, h, kv, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, s, h + 2 * kv, hd), generator=gen,
+                      device=dev).bfloat16()
+    return qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+
+
 def phase_flash_kernels(torch, dev, errs: dict) -> dict:
     from repro_torch.kernels.flash_attention import kernel, ref
+    cases = [(shape, False) for shape in FLASH_SHAPES] + [
+        ((b, s, s, h, kv, hd, True, "bfloat16"), True)
+        for b, s, h, kv, hd in FLASH_STRIDED]
     rows = []
-    for i, (b, s, t, h, kv, hd, causal, dtype) in enumerate(FLASH_SHAPES):
-        q, k, v = flash_inputs(torch, dev, b, s, t, h, kv, hd, dtype, i)
+    for i, ((b, s, t, h, kv, hd, causal, dtype), strided) in \
+            enumerate(cases):
+        if strided:
+            q, k, v = flash_strided_inputs(torch, dev, b, s, h, kv, hd, i)
+        else:
+            q, k, v = flash_inputs(torch, dev, b, s, t, h, kv, hd, dtype, i)
         got = kernel.flash_attention(q, k, v, causal=causal)
         sync(torch, dev)
         want = ref.attention_ref(q, k, v, causal=causal)
@@ -1132,21 +1163,23 @@ def phase_flash_kernels(torch, dev, errs: dict) -> dict:
         shape = [b, s, t, h, kv, hd, causal, dtype]
         check(got.dtype == q.dtype and got.shape == q.shape
               and bool(torch.isfinite(got).all()), f"flash {shape} output")
-        row = {"shape": shape, "max_abs_err": err}
+        row = {"shape": shape, "strided": strided, "max_abs_err": err}
         if dtype == "float32":
             check(err <= FLASH_F32_ATOL,
                   f"flash {shape}: {err} > {FLASH_F32_ATOL}")
         else:
-            ok, row["over_one_ulp"] = bf16_ulps_apart(got, want)
-            check(ok, f"flash {shape}: beyond one bf16 ulp + "
-                  f"{FLASH_F32_ATOL} (max abs {err})")
+            row["bound_ratio"] = bf16_bound_ratio(got, q, k, v, causal)
+            check(row["bound_ratio"] <= 1.0,
+                  f"flash {shape}: beyond the bf16 bound (ratio "
+                  f"{row['bound_ratio']}, max abs {err})")
         errs["flash_attention"] = max(errs["flash_attention"], err)
         rows.append(row)
         del q, k, v, got, want
     return {"phase": "kernels_vs_plain_flash", "rows": rows,
             "tolerance": f"float32: <= {FLASH_F32_ATOL} absolute; bf16: "
-            f"<= 1 bf16 ulp of the larger of the two + {FLASH_F32_ATOL}, "
-            "elementwise (over_one_ulp: elements beyond one ulp)",
+            "<= 1 bf16 ulp of the larger of the two + 2^-8 * attention(q, "
+            f"k, |v|) + {FLASH_F32_ATOL}, elementwise (bound_ratio: the "
+            "largest |got - want| over that bound)",
             "ok": True}
 
 
@@ -1162,9 +1195,11 @@ LM_TIGHT_REL = 1e-4
 # bf16 flash prefill against bf16 dense prefill at full depth: the dense
 # path rounds its scores to bf16 before the softmax and its weights
 # before the PV product (2^-9 relative each, on scores of order 1), the
-# flash kernel keeps both in f32; the difference passes through 36
-# random layers. Measured 0.0199 on an H100 80GB (seed 1); the bound
-# leaves 5x room, and the measured value is reported beside it
+# flash kernel keeps the scores in f32 and rounds its weights to bf16
+# before the PV product; the difference passes through 36 random layers.
+# Measured 0.0199 on an H100 80GB (seed 1) with the f32 CUDA-core
+# kernel; the bound leaves 5x room, and the measured value is reported
+# beside it
 LM_BF16_REL = 0.1
 LM_SERVER = dict(batch=4, max_len=128, requests=8, prompt=(8, 32), new=16)
 
@@ -1390,10 +1425,32 @@ def _leaves(tree: dict):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
-def phase_flash_times(torch, dev) -> dict:
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes of each flash kernel in an ``nvcc
+    -Xptxas -v`` log, by kernel name with its template arguments."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?(flash_fwd\w*?)I"
+                      r"((?:Li\d+E)+)E", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            name = f"{m.group(1)}<{', '.join(args)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def phase_flash_times(torch, dev, logs: dict) -> dict:
     """The flash kernel at the LM path's shape, its plain version and
     the library yardstick (SDPA; timed here only, never called by the
-    port), with inputs read from HBM."""
+    port), with inputs read from HBM; the registers and spills of both
+    flash kernels from this run's build log."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel, ops, ref
@@ -1429,7 +1486,12 @@ def phase_flash_times(torch, dev) -> dict:
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "share_of_bound": bound_ms / kernel_ms,
            "kernel_tflops": flops / kernel_ms / 1e9}
-    return {"phase": "flash_times", "timer": "device ms per launch from "
+    registers = {}
+    for src in kernel.SOURCES:
+        if src in logs:
+            registers.update(ptxas_usage(logs[src]))
+    return {"phase": "flash_times", "registers": registers or "not built "
+            "in this run", "timer": "device ms per launch from "
             "CUDA-graph replays timed with CUDA events, cycling through "
             "copies of the inputs", "bound": "max(q, k, v, out bytes at "
             "3.35 TB/s, 2·B·H·S·T·hd at the 989 TFLOP/s bf16 dense "
@@ -1451,7 +1513,7 @@ KERNELS = {
     "relax": ("stage_a_n4096", "minplus/csrc/minplus.cu",
               "src/repro/kernels/minplus/kernel.py:108"),
     "flash_attention": ("flash_b2_s4096",
-                        "flash_attention/csrc/flash_attention.cu",
+                        "flash_attention/csrc/flash_attention_bf16.cu",
                         "src/repro/kernels/flash_attention/kernel.py:94"),
     "floyd_warshall": ("fw_n6400", "sssp_relax/csrc/floyd_warshall.cu",
                        "src/repro/kernels/sssp_relax/kernel.py:77"),
@@ -1497,7 +1559,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE, fa_kernel.SOURCE,
+    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE, *fa_kernel.SOURCES,
                         fw_kernel.SOURCE])
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for log in logs.values()
@@ -1537,7 +1599,7 @@ def main() -> int:
     emit(phase_flash_kernels(torch, dev, errs))
     emit(phase_lm(torch, dev, launches))
     torch.cuda.empty_cache()
-    flash_times = phase_flash_times(torch, dev)
+    flash_times = phase_flash_times(torch, dev, logs)
     emit(flash_times)
     emit(kernels_line(times["rows"] + builder_times["rows"]
                       + flash_times["rows"] + fw["rows"], launches, errs))

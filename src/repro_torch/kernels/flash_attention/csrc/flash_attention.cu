@@ -1,5 +1,6 @@
-// GQA flash attention (online softmax, causal and key-padding masks) for
-// Hopper (sm_90a).
+// GQA flash attention (online softmax, causal and key-padding masks) in
+// float32 on the CUDA cores, for Hopper (sm_90a). bfloat16 inputs go to
+// the tensor-core kernel of flash_attention_bf16.cu instead.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 //   src/repro/kernels/flash_attention/kernel.py:28 _flash_kernel
@@ -12,8 +13,7 @@
 // What it computes is the TPU kernel's: per (batch*head, query tile) it
 // streams K/V tiles and keeps the running max m, the denominator l and the
 // accumulator acc in float32; masked scores are -1e30 (not -inf), every
-// exponential is expf (no fast-math), and the output is acc / max(l, 1e-30)
-// rounded once to the input type (float or bf16, round to nearest even).
+// exponential is expf (no fast-math), and the output is acc / max(l, 1e-30).
 // The TPU kernel's grid walks the key axis in order and carries m, l, acc
 // in VMEM scratch; here one block owns a query tile and loops over the key
 // tiles itself. q (B,S,H,hd) and k/v (B,T,KV,hd) are read in place through
@@ -24,32 +24,25 @@
 // tile adds exactly nothing (p = exp(-1e30 - m) = 0, alpha = 1), because key
 // 0 is never masked and so m is finite after the first tile.
 //
-// Design (simple and right, not yet fast): a block of 256 threads owns 64
-// query rows; K/V tiles of 32 rows are staged in shared memory, widened to
-// float32 on load (Q transposed, K transposed, V as is, each padded against
-// bank conflicts; 75 KB at hd = 128). Thread (tx, ty) of the 16 x 16 block
-// owns query rows ty + 16 i (i < 4): the scores of keys tx + 16 j (j < 2)
-// and output columns tx + 16 c (c < hd/16), with m, l and acc in registers.
-// Row max and row sum are reduced over the 16 threads of a row with xor
-// shuffles (every lane ends with the same bits). P goes through shared
-// memory to the PV product. Both products run on the float32 CUDA cores,
-// with explicit fused multiply-adds (__fmaf_rn): the shared build flags
-// carry -fmad=false, which forbids only contracting a separate multiply and
-// add. Query tiles are launched last-first, so the long causal rows start
-// early.
+// Design (simple and right, kept for float32): a block of 256 threads owns
+// 64 query rows; K/V tiles of 32 rows are staged in shared memory (Q
+// transposed, K transposed, V as is, each padded against bank conflicts;
+// 75 KB at hd = 128). Thread (tx, ty) of the 16 x 16 block owns query rows
+// ty + 16 i (i < 4): the scores of keys tx + 16 j (j < 2) and output
+// columns tx + 16 c (c < hd/16), with m, l and acc in registers. Row max
+// and row sum are reduced over the 16 threads of a row with xor shuffles
+// (every lane ends with the same bits). P goes through shared memory to the
+// PV product. Both products run on the float32 CUDA cores, with explicit
+// fused multiply-adds (__fmaf_rn): the shared build flags carry
+// -fmad=false, which forbids only contracting a separate multiply and add.
+// Query tiles are launched last-first, so the long causal rows start early.
 //
-// Bound at the main path's shape, Qwen3-4B prefill (B, S, H, KV, hd) =
-// (2, 4096, 32, 8, 128), causal, bf16: 2*B*H*S*T*hd = 275 GFLOP, 0.278 ms at
-// the 989 TFLOP/s bf16 dense tensor-core peak; 168 MB of q, k, v and out,
-// 0.050 ms at 3.35 TB/s. So it is bound by operations. This kernel does
-// those operations on the float32 CUDA cores (67 TFLOP/s peak, 4.1 ms at
-// best) and sits far above the tensor-core bound. Later work: mma.sync /
-// wgmma tensor-core products with P kept in registers, TMA staging of K/V,
-// a persistent grid, and hd = 256.
+// Bound: float32 has no tensor-core path that keeps the 2e-5 agreement
+// (TF32 keeps 10 mantissa bits), so its operations are bound by the
+// 67 TFLOP/s float32 CUDA-core peak: 2*B*H*S*T*hd over that rate.
 
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,15 +55,6 @@ constexpr int kRows = kBQ / kSide;       // query rows per thread
 constexpr int kKeys = kBK / kSide;       // keys per thread per tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 template <int HD>
 constexpr int smem_floats() {
   return HD * (kBQ + 1)      // qt[d][r]
@@ -79,10 +63,10 @@ constexpr int smem_floats() {
          + kBQ * (kBK + 1);  // ps[r][c]
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int64_t s_len,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int64_t s_len,
           int64_t t_len, int heads, int group, int64_t qsb, int64_t qss,
           int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb,
           int64_t vss, int64_t vsh, float scale, int causal) {
@@ -98,14 +82,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kBQ;
   const int tx = threadIdx.x % kSide;
   const int ty = threadIdx.x / kSide;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + (h / group) * ksh;
-  const T* vb = v + b * vsb + (h / group) * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + (h / group) * ksh;
+  const float* vb = v + b * vsb + (h / group) * vsh;
 
   for (int idx = threadIdx.x; idx < kBQ * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int64_t gr = q0 + r;
-    qt[d * (kBQ + 1) + r] = gr < s_len ? widen(qb[gr * qss + d]) : 0.f;
+    qt[d * (kBQ + 1) + r] = gr < s_len ? qb[gr * qss + d] : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kCols];
@@ -125,8 +109,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const int c = idx / HD, d = idx % HD;
       const int64_t gk = k0 + c;
       const bool in = gk < t_len;
-      kt[d * (kBK + 1) + c] = in ? widen(kb[gk * kss + d]) : 0.f;
-      vs[c * HD + d] = in ? widen(vb[gk * vss + d]) : 0.f;
+      kt[d * (kBK + 1) + c] = in ? kb[gk * kss + d] : 0.f;
+      vs[c * HD + d] = in ? vb[gk * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -200,45 +184,44 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t gr = q0 + ty + i * kSide;
     if (gr >= s_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = out + ((b * s_len + gr) * heads + h) * HD;
+    float* orow = out + ((b * s_len + gr) * heads + h) * HD;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) narrow(orow + tx + c * kSide, acc[i][c] / denom);
+    for (int c = 0; c < kCols; ++c) orow[tx + c * kSide] = acc[i][c] / denom;
   }
 }
 
 static_assert(kBQ % kSide == 0 && kBK % kSide == 0, "tiles split evenly");
 static_assert(kSide == 16, "row reductions shuffle within a half-warp");
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int64_t batch, int64_t s_len, int64_t t_len, int heads,
                    int group, const int64_t* st, float scale, int causal,
                    cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(batch * heads),
                   static_cast<unsigned>((s_len + kBQ - 1) / kBQ));
-  flash_fwd<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s_len, t_len, heads,
-      group, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      scale, causal);
+  flash_fwd<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s_len, t_len,
+      heads, group, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_hd(int64_t hd, const void* q, const void* k,
                         const void* v, void* out, int64_t batch,
                         int64_t s_len, int64_t t_len, int heads, int group,
                         const int64_t* st, float scale, int causal,
                         cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
+    case 16: return launch<16>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
+    case 32: return launch<32>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
+    case 64: return launch<64>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
+    case 128: return launch<128>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -246,31 +229,25 @@ cudaError_t dispatch_hd(int64_t hd, const void* q, const void* k,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. q (B,S,H,hd), k and v (B,T,KV,hd)
-// on the device with a contiguous last dim and the given element strides
-// (strides[0..2] = q's b, s, h; [3..5] = k's b, t, kv; [6..8] = v's);
-// out (B,S,H,hd) contiguous, of q's type. dtype 0 = float32, 1 = bf16;
-// hd in {16, 32, 64, 128}; H % KV == 0; S >= 1, T >= 1. Returns the
-// cudaError_t of the launch (0 = launched).
-extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int dtype,
-                                     int64_t batch, int64_t s_len,
-                                     int64_t t_len, int64_t heads,
-                                     int64_t kv_heads, int64_t hd,
-                                     const int64_t* strides, float scale,
-                                     int causal, void* stream) {
+// float32 on the device with a contiguous last dim and the given element
+// strides (strides[0..2] = q's b, s, h; [3..5] = k's b, t, kv; [6..8] =
+// v's); out (B,S,H,hd) contiguous float32. hd in {16, 32, 64, 128};
+// H % KV == 0; S >= 1, T >= 1. Returns the cudaError_t of the launch
+// (0 = launched).
+extern "C" int repro_flash_attention_f32(const void* q, const void* k,
+                                         const void* v, void* out,
+                                         int64_t batch, int64_t s_len,
+                                         int64_t t_len, int64_t heads,
+                                         int64_t kv_heads, int64_t hd,
+                                         const int64_t* strides, float scale,
+                                         int causal, void* stream) {
   if (batch <= 0 || s_len <= 0 || t_len <= 0 || heads <= 0 ||
       kv_heads <= 0 || heads % kv_heads != 0)
     return cudaErrorInvalidValue;
   if (batch * heads > 0x7fffffffLL || (s_len + kBQ - 1) / kBQ > 65535)
     return cudaErrorInvalidValue;
-  const int h = static_cast<int>(heads);
-  const int group = static_cast<int>(heads / kv_heads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, out, batch, s_len, t_len, h,
-                              group, strides, scale, causal, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, batch, s_len, t_len,
-                                      h, group, strides, scale, causal, st);
-  return cudaErrorInvalidValue;
+  return dispatch_hd(hd, q, k, v, out, batch, s_len, t_len,
+                     static_cast<int>(heads),
+                     static_cast<int>(heads / kv_heads), strides, scale,
+                     causal, static_cast<cudaStream_t>(stream));
 }

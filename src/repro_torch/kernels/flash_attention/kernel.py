@@ -1,17 +1,28 @@
 """GQA flash attention on the card.
 
-``flash_attention(q, k, v, causal=)`` wraps ``csrc/flash_attention.cu``,
-which replaces the JAX package's Pallas kernel ``flash_attention_pallas``
+``flash_attention(q, k, v, causal=)`` replaces the JAX package's Pallas
+kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention/kernel.py``): q (B,S,H,hd), k/v
-(B,T,KV,hd) with H % KV == 0, float32 or bfloat16, hd in {16, 32, 64,
-128}, each with a contiguous last dim → (B,S,H,hd) in q's dtype. On a
-CUDA tensor the wrapper launches the kernel (building it on first use)
-or raises; on a CPU tensor it runs the plain version of ``ref.py``.
-There is no other path. ``LAUNCHES`` counts kernel launches.
+(B,T,KV,hd) with H % KV == 0, float32 or bfloat16, each with a
+contiguous last dim → (B,S,H,hd) in q's dtype. Two hand-written kernels
+serve it, picked by dtype:
+
+* bfloat16: ``csrc/flash_attention_bf16.cu``, the tensor-core kernel
+  (TMA, ``wgmma``, warp specialisation); hd in ``BF16_HEAD_DIMS``; q, k,
+  v 16-byte aligned with strides that are multiples of 8 elements (TMA's
+  rule), else ``ValueError``;
+* float32: ``csrc/flash_attention.cu``, on the CUDA cores; hd in
+  ``F32_HEAD_DIMS``.
+
+On a CUDA tensor the wrapper launches the kernel for its dtype (building
+it on first use) or raises; on a CPU tensor it runs the plain version of
+``ref.py``, for any hd. There is no other path. ``LAUNCHES`` counts the
+launches of both kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -19,26 +30,34 @@ import torch
 from .. import build
 from .ref import attention_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 
 # kernel launches since the last reset (plain-version calls on the CPU
 # are not launches)
 LAUNCHES = {"flash_attention": 0}
 
-HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_Q_TILES = 65535 * 64               # gridDim.y x query rows per block
+BF16_HEAD_DIMS = (16, 32, 64, 128, 192)
+F32_HEAD_DIMS = (16, 32, 64, 128)
+# dtype → (source, C entry point, head dims, query rows per block)
+_KERNELS = {
+    torch.bfloat16: (_CSRC / "flash_attention_bf16.cu",
+                     "repro_flash_attention_bf16", BF16_HEAD_DIMS, 128),
+    torch.float32: (_CSRC / "flash_attention.cu",
+                    "repro_flash_attention_f32", F32_HEAD_DIMS, 64),
+}
+SOURCES = tuple(source for source, *_ in _KERNELS.values())
+_TMA_ALIGN = 16                         # bytes: base address and strides
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    fn = lib.repro_flash_attention
+def _entry(dtype: torch.dtype):
+    source, name, _, _ = _KERNELS[dtype]
+    fn = getattr(build.load(source), name)
     if fn.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, p, p, p, ctypes.c_int, i64, i64, i64, i64, i64,
-                       i64, p, ctypes.c_float, ctypes.c_int, p]
+        fn.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, p,
+                       ctypes.c_float, ctypes.c_int, p]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -46,7 +65,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: q, k and v must share a device")
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k and v must all be float32 "
                          f"or all bfloat16, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
@@ -59,17 +78,37 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if kv == 0 or h % kv:
         raise ValueError(f"flash_attention: H = {h} is not a multiple of "
                          f"KV = {kv}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
+    if hd == 0:
+        raise ValueError("flash_attention: head dim 0")
     if k.shape[1] == 0:
         raise ValueError("flash_attention: no keys (T = 0)")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention: the head dim of q, k and v "
                          "must be contiguous")
-    if q.shape[1] > _MAX_Q_TILES:
+    if q.device.type == "cuda":
+        _check_cuda(q, k, v)
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What the kernel for q's dtype takes beyond the plain version."""
+    _, _, head_dims, rows = _KERNELS[q.dtype]
+    hd = q.shape[3]
+    if hd not in head_dims:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{head_dims} for {q.dtype} on the card")
+    if q.shape[1] > 65535 * rows:       # gridDim.y x query rows per block
         raise ValueError(f"flash_attention: S = {q.shape[1]} exceeds "
-                         f"{_MAX_Q_TILES}")
+                         f"{65535 * rows}")
+    if q.dtype == torch.bfloat16:
+        size = q.element_size()
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % _TMA_ALIGN or any(
+                    st * size % _TMA_ALIGN for st in x.stride()[:3]):
+                raise ValueError(
+                    f"flash_attention: bf16 {name} must be {_TMA_ALIGN}-byte "
+                    f"aligned with strides in multiples of {_TMA_ALIGN} "
+                    f"bytes (TMA), got strides {tuple(x.stride())} at "
+                    f"{x.data_ptr() % _TMA_ALIGN} bytes past alignment")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,7 +118,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
-    fn = _lib().repro_flash_attention
+    fn = _entry(q.dtype)
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
@@ -87,13 +126,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
-    scale = 1.0 / float(hd) ** 0.5
+    # the bf16 kernel takes exp2 of scores scaled by log2(e) / sqrt(hd)
+    scale = 1.0 / math.sqrt(hd)
+    if q.dtype == torch.bfloat16:
+        scale *= math.log2(math.e)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], b, s, t, h, kv, hd, strides, scale,
-                 int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+                 b, s, t, h, kv, hd, strides, scale, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: error "
+                           f"{err} (CUDA error; 1000: no tensor-map encoder "
+                           f"in the driver; 2000 + n: tensor map refused "
+                           f"with CUresult n)")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -178,25 +178,42 @@ FLASH_CASES = [(1, 16, 16, 4, 4, 32, True, torch.float32),
                (1, 32, 32, 4, 4, 32, True, torch.bfloat16),
                (1, 200, 200, 32, 8, 128, True, torch.bfloat16),
                (2, 77, 77, 32, 8, 128, False, torch.bfloat16),
-               (1, 100, 130, 32, 8, 128, True, torch.float32)]
+               (1, 100, 130, 32, 8, 128, True, torch.float32),
+               (1, 200, 200, 8, 2, 192, True, torch.bfloat16),
+               (1, 100, 130, 32, 8, 128, True, torch.bfloat16),
+               (2, 130, 100, 8, 8, 64, False, torch.bfloat16),
+               (1, 50, 50, 4, 4, 16, True, torch.bfloat16)]
 
 
-def _within_one_bf16_ulp(got, want, f32_atol: float = 2e-5) -> bool:
-    """One bf16 ulp (at the larger magnitude) plus the f32 bound: the two
-    f32 results may differ by ``f32_atol`` before their one rounding."""
-    g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+def _bf16_bound_ratio(got, q, k, v, causal: bool) -> float:
+    """Largest |got - want| over its bound, elementwise, where want is
+    the plain version in f32 on the same bf16 inputs and the bound is
+
+        ulp_bf16(max(|got|, |want|)) + 2^-8 * attention(q, k, |v|) + 2e-5.
+
+    The tensor-core kernel rounds each p to bf16 before P.V (relative
+    error <= 2^-9, bf16's unit roundoff) while l sums the unrounded p, so
+    its f32 result is off by at most 2^-9 * sum_j p_j |v_j| / l; the
+    bound allows twice that, plus the f32 order-of-sums bound (2e-5) and
+    one bf16 ulp for the output's one rounding."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    want = fa_ref.attention_ref(q.float(), k.float(), v.float(),
+                                causal=causal)
+    mass = fa_ref.attention_ref(q.float(), k.float(), v.float().abs(),
+                                causal=causal)
+    g = got.float()
+    mag = torch.maximum(g.abs(), want.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return bool(((g - w).abs() <= ulp + f32_atol).all())
+    bound = ulp + 2.0 ** -8 * mass + 2e-5
+    return float(((g - want).abs() / bound).max())
 
 
 @pytest.mark.parametrize("b,s,t,h,kv,hd,causal,dtype", FLASH_CASES)
 def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd,
                                             causal, dtype):
     """float32: within 2e-5 of the plain version (both f32; only the
-    order of the sums and the online rescaling differ). bf16: within one
-    bf16 ulp plus that f32 bound (both compute in f32 from the same
-    inputs and round once)."""
+    order of the sums and the online rescaling differ). bf16: within the
+    bound of ``_bf16_bound_ratio`` (P rounded to bf16 before P.V)."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     gen = torch.Generator(device=cuda).manual_seed(s * 31 + hd)
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
@@ -207,11 +224,11 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd,
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    want = fa_ref.attention_ref(q, k, v, causal=causal)
     if dtype == torch.float32:
+        want = fa_ref.attention_ref(q, k, v, causal=causal)
         assert float((got - want).abs().max()) <= 2e-5
     else:
-        assert _within_one_bf16_ulp(got, want)
+        assert _bf16_bound_ratio(got, q, k, v, causal) <= 1.0
 
 
 def test_flash_kernel_reads_strided_inputs(cuda):
@@ -226,12 +243,51 @@ def test_flash_kernel_reads_strided_inputs(cuda):
     assert float((got - fa_ref.attention_ref(q, k, v)).abs().max()) <= 2e-5
 
 
-@pytest.mark.parametrize("what", ["head_dim", "float16", "groups"])
+def test_flash_bf16_kernel_reads_strided_inputs(cuda):
+    """The bf16 tensor-core kernel through TMA on the head-split views of
+    a fused projection at Qwen3-4B's head layout (strides in the sequence
+    and head axes are multiples of 16 bytes, as TMA needs)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((2, 150, 48, 128), generator=gen,
+                      device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :32], qkv[:, :, 32:40], qkv[:, :, 40:]
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert _bf16_bound_ratio(got, q, k, v, True) <= 1.0
+
+
+@pytest.mark.parametrize("what", ["base", "seq_stride"])
+def test_flash_bf16_kernel_rejects_misaligned_inputs(cuda, what):
+    """TMA needs a 16-byte-aligned base and strides in multiples of 16
+    bytes: anything else raises ValueError, with no launch and no copy."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    if what == "base":                  # starts 2 bytes past alignment
+        q = torch.zeros(8 * 4 * 64 + 1, dtype=torch.bfloat16,
+                        device=cuda)[1:].view(1, 8, 4, 64)
+    else:                               # rows 4 * 64 + 4 elements apart
+        q = torch.zeros((1, 8, 4 * 64 + 4), dtype=torch.bfloat16,
+                        device=cuda)[..., :256].view(1, 8, 4, 64)
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, kv, kv)
+    assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("what", ["head_dim", "float16", "groups",
+                                  "head_dim_bf16", "head_dim_192_f32"])
 def test_flash_kernel_rejects_unsupported_inputs_on_cuda(cuda, what):
     from repro_torch.kernels.flash_attention import kernel as fa
     shapes = {"head_dim": ((1, 8, 4, 48), (1, 8, 2, 48), torch.float32),
               "float16": ((1, 8, 4, 32), (1, 8, 2, 32), torch.float16),
-              "groups": ((1, 8, 3, 32), (1, 8, 2, 32), torch.float32)}
+              "groups": ((1, 8, 3, 32), (1, 8, 2, 32), torch.float32),
+              "head_dim_bf16": ((1, 8, 4, 48), (1, 8, 2, 48),
+                                torch.bfloat16),
+              "head_dim_192_f32": ((1, 8, 4, 192), (1, 8, 2, 192),
+                                   torch.float32)}
     qs, kvs, dtype = shapes[what]
     q = torch.zeros(qs, dtype=dtype, device=cuda)
     kv = torch.zeros(kvs, dtype=dtype, device=cuda)
