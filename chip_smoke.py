@@ -4,8 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc``
-per source, all at once), holds each kernel against its plain PyTorch
-version on the card, and drives the port's five paths:
+per source, all at once), measures the card's sustained (min, +) term
+rate beside the issue ceiling its instructions allow (phase
+``minplus_peak``; the ceiling is the operations rate of the min-plus
+bounds), holds each kernel against its plain PyTorch version on the
+card (``relax`` with and without its occupancy map), and drives the
+port's five paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -17,11 +21,12 @@ version on the card, and drives the port's five paths:
 * the APSP entry point — ``sssp_relax.ops.floyd_warshall`` on every
   district of n = 102 400 ((6400, 6400) each) through the Floyd–Warshall
   kernel, held against its plain version, stage A's border rows and
-  Dijkstra;
+  Dijkstra, and its three phases timed apart;
 * updates — ``IncrementalBuilder.apply_delta`` on the card-built B at
   n = 102 400 for four traffic scenarios and ``apply_structural`` for
   three closure-storm epochs (scoped and full rungs), each held against
-  a full staged build on the new graph; then one
+  a full staged build on the new graph (stage A's host packing and its
+  sweeps timed apart); then one
   ``apply_traffic_update(incremental=True)`` and one
   ``apply_topology_update`` of the deployed n = 4096 system, whose
   answers are held against Dijkstra;
@@ -62,10 +67,15 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # bf16 dense tensor-core peak: the bound of attention's products
 PEAK_BF16_TENSOR_FLOPS_PER_S = 989e12
-# the min-plus bound counts 2 instructions per term (FADD, FMNMX) on 128
-# FP32 lanes per SM per clock — the same as FMNMX alone at 64 results
-# per SM per clock, the cc 9.0 rate for compare/min/max
+# the min-plus operations bound is the issue ceiling of the term form
+# with the fewest instructions a term (from its SASS; phase minplus_peak)
+# on 128 lanes per SM at the max SM clock; beside it, the figure of
+# earlier rows: 2 instructions per term (FADD, FMNMX)
 MINPLUS_LANES_PER_SM = 128
+# instructions per term of each minplus_peak.cu form as its source writes
+# it, used where cuobjdump is missing: 2 FADD + 2 FMNMX, 2 FADD + 1 VIMNMX3
+# per two terms
+NOMINAL_INSTRUCTIONS_PER_TERM = {0: 2.0, 1: 1.5}
 # H100 SXM L2 size; timed calls cycle through copies of their inputs so
 # that rows come from HBM, within a device-memory budget for the copies
 L2_BYTES = 50 << 20
@@ -171,12 +181,26 @@ RELAX_SHAPES = [(None, 1, 1), (None, 8, 33), (2, 13, 300), (3, 5, 129),
                 (2, 8, 6400), (4, 8, 6400)]
 
 
+# banded adjacencies: finite within this many places of the diagonal,
+# as a grid district's (80 columns, vertices in row order) is
+RELAX_BAND = 80
+
+
 def rand_dist(torch, gen, shape, inf_frac: float):
     """Seeded distances in [0.5, 50) with a share of +inf, on the card."""
     dev = gen.device
     x = torch.rand(shape, generator=gen, device=dev) * 49.5 + 0.5
     x[torch.rand(shape, generator=gen, device=dev) < inf_frac] = \
         float("inf")
+    return x
+
+
+def banded_dist(torch, gen, shape, band: int):
+    """Seeded distances finite only within ``band`` of the diagonal of
+    the last two axes (half of them there +inf), on the card."""
+    x = rand_dist(torch, gen, shape, 0.5)
+    i = torch.arange(shape[-1], device=x.device)
+    x[..., (i[:, None] - i[None, :]).abs() > band] = float("inf")
     return x
 
 
@@ -192,20 +216,35 @@ def phase_minplus_kernels(torch, dev, errs: dict) -> dict:
         want = ref.minplus_ref(a, b)
         check(torch.equal(got, want), f"minplus {lead}x{m}x{k}x{n}")
         errs["minplus"] = max(errs["minplus"], max_abs_err(got, want))
+    kept_share = {}
     for batch, s, v in RELAX_SHAPES:
         lead = () if batch is None else (batch,)
         d = rand_dist(torch, gen, (*lead, s, v), 0.5)
-        a = rand_dist(torch, gen, (*lead, v, v), 0.99 if v > 1000 else 0.9)
-        kept = d.clone()
-        got = kernel.relax(d, a)
-        sync(torch, dev)
-        want = ref.relax_ref(d, a)
-        check(torch.equal(got, want), f"relax {lead}x{s}x{v}")
-        check(torch.equal(d, kept), f"relax {lead}x{s}x{v} wrote its input")
-        errs["relax"] = max(errs["relax"], max_abs_err(got, want))
-        del a, want
+        for kind in ("random", "banded"):
+            a = rand_dist(torch, gen, (*lead, v, v),
+                          0.99 if v > 1000 else 0.9) if kind == "random" \
+                else banded_dist(torch, gen, (*lead, v, v), RELAX_BAND)
+            occ = kernel.relax_occupancy(a)
+            kept = d.clone()
+            got = kernel.relax(d, a)
+            got_map = kernel.relax(d, a, occ)
+            sync(torch, dev)
+            want = ref.relax_ref(d, a)
+            what = f"relax {kind} {lead}x{s}x{v}"
+            check(torch.equal(got, want), what)
+            check(torch.equal(got_map, want)
+                  and torch.equal(ref.relax_ref(d, a, occ), want),
+                  f"{what} with the occupancy map")
+            check(torch.equal(d, kept), f"{what} wrote its input")
+            errs["relax"] = max(errs["relax"], max_abs_err(got, want),
+                                max_abs_err(got_map, want))
+            kept_share[f"{kind} {lead}x{s}x{v}"] = float(occ.float().mean())
+            del a, occ, want, got, got_map
     return {"phase": "kernels_vs_plain_minplus",
             "minplus_shapes": MINPLUS_SHAPES, "relax_shapes": RELAX_SHAPES,
+            "relax_inputs": f"random (90 % / 99 % +inf) and banded (finite "
+            f"within {RELAX_BAND} of the diagonal), each without and with "
+            "the occupancy map", "relax_occupancy_kept": kept_share,
             "dtype": "float32", "tolerance": "bitwise", "ok": True}
 
 
@@ -251,17 +290,20 @@ def launch_counts(*modules) -> dict:
 def hold_first_calls(mod, seen: set, held: list):
     """While active, the first call of ``mod.relax`` / ``mod.minplus``
     at each pair of operand shapes not in ``seen`` keeps copies of its
-    operands and its result in ``held``, for ``check_held``. Each call
-    still launches the kernel once, as the path does."""
+    operands (and ``relax``'s occupancy map) and its result in ``held``,
+    for ``check_held``. Each call still launches the kernel once, as the
+    path does."""
     real = {name: getattr(mod, name) for name in ("relax", "minplus")}
 
     def holding(name):
-        def call(x, y):
-            out = real[name](x, y)
+        def call(x, y, *occupancy):
+            out = real[name](x, y, *occupancy)
             key = (name, tuple(x.shape), tuple(y.shape))
             if key not in seen:
                 seen.add(key)
-                held.append((key, x.clone(), y.clone(), out.clone()))
+                occ = occupancy[0] if occupancy else None
+                held.append((key, x.clone(), y.clone(), out.clone(),
+                             None if occ is None else occ.clone()))
             return out
         return call
 
@@ -276,21 +318,35 @@ def hold_first_calls(mod, seen: set, held: list):
 
 def check_held(torch, held: list, errs: dict, what: str) -> list:
     """Holds each kept kernel result against the plain version on the
-    same operands, bit for bit; returns the shapes and empties ``held``."""
+    same operands, bit for bit — a ``relax`` result both against the
+    plain version without the occupancy map and with the map (the one
+    it ran with, or ``relax_occupancy`` of its A where the path ran
+    none); returns the shapes (for ``relax``: whether the path passed a
+    map, and the map's kept share) and empties ``held``."""
     from repro_torch.kernels.minplus import ref
     shapes = []
-    for (name, xs, ys), x, y, out in held:
-        want = getattr(ref, f"{name}_ref")(x, y)
-        check(torch.equal(out, want), f"{what}: {name} {list(xs)} x "
-              f"{list(ys)} differs from its plain version")
-        errs[name] = max(errs[name], max_abs_err(out, want))
-        shapes.append([name, list(xs), list(ys)])
-        del want
+    for (name, xs, ys), x, y, out, occ in held:
+        plain = getattr(ref, f"{name}_ref")
+        wants = [plain(x, y)]
+        row = [name, list(xs), list(ys)]
+        if name == "relax":
+            occ_ran = occ is not None
+            if not occ_ran:
+                occ = ref.relax_occupancy(y)
+            wants.append(plain(x, y, occ))
+            row += [occ_ran, float(occ.float().mean())]
+        for want in wants:
+            check(torch.equal(out, want), f"{what}: {name} {list(xs)} x "
+                  f"{list(ys)} differs from its plain version")
+            errs[name] = max(errs[name], max_abs_err(out, want))
+        shapes.append(row)
+        del wants
     held.clear()
     return shapes
 
 
-def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
+def phase_serving(torch, dev, launches: dict,
+                  errs: dict) -> tuple[dict, dict]:
     from repro_torch.core import (build_border_labels_reference, dijkstra,
                                   perturb_weights)
     from repro_torch.edge import BatchedQueryEngine, EdgeSystem
@@ -306,9 +362,12 @@ def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
     ss, ts, client = mixed_batch(part, rng, BATCH)
 
     reset_launches(kernel, mp_kernel)
+    seen, held = set(), []
     t0 = time.perf_counter()
-    system = EdgeSystem.deploy(g, part, builder="torch", device=dev)
+    with hold_first_calls(mp_kernel, seen, held):
+        system = EdgeSystem.deploy(g, part, builder="torch", device=dev)
     deploy_s = time.perf_counter() - t0
+    build_held = check_held(torch, held, errs, "deploy build")
     center_build_s = system.center.last_build_seconds
     build_timings = dict(system.center.incremental_builder().timings)
     check(np.array_equal(system.center.border_labels.table,
@@ -423,6 +482,7 @@ def phase_serving(torch, dev, launches: dict) -> tuple[dict, dict]:
            "deploy_s": deploy_s, "center_build_s": center_build_s,
            "edge_local_build_s": deploy_s - center_build_s,
            "center_build_steps": build_timings,
+           "build_held_against_plain": build_held,
            "b_equals_host_reference": True, "window_submit_s": window_s,
            "dijkstra_spot_pairs": spots, "launches": dict(launches),
            "ok": True}
@@ -462,8 +522,13 @@ def phase_center(torch, dev, errs: dict
     # B built on the card by the staged builder
     reset_launches(kernel, mp_kernel)
     center = ComputingCenter(g, part, builder="torch", device=dev)
-    staged_s = center.rebuild()
+    seen, held = set(), []
+    with hold_first_calls(mp_kernel, seen, held):
+        staged_s = center.rebuild()
     build_launches = launch_counts(mp_kernel)
+    build_held = check_held(torch, held, errs, "center build")
+    check(any(h[0] == "relax" for h in build_held),
+          f"no stage-A sweep held: {build_held}")
     state = center.incremental_builder().state
     steps = dict(center.incremental_builder().timings)
     bl = center.border_labels
@@ -512,7 +577,10 @@ def phase_center(torch, dev, errs: dict
            "adjacency_gb": state.packed.adj.nbytes / 1e9,
            "b_table_mb": bl.table.nbytes / 1e6,
            "staged_build_s": staged_s, "staged_build_steps": steps,
+           "build_held_against_plain": build_held,
            "stage_a_sweeps": steps["stage_a_sweeps"],
+           "stage_a_pack_s": steps["stage_a_pack_s"],
+           "stage_a_sweeps_s": steps["stage_a_sweeps_s"],
            "hierarchical_build_s": build_s,
            "host_stage_a_s": host_stage_a_s,
            "b_equals_host_hierarchical": True,
@@ -639,67 +707,266 @@ def builder_shapes(torch, tag: str, st) -> dict:
           for x in (st.intra, st.packed.adj, st.closure,
                     st.intra.transpose(0, 2, 1), crows)]
     intra, adj, clo, intra_t, crows = up
-    return {f"stage_a_{tag}": ("relax", intra, adj),
-            f"closure_{tag}": ("minplus", clo, clo),
-            f"stage_c_{tag}": ("minplus", intra_t, crows)}
+    shapes = {f"stage_a_{tag}": ("relax", intra, adj),
+              f"closure_{tag}": ("minplus", clo, clo),
+              f"stage_c_{tag}": ("minplus", intra_t, crows)}
+    if adj.shape[0] > 1:
+        # a one-district repair's sweep: the dirty district alone
+        shapes[f"stage_a_{tag}_one_district"] = ("relax", intra[:1].clone(),
+                                                 adj[:1].clone())
+    return shapes
 
 
 def time_builder_shape(torch, name: str, kernel_name: str, x, y,
-                       sm_count: int, clock_hz: float) -> dict:
+                       peak: dict) -> dict:
+    """One builder kernel at one shape: its time with inputs from HBM,
+    its plain version's, and its bounds. ``relax`` is timed as
+    ``multi_source`` calls it (``kernel_ms``: with the occupancy map
+    where ``sssp_relax.ops.occupancy_map`` builds one, else without), and
+    also with the map (``mapped_ms``) and without it (``dense_ms``);
+    ``occupancy_ms`` is the cost of building the map, and
+    ``map_pays_after_sweeps`` how many sweeps repay it. Its bytes bound
+    counts what these inputs need (D read, D' written, 4 bytes per finite
+    entry of A), its dense bound A whole (the bound of earlier rows)."""
     from repro_torch.kernels.minplus import kernel, ref
+    from repro_torch.kernels.sssp_relax import ops as sssp_ops
+    relax = kernel_name == "relax"
     fn = getattr(kernel, kernel_name)
-    plain = ref.relax_ref if kernel_name == "relax" else ref.minplus_ref
+    plain = ref.relax_ref if relax else ref.minplus_ref
     before = dict(kernel.LAUNCHES)
     out = fn(x, y)
     batch = x.shape[0] if x.dim() == 3 else 1
     terms = batch * x.shape[-2] * x.shape[-1] * y.shape[-1]
     in_bytes = (x.numel() + y.numel()) * 4
-    nbytes = in_bytes + out.numel() * 4
+    dense_bytes = in_bytes + out.numel() * 4
+    row = {"shape": name, "kernel": kernel_name,
+           "dims": [list(x.shape), list(y.shape)], "terms": terms}
+    args = (x, y)
+    if relax:
+        occ = kernel.relax_occupancy(y)
+        uses_map = sssp_ops.occupancy_map(y) is not None
+        args = (x, y, occ)
+        finite = int(torch.isfinite(y).sum())
+        nbytes = (x.numel() + out.numel() + finite) * 4
+        # the terms these inputs need: one per D row and finite A entry
+        terms = x.shape[-2] * finite
+        row.update(finite_a=finite, terms_needed=terms,
+                   occupancy_kept=float(occ.float().mean()),
+                   multi_source_uses_map=uses_map,
+                   occupancy_ms=event_ms(
+                       torch, lambda: kernel.relax_occupancy(y), 10),
+                   dense_bytes=dense_bytes,
+                   dense_bytes_ms=dense_bytes / PEAK_BYTES_PER_S * 1e3)
+    else:
+        nbytes = dense_bytes
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 2 * terms / (sm_count * MINPLUS_LANES_PER_SM * clock_hz) * 1e3
+    ops_ms = terms / peak["terms_per_s"] * 1e3
     if in_bytes >= 2 * L2_BYTES:        # each call streams from HBM
-        inputs, from_hbm, calls, replays = [(x, y)], True, 4, 3
+        inputs, from_hbm, calls, replays = [args], True, 4, 3
     else:
         (inputs, from_hbm), calls, replays = \
-            cold_inputs((x, y), in_bytes), 20, 20
+            cold_inputs(args, in_bytes), 20, 20
     kernel_ms = device_ms(torch, fn, inputs, calls, replays)
+    if relax:
+        row["mapped_ms"] = kernel_ms
+        row["dense_ms"] = device_ms(torch, lambda d, a, o: fn(d, a), inputs,
+                                    calls, replays)
+        saved = row["dense_ms"] - row["mapped_ms"]
+        row["map_pays_after_sweeps"] = \
+            row["occupancy_ms"] / saved if saved > 0 else None
+        if not uses_map:
+            kernel_ms = row["dense_ms"]
     kernel.LAUNCHES.update(before)      # timing launches are not the path's
-    plain_ms = device_ms(torch, plain, inputs, min(calls, 4),
-                         min(replays, 3))
+    plain_ms = device_ms(torch, lambda x, y, *o: plain(x, y), inputs,
+                         min(calls, 4), min(replays, 3))
     copies = len(inputs)
     del inputs
     bound_ms = max(bytes_ms, ops_ms)
-    return {"shape": name, "kernel": kernel_name,
-            "dims": [list(x.shape), list(y.shape)], "terms": terms,
-            "bytes": nbytes, "copies": copies,
-            "inputs_from_hbm": from_hbm, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "share_of_bound": bound_ms / kernel_ms if from_hbm else None}
+    row.update(bytes=nbytes, copies=copies, inputs_from_hbm=from_hbm,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               bytes_ms=bytes_ms, ops_ms=ops_ms,
+               ops_ms_2_instructions=2 * terms / peak["two_instruction_"
+                                                      "ops_per_s"] * 1e3,
+               ops_ms_measured_rate=terms / peak["measured_terms_per_s"]
+               * 1e3,
+               bound_ms=bound_ms,
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               share_of_bound=bound_ms / kernel_ms if from_hbm else None)
+    if relax:
+        row["share_of_dense_bound"] = \
+            row["dense_bytes_ms"] / kernel_ms if from_hbm else None
+    return row
 
 
-def phase_builder_times(torch, states: dict) -> dict:
+def phase_builder_times(torch, states: dict, peak: dict) -> dict:
+    rows = []
+    for tag, st in states.items():
+        for name, (kname, x, y) in builder_shapes(torch, tag, st).items():
+            rows.append(time_builder_shape(torch, name, kname, x, y, peak))
+    return {"phase": "builder_times", "timer": "device ms per launch from "
+            "CUDA-graph replays timed with CUDA events; below 2x the L2 the "
+            "calls cycle through copies of the inputs (inputs_from_hbm), "
+            "above it each call streams its inputs from HBM; relax as "
+            "multi_source calls it (kernel_ms), with the occupancy map "
+            "(mapped_ms) and without it (dense_ms); occupancy_ms: "
+            "relax_occupancy, CUDA events around 10 back-to-back calls "
+            "(device and host time), once per multi_source call",
+            "bound": "max(bytes at 3.35 TB/s, terms / the (min, +) issue "
+            "ceiling of phase minplus_peak); relax: bytes = D + D' + "
+            "4 x finite entries of A, terms = rows x finite entries of A "
+            "(dense_bytes_ms: A whole, as in earlier rows); "
+            "ops_ms_2_instructions: 2 instructions per term on SMs x 128 "
+            "lanes x max SM clock; ops_ms_measured_rate: at the fastest "
+            "rate measured", "library_ms": "null: no single "
+            "PyTorch call computes a (min, +) product",
+            "sm_count": peak["sm_count"],
+            "max_sm_clock_mhz": peak["max_sm_clock_mhz"], "rows": rows,
+            "ok": True}
+
+
+def cuobjdump_sass(lib: Path, pattern: str) -> dict:
+    """The instructions (address, mnemonic before its first dot, operand
+    text) of each function of ``lib`` whose name matches ``pattern``,
+    from ``cuobjdump -sass``; {} where the tool is missing."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)(\S*)\s*([^;]*)", line)
+        if m and name:
+            out.setdefault(name, []).append(
+                (int(m.group(1), 16), m.group(2), m.group(4)))
+    return out
+
+
+def mnemonic_counts(instrs: list) -> dict:
+    counts: dict = {}
+    for _, mnemonic, _ in instrs:
+        counts[mnemonic] = counts.get(mnemonic, 0) + 1
+    return counts
+
+
+def loop_body(instrs: list) -> list:
+    """The instructions of the longest loop of a function: from the
+    target of a backward ``BRA`` (an absolute address in cuobjdump's
+    text) to the branch; [] where there is none."""
+    import re
+    best: list = []
+    for addr, mnemonic, operands in instrs:
+        m = re.search(r"0x([0-9a-f]+)", operands)
+        if mnemonic != "BRA" or not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [i for i in instrs if int(m.group(1), 16) <= i[0] <= addr]
+        if len(body) > len(best):
+            best = body
+    return best
+
+
+def term_instructions(body: list) -> dict:
+    """Per (min, +) term of a loop body whose only float adds are its
+    terms' (one FADD a term): the instructions that compute the terms
+    (FADD, FMNMX, VIMNMX3) and all the loop's instructions."""
+    counts = mnemonic_counts(body)
+    terms = counts.get("FADD", 0)
+    if not terms:
+        return {}
+    arith = terms + counts.get("FMNMX", 0) + counts.get("VIMNMX3", 0)
+    return {"terms": terms, "term_instructions_per_term": arith / terms,
+            "instructions_per_term": len(body) / terms, "loop": counts}
+
+
+# the (min, +) peak: blocks per SM and iterations of each timed launch
+PEAK_BLOCKS_PER_SM = 8
+PEAK_ITERS = 4096
+
+
+def phase_minplus_peak(torch, smi: str) -> dict:
+    """The (min, +) issue ceiling and the sustained rate of the two term
+    forms the kernels can use (``minplus_peak.cu``). Each form's
+    instructions per term come from its SASS loop (where cuobjdump is
+    missing, from ``NOMINAL_INSTRUCTIONS_PER_TERM``); the ceiling, the
+    operations rate of the min-plus bounds, is SMs x 128 lanes x max SM
+    clock over the fewest. The rates in registers on all SMs, timed with
+    CUDA events, show that the card sustains it."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.minplus import kernel
+    lib = build.load(kernel.PEAK_SOURCE)
+    fn = lib.repro_minplus_peak
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60).stdout.split()[0])
-    rows = []
-    for tag, st in states.items():
-        for name, (kname, x, y) in builder_shapes(torch, tag, st).items():
-            rows.append(time_builder_shape(torch, name, kname, x, y,
-                                           props.multi_processor_count,
-                                           clock_mhz * 1e6))
-    return {"phase": "builder_times", "timer": "device ms per launch from "
-            "CUDA-graph replays timed with CUDA events; below 2x the L2 the "
-            "calls cycle through copies of the inputs (inputs_from_hbm), "
-            "above it each call streams its inputs from HBM", "bound":
-            "max(inputs + output at 3.35 TB/s, terms x 2 instructions / "
-            "(SMs x 128 lanes x max SM clock))", "library_ms": "null: no "
-            "single PyTorch call computes a (min, +) product",
-            "sm_count": props.multi_processor_count,
-            "max_sm_clock_mhz": clock_mhz, "rows": rows, "ok": True}
+    blocks = sms * PEAK_BLOCKS_PER_SM
+    out = torch.empty(blocks * 256, device="cuda")
+    per_iteration = lib.repro_minplus_peak_terms()
+    terms = blocks * 256 * PEAK_ITERS * per_iteration
+    sass = cuobjdump_sass(build.library_path(kernel.PEAK_SOURCE),
+                          "minplus_peak")
+    forms = {}
+    for form, label in ((0, "fadd_fmnmx"), (1, "fadd_vimin3")):
+        def run():
+            err = fn(out.data_ptr(), form, blocks, PEAK_ITERS,
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"minplus_peak launch failed: CUDA error {err}")
+        ms = event_ms(torch, run, 5)
+        check(bool(torch.isfinite(out).all()), "minplus_peak output")
+        body = next((term_instructions(loop_body(instrs))
+                     for name, instrs in sass.items()
+                     if f"ILi{form}E" in name), {})
+        # a loop of u iterations computes u x terms_per_iteration sums;
+        # fewer FADDs would mean the compiler shared sums between terms
+        check(not body or body["terms"] % per_iteration == 0,
+              f"minplus_peak form {form}: {body.get('terms')} FADDs in its "
+              f"loop, not a multiple of {per_iteration} terms")
+        ipt = body.get("term_instructions_per_term",
+                       NOMINAL_INSTRUCTIONS_PER_TERM[form])
+        forms[label] = {"ms": ms, "terms_per_s": terms / ms * 1e3,
+                        "terms_per_sm_per_clock":
+                            terms / ms * 1e3 / sms / (clock_mhz * 1e6),
+                        "term_instructions_per_term": ipt,
+                        "instructions_per_term_from":
+                            "sass loop" if body else "nominal",
+                        "sass_loop": body}
+    lanes = sms * MINPLUS_LANES_PER_SM * clock_mhz * 1e6
+    fewest = min(forms, key=lambda k: forms[k]["term_instructions_per_term"])
+    fastest = max(forms, key=lambda k: forms[k]["terms_per_s"])
+    ceiling = lanes / forms[fewest]["term_instructions_per_term"]
+    measured = forms[fastest]["terms_per_s"]
+    check(measured <= ceiling * 1.001, f"minplus_peak: measured "
+          f"{measured:.4g} terms/s above the issue ceiling {ceiling:.4g}")
+    return {"phase": "minplus_peak", "nvidia_smi": smi, "sm_count": sms,
+            "max_sm_clock_mhz": clock_mhz, "blocks": blocks,
+            "iterations": PEAK_ITERS, "terms_per_launch": terms,
+            "forms": forms, "ceiling_form": fewest,
+            "terms_per_s": ceiling,
+            "terms_per_sm_per_clock": ceiling / sms / (clock_mhz * 1e6),
+            "fastest": fastest, "measured_terms_per_s": measured,
+            "measured_share_of_ceiling": measured / ceiling,
+            "two_instruction_ops_per_s": lanes,
+            "two_instruction_terms_per_s": lanes / 2,
+            "sass": {name: mnemonic_counts(instrs)
+                     for name, instrs in sass.items()},
+            "rate": "terms_per_s: the issue ceiling, SMs x 128 lanes x "
+            "max SM clock / term instructions per term of ceiling_form "
+            "(its SASS loop); measured_terms_per_s: the fastest form in "
+            "registers", "timer": "CUDA events around 5 launches after 3 "
+            "warm-ups", "ok": True}
 
 
 # -- phase 5b: the Floyd–Warshall APSP entry point ---------------------------
@@ -707,17 +974,48 @@ def phase_builder_times(torch, states: dict) -> dict:
 # (n, integral) cases held against the plain version: bit for bit on
 # integral weights, rtol 1e-5 on real ones (the JAX package's tolerance
 # for its blocked kernel against the rank-1 loop)
-FW_SIZES = (1, 33, 100, 130, 257)
+FW_SIZES = (1, 33, 100, 128, 130, 257, 300)
 FW_RTOL = 1e-5
 
 
-def fw_bound(n: int, sm_count: int, clock_hz: float) -> tuple:
-    """(bytes, terms, bytes_ms, ops_ms) of one (n, n) APSP: the matrix
-    read once and written once; n^3 (min, +) terms at 2 instructions."""
+def fw_bound(n: int, peak: dict) -> dict:
+    """Bytes, terms and bounds of one (n, n) APSP: the matrix read once
+    and written once; n^3 (min, +) terms at the issue ceiling (and,
+    beside it, at 2 instructions per term on 128 lanes and at the
+    fastest rate measured)."""
     nbytes = 2 * n * n * 4
     terms = n ** 3
-    return (nbytes, terms, nbytes / PEAK_BYTES_PER_S * 1e3,
-            2 * terms / (sm_count * MINPLUS_LANES_PER_SM * clock_hz) * 1e3)
+    return {"bytes": nbytes, "terms": terms,
+            "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "ops_ms": terms / peak["terms_per_s"] * 1e3,
+            "ops_ms_2_instructions":
+                2 * terms / peak["two_instruction_ops_per_s"] * 1e3,
+            "ops_ms_measured_rate":
+                terms / peak["measured_terms_per_s"] * 1e3}
+
+
+def fw_phase_ms(torch, kernel, adj) -> dict:
+    """Device ms per launch of phases 1, 2 and 3 of the pivot block in
+    the middle of ``adj``'s working copy (CUDA events around 20 launches
+    of each after 3 warm-ups; phase 3 reads the scratch panel its phase
+    2 wrote)."""
+    fn = kernel.phase_entry()
+    d = kernel.working_copy(adj)
+    n = d.shape[0]
+    ct = torch.empty((kernel.TILE, n), dtype=torch.float32, device=d.device)
+    kb = n // kernel.TILE // 2
+    times = {}
+    for phase in (1, 2, 3):
+        def run():
+            err = fn(d.data_ptr(), ct.data_ptr(), n, kb, phase,
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"floyd_warshall phase {phase} launch failed: "
+                  f"CUDA error {err}")
+        times[f"phase{phase}_ms"] = event_ms(torch, run, 20)
+    times["per_pivot_ms"] = sum(times.values())
+    times["pivots"] = n // kernel.TILE
+    times["sum_ms"] = times["per_pivot_ms"] * times["pivots"]
+    return times
 
 
 def district_graph(adj: np.ndarray):
@@ -730,8 +1028,9 @@ def district_graph(adj: np.ndarray):
 
 
 def phase_fw_kernels(torch, dev, errs: dict, launches: dict, st,
-                     sm_count: int, clock_hz: float) -> dict:
+                     peak: dict) -> dict:
     from repro_torch.core import dijkstra
+    from repro_torch.kernels import build
     from repro_torch.kernels.sssp_relax import kernel, ops, ref
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = []
@@ -780,21 +1079,23 @@ def phase_fw_kernels(torch, dev, errs: dict, launches: dict, st,
         rows = apsp[i][torch.from_numpy(pos).to(dev)].cpu().numpy()
         check(np.array_equal(rows[:, :k], st.intra[i, :len(pos), :k]),
               f"district {i}: APSP border rows differ from stage A")
-    want0 = ref.floyd_warshall_ref(adjs[0])
-    check(torch.equal(apsp[0], want0),
-          "floyd_warshall differs from its plain version at n = 6400")
+        want = ref.floyd_warshall_ref(adjs[i])
+        check(torch.equal(apsp[i], want), f"district {i}: floyd_warshall "
+              "differs from its plain version at n = 6400")
+        del want
     host0 = apsp[0].cpu().numpy()
     sub = district_graph(packed.adj[0])
     spots = [0, kmax // 2 + 17, kmax - 1]
     for s in spots:
         check(np.array_equal(host0[s], dijkstra(sub, s)),
               f"district 0: APSP row {s} differs from Dijkstra")
-    del apsp, want0
+    del apsp
 
     # times at the main shape: the 164 MB matrix streams from HBM
-    nbytes, terms, bytes_ms, ops_ms = fw_bound(kmax, sm_count, clock_hz)
+    b = fw_bound(kmax, peak)
     before = dict(kernel.LAUNCHES)
     kernel_ms = device_ms(torch, kernel.floyd_warshall, [(adjs[0],)], 4, 3)
+    phases = fw_phase_ms(torch, kernel, adjs[0])
     kernel.LAUNCHES.update(before)      # timing launches are not the path's
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -804,28 +1105,43 @@ def phase_fw_kernels(torch, dev, errs: dict, launches: dict, st,
     stop.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop) / 2
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms = max(b["bytes_ms"], b["ops_ms"])
+    sass = cuobjdump_sass(build.library_path(kernel.SOURCE), "fw_phase3")
+    phase3_loop = {name: term_instructions(loop_body(instrs))
+                   for name, instrs in sass.items()}
     row = {"shape": f"fw_n{kmax}", "kernel": "floyd_warshall",
-           "dims": [kmax, kmax], "terms": terms, "bytes": nbytes,
+           "dims": [kmax, kmax], **b,
            "cuda_launches_per_call": kernel.launches_per_call(kmax),
            "inputs_from_hbm": True, "kernel_ms": kernel_ms,
-           "plain_ms": plain_ms, "library_ms": None, "bytes_ms": bytes_ms,
-           "ops_ms": ops_ms, "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "share_of_bound": bound_ms / kernel_ms}
+           "phase_ms": phases, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if b["bytes_ms"] >= b["ops_ms"]
+           else "operations", "share_of_bound": bound_ms / kernel_ms,
+           "share_of_2_instruction_bound":
+               b["ops_ms_2_instructions"] / kernel_ms,
+           "share_of_measured_rate_bound":
+               b["ops_ms_measured_rate"] / kernel_ms}
     del adjs
     return {"phase": "floyd_warshall_kernels", "cases": cases,
             "tolerance": f"integral: bitwise; real: rtol {FW_RTOL}; bf16 "
             "(small integers): bitwise", "districts": m, "kmax": kmax,
             "all_districts_s": all_s, "border_rows_equal_stage_a": True,
-            "dijkstra_rows": spots, "plain_bitwise_n6400": True,
+            "dijkstra_rows": spots, "plain_bitwise_districts": m,
             "launches": launches["floyd_warshall"], "timer": "kernel: "
             "device ms per call from CUDA-graph replays (4 calls x 3 "
-            "replays); plain: CUDA events around 2 eager calls",
-            "bound": "max(matrix read + written at 3.35 TB/s, n^3 terms x 2 "
-            "instructions / (SMs x 128 lanes x max SM clock))",
-            "library_ms": "null: no single PyTorch call computes a (min, +) "
-            "closure", "rows": [row], "ok": True}
+            "replays); phase_ms: CUDA events around 20 launches of one "
+            "phase of the middle pivot block; plain: CUDA events around "
+            "2 eager calls", "bound": "max(matrix read + written at 3.35 "
+            "TB/s, n^3 terms at the (min, +) issue ceiling of phase "
+            "minplus_peak); ops_ms_2_instructions: 2 instructions per term "
+            "on SMs x 128 lanes x max SM clock; ops_ms_measured_rate: at "
+            "the fastest rate measured",
+            "sass_fw_phase3": {name: mnemonic_counts(instrs)
+                               for name, instrs in sass.items()},
+            "fw_phase3_product_loop": phase3_loop,
+            "library_ms": "null: no single "
+            "PyTorch call computes a (min, +) closure", "rows": [row],
+            "ok": True}
 
 
 # -- phase 5c: delta-scoped repairs of B at n = 102 400 ----------------------
@@ -920,6 +1236,8 @@ def phase_updates_large(torch, dev, ctx: dict, errs: dict) -> dict:
                      "repruned_rows": rep["repruned_rows"],
                      "changed_rows": int(rep["changed_rows"].sum()),
                      "repair_s": repair_s, "repair_steps": steps,
+                     "stage_a_pack_s": steps.get("stage_a_pack_s"),
+                     "stage_a_sweeps_s": steps.get("stage_a_sweeps_s"),
                      "stage_a_sweeps": steps.get("stage_a_sweeps"),
                      "launches": repair_launches,
                      "held_against_plain": shapes_now, "full_build_s": full_s,
@@ -982,6 +1300,7 @@ def phase_updates_small(torch, dev, state: dict, errs: dict) -> dict:
     with hold_first_calls(mp_kernel, seen, held):
         traffic = system.apply_traffic_update(w2, incremental=True)
     steps["traffic_s"] = time.perf_counter() - t0
+    b_steps = {"traffic": dict(system.center.incremental_builder().timings)}
     held_shapes = check_held(torch, held, errs, "traffic update")
     for i in traffic["clean_districts"]:
         check(system.servers[i].augmented is before[i]
@@ -998,6 +1317,7 @@ def phase_updates_small(torch, dev, state: dict, errs: dict) -> dict:
     with hold_first_calls(mp_kernel, seen, held):
         topology = system.apply_topology_update(g_new)
     steps["topology_s"] = time.perf_counter() - t0
+    b_steps["topology"] = dict(system.center.incremental_builder().timings)
     held_shapes += check_held(torch, held, errs, "topology update")
     for i in topology["clean_districts"]:
         check(system.servers[i].augmented is before[i],
@@ -1036,6 +1356,9 @@ def phase_updates_small(torch, dev, state: dict, errs: dict) -> dict:
     return {"phase": "updates_n4096", "n": int(g.num_vertices),
             "districts": m, "traffic": summary(traffic),
             "topology": summary(topology), "steps_s": steps,
+            "b_repair_steps": b_steps, "stage_a_split_s": {
+                k: [v.get("stage_a_pack_s"), v.get("stage_a_sweeps_s")]
+                for k, v in b_steps.items()},
             "batch": BATCH, "equals_dijkstra": "all answers (scipy "
             "Dijkstra) + spot pairs (the port's)", "dijkstra_spot_pairs":
             spots, "launches": launches, "held_against_plain": held_shapes,
@@ -1520,6 +1843,15 @@ KERNELS = {
 }
 
 
+# what a kernel's row adds to its entry in the kernels line, where it
+# has it: the relax kernel's second bound, occupancy and the map's cost,
+# the Floyd–Warshall kernel's phase times, the operations bounds at 2
+# instructions a term and at the measured rate
+KERNEL_EXTRAS = ("dense_bytes_ms", "dense_ms", "mapped_ms", "occupancy_kept",
+                 "occupancy_ms", "multi_source_uses_map", "phase_ms",
+                 "ops_ms_2_instructions", "ops_ms_measured_rate")
+
+
 def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
     by_shape = {r["shape"]: r for r in rows}
     out = []
@@ -1533,7 +1865,8 @@ def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"], "shape": r["shape"],
                     "inputs_from_hbm": r.get("rows_from_hbm",
-                                             r.get("inputs_from_hbm"))})
+                                             r.get("inputs_from_hbm")),
+                    **{k: r[k] for k in KERNEL_EXTRAS if k in r}})
     return {"kernels": out}
 
 
@@ -1559,7 +1892,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE, *fa_kernel.SOURCES,
+    logs = build.build([kernel.SOURCE, mp_kernel.SOURCE,
+                        mp_kernel.PEAK_SOURCE, *fa_kernel.SOURCES,
                         fw_kernel.SOURCE])
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for log in logs.values()
@@ -1572,9 +1906,11 @@ def main() -> int:
     errs = {name: 0.0 for name in KERNELS}
     launches: dict = {}
     dev = torch.device("cuda")
+    peak = phase_minplus_peak(torch, smi)
+    emit(peak)
     emit(phase_kernels(torch, dev, kernel, ref, errs))
     emit(phase_minplus_kernels(torch, dev, errs))
-    serving, state = phase_serving(torch, dev, launches)
+    serving, state = phase_serving(torch, dev, launches, errs)
     emit(serving)
     center, center_shapes, large_state, repair_ctx = phase_center(
         torch, dev, errs)
@@ -1583,11 +1919,9 @@ def main() -> int:
     times = phase_times(torch, state, shapes)
     emit(times)
     builder_times = phase_builder_times(
-        torch, {"n4096": state["build_state"], "n102400": large_state})
+        torch, {"n4096": state["build_state"], "n102400": large_state}, peak)
     emit(builder_times)
-    fw = phase_fw_kernels(torch, dev, errs, launches, large_state,
-                          builder_times["sm_count"],
-                          builder_times["max_sm_clock_mhz"] * 1e6)
+    fw = phase_fw_kernels(torch, dev, errs, launches, large_state, peak)
     emit(fw)
     del shapes, center_shapes, large_state
     torch.cuda.empty_cache()

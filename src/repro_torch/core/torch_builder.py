@@ -186,10 +186,14 @@ def build_border_labels_stages(g: Graph, part: Partition, *,
                                ) -> tuple[BorderLabels, BuildState]:
     """Full pipeline run that also returns every stage's host-side
     output. ``timings``, when given, receives host-clock seconds per
-    step (``pack_s``, ``upload_s``, ``stage_a_s``, ``overlay_s``,
+    step (``pack_s``, ``upload_s``, ``stage_a_sweeps_s``, ``overlay_s``,
     ``stage_b_s``, ``stage_c_s``, ``stage_d_s``; each device stage ends
     with its copy to the host, so each is synchronised) and
-    ``stage_a_sweeps``."""
+    ``stage_a_sweeps``. Stage A's host packing and upload are
+    ``pack_s`` + ``upload_s`` (packing serves every stage, but it is
+    the dense adjacency of stage A), reported as ``stage_a_pack_s``;
+    ``stage_a_s`` = ``stage_a_pack_s`` + ``stage_a_sweeps_s``, as in
+    ``IncrementalBuilder.timings``."""
     dev = resolve_device(device)
     t = {} if timings is None else timings
     t.clear()
@@ -225,7 +229,9 @@ def build_border_labels_stages(g: Graph, part: Partition, *,
         adj, border_pos, iters=packed.kmax)
     del adj                             # the largest tensor of the build
     intra = _host(intra_t)
-    lap("stage_a_s")
+    lap("stage_a_sweeps_s")
+    t["stage_a_pack_s"] = t["pack_s"] + t["upload_s"]
+    t["stage_a_s"] = t["stage_a_pack_s"] + t["stage_a_sweeps_s"]
     overlay = _overlay_from_intra(g, part, packed, intra)
     lap("overlay_s")
     clo_t = stage_b_overlay_closure(torch.from_numpy(overlay).to(dev))

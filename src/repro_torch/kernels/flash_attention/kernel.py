@@ -3,9 +3,10 @@
 ``flash_attention(q, k, v, causal=)`` replaces the JAX package's Pallas
 kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention/kernel.py``): q (B,S,H,hd), k/v
-(B,T,KV,hd) with H % KV == 0, float32 or bfloat16, each with a
+(B,T,KV,hd) with H % KV == 0, one floating dtype, each with a
 contiguous last dim → (B,S,H,hd) in q's dtype. Two hand-written kernels
-serve it, picked by dtype:
+serve it on the card, picked by dtype (any other dtype, float16
+included, raises there):
 
 * bfloat16: ``csrc/flash_attention_bf16.cu``, the tensor-core kernel
   (TMA, ``wgmma``, warp specialisation); hd in ``BF16_HEAD_DIMS``; q, k,
@@ -16,8 +17,10 @@ serve it, picked by dtype:
 
 On a CUDA tensor the wrapper launches the kernel for its dtype (building
 it on first use) or raises; on a CPU tensor it runs the plain version of
-``ref.py``, for any hd. There is no other path. ``LAUNCHES`` counts the
-launches of both kernels.
+``ref.py``, for any hd and any floating dtype (computed in float32,
+returned in q's dtype, as the JAX package's ``attention_ref`` does).
+There is no other path. ``LAUNCHES`` counts the launches of both
+kernels.
 """
 from __future__ import annotations
 
@@ -65,9 +68,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: q, k and v must share a device")
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dtype not in _KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_attention: q, k and v must all be float32 "
-                         f"or all bfloat16, got {q.dtype}, {k.dtype}, "
+    if not q.dtype.is_floating_point or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k and v must share one "
+                         f"floating dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
@@ -91,6 +95,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What the kernel for q's dtype takes beyond the plain version."""
+    if q.dtype not in _KERNELS:
+        raise ValueError(f"flash_attention: no kernel takes {q.dtype} on "
+                         "the card (float32 or bfloat16); the plain "
+                         "version computes it on the CPU")
     _, _, head_dims, rows = _KERNELS[q.dtype]
     hd = q.shape[3]
     if hd not in head_dims:

@@ -10,7 +10,10 @@ with the XLA gathers in front of them.
 
 On a CUDA tensor the wrapper launches the kernel (building it on first
 use) or raises; on a CPU tensor it runs the plain version of ``ref.py``.
-There is no other path. ``LAUNCHES`` counts kernel launches per kernel.
+There is no other path. The kernel takes float32 tables and 16-bit
+codes; the plain version also takes bfloat16 and float16 tables, as the
+JAX package's ``join`` / ``join_with_bound`` do. ``LAUNCHES`` counts
+kernel launches per kernel.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from pathlib import Path
 import torch
 
 from .. import build
-from .ref import gather_join_ref, storage16
+from .ref import FLOAT_DTYPES, gather_join_ref, storage16
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "label_join.cu"
 
@@ -60,8 +63,16 @@ def _check(s_table, rs, t_table, rt, quant, with_lb) -> None:
         raise ValueError("gather_join: row ids must be two int64 vectors "
                          "of one length")
     if quant is None:
-        if s_table.dtype != torch.float32 or t_table.dtype != torch.float32:
-            raise ValueError("gather_join: float tables must be float32")
+        if dev.type == "cpu":
+            if s_table.dtype not in FLOAT_DTYPES \
+                    or t_table.dtype not in FLOAT_DTYPES:
+                raise ValueError("gather_join: float tables must be "
+                                 "float32, bfloat16 or float16")
+        elif s_table.dtype != torch.float32 \
+                or t_table.dtype != torch.float32:
+            raise ValueError("gather_join: float tables must be float32 on "
+                             "the card; the plain version takes bfloat16 "
+                             "and float16 on the CPU")
     else:
         if s_table.dtype not in _CODE_DTYPES \
                 or t_table.dtype not in _CODE_DTYPES:
@@ -82,7 +93,8 @@ def gather_join(s_table: torch.Tensor, rs: torch.Tensor,
     """Fused gather + join. ``quant = (sentinel, scale)`` marks 16-bit
     code tables (uint16 when the sentinel is 65535, int16 when 32767;
     uint16 codes may be stored as int16 bits). Returns float32 ``out``
-    of shape ``(Q,)``, or ``(out, lb)`` with ``with_lb``. Row ids must
+    of shape ``(Q,)`` (in ``s_table``'s dtype for bfloat16 or float16
+    tables), or ``(out, lb)`` with ``with_lb``. Row ids must
     index their tables (the ops layer checks ids from the host)."""
     _check(s_table, rs, t_table, rt, quant, with_lb)
     dev = s_table.device

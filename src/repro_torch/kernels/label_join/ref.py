@@ -16,6 +16,11 @@ INF_I32 = 1 << 29
 
 _UINT16 = getattr(torch, "uint16", None)
 
+# float tables the plain version joins; bfloat16 and float16 rows are
+# widened to float32 and the results cast back, as the JAX package's
+# ``join_pallas`` / ``join_lb_pallas`` do
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
 
 def _inf(q: int, like: torch.Tensor) -> torch.Tensor:
     return torch.full((q,), float("inf"), dtype=torch.float32,
@@ -92,7 +97,11 @@ def gather_join_ref(s_table: torch.Tensor, rs: torch.Tensor,
         return join_quantized_ref(storage16(s_table)[rs],
                                   storage16(t_table)[rt],
                                   sentinel=sentinel, scale=scale)
-    s, t = s_table[rs], t_table[rt]
-    if with_lb:
-        return join_ref(s, t), local_bound_ref(s, t)
-    return join_ref(s, t)
+    s, t = s_table[rs].float(), t_table[rt].float()
+    out = (join_ref(s, t), local_bound_ref(s, t)) if with_lb \
+        else join_ref(s, t)
+    if s_table.dtype == torch.float32:
+        return out
+    # one rounding of each float32 result, as the reference's kernels
+    return tuple(x.to(s_table.dtype) for x in out) if with_lb \
+        else out.to(s_table.dtype)

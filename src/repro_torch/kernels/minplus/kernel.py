@@ -7,8 +7,13 @@
 leading batch (district) axis:
 
 * ``minplus(a, b)``: C = A ⊗ B, a (..., m, k), b (..., k, n);
-* ``relax(d, a)``: D' = min(D, D ⊗ A), d (..., s, v), a (..., v, v),
-  one fused Bellman-Ford sweep, written out of place.
+* ``relax(d, a, occupancy=None)``: D' = min(D, D ⊗ A), d (..., s, v),
+  a (..., v, v), one fused Bellman-Ford sweep, written out of place.
+  ``occupancy = relax_occupancy(a)`` marks which tiles of A (``KTILE``
+  k rows × ``STRIP`` columns) hold a finite entry; the kernel (and the
+  plain version) never reads a tile it marks empty, which changes no
+  bit: an empty tile's terms are all +inf. Computed once per matrix and
+  passed to every sweep over it.
 
 Inputs are float32 distances: non-negative or +inf, never NaN or −inf
 (the ops layer widens other dtypes). On a CUDA tensor the wrapper
@@ -24,9 +29,12 @@ from pathlib import Path
 import torch
 
 from .. import build
-from .ref import minplus_ref, relax_ref
+from .ref import KTILE, STRIP, minplus_ref, relax_occupancy, relax_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "minplus.cu"
+# a measuring kernel, not a port of a TPU kernel: the card's sustained
+# (min, +) term rate in registers, the ceiling of the operations bound
+PEAK_SOURCE = SOURCE.with_name("minplus_peak.cu")
 
 # kernel launches since the last reset, per kernel (plain-version calls
 # on the CPU are not launches)
@@ -41,7 +49,7 @@ def _lib() -> ctypes.CDLL:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.repro_minplus.argtypes = [p, p, p, i64, i64, i64, i64, p]
         lib.repro_minplus.restype = ctypes.c_int
-        lib.repro_relax.argtypes = [p, p, p, i64, i64, i64, p]
+        lib.repro_relax.argtypes = [p, p, p, p, i64, i64, i64, p]
         lib.repro_relax.restype = ctypes.c_int
     return lib
 
@@ -101,20 +109,32 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def relax(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """D' = min(D, D ⊗ A), float32, in a new tensor."""
+def relax(d: torch.Tensor, a: torch.Tensor,
+          occupancy: torch.Tensor | None = None) -> torch.Tensor:
+    """D' = min(D, D ⊗ A), float32, in a new tensor; ``occupancy`` is
+    ``relax_occupancy(a)`` or None (every tile read)."""
     _check("relax", d, a)
     v = d.shape[-1]
     if a.shape[-2:] != (v, v):
         raise ValueError(f"relax: adjacency must be ({v}, {v}), got "
                          f"{tuple(a.shape)}")
+    if occupancy is not None:
+        want = (*a.shape[:-2], -(-v // STRIP), -(-v // KTILE))
+        if occupancy.dtype != torch.uint8 \
+                or tuple(occupancy.shape) != want \
+                or occupancy.device != a.device:
+            raise ValueError(f"relax: occupancy must be uint8 {want} on "
+                             f"{a.device} (relax_occupancy(a)), got "
+                             f"{occupancy.dtype} {tuple(occupancy.shape)}")
     if d.device.type == "cpu":
-        return relax_ref(d, a)
-    _cuda_operands("relax", d, a)
+        return relax_ref(d, a, occupancy)
+    _cuda_operands("relax", d, a,
+                   *(() if occupancy is None else (occupancy,)))
     fn = _lib().repro_relax
     out = torch.empty(d.shape, dtype=torch.float32, device=d.device)
     if out.numel():
         batch = d.shape[0] if d.dim() == 3 else 1
         _launch("relax", fn, out, d.data_ptr(), a.data_ptr(),
+                0 if occupancy is None else occupancy.data_ptr(),
                 out.data_ptr(), batch, d.shape[-2], v)
     return out

@@ -15,6 +15,11 @@ import torch
 # elements of the chunked broadcast temporary (64 MiB of float32)
 _TEMP_ELEMENTS = 1 << 24
 
+# the relax kernel's tiles of A: KTILE k rows x STRIP columns, one byte
+# of the occupancy map each (kKBlock and kStrip in csrc/minplus.cu)
+KTILE = 32
+STRIP = 128
+
 
 def _chunk(batch: int, m: int, k: int, n: int) -> int:
     return max(1, min(k, _TEMP_ELEMENTS // max(1, batch * m * n)))
@@ -42,7 +47,35 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _min_plus_into(acc, a, b)
 
 
-def relax_ref(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def relax_occupancy(a: torch.Tensor) -> torch.Tensor:
+    """Which tiles of ``a`` (..., v, v) hold a finite entry: uint8
+    (..., ⌈v/STRIP⌉, ⌈v/KTILE⌉), entry [s, t] for column strip s and
+    k-tile t (rows t·KTILE …, columns s·STRIP …). One pass over ``a`` on
+    its device: the minimum of each tile (padded with +inf where v is
+    ragged) is finite. The pass reduces each row's strips first (the
+    contiguous axis, at the memory rate), then the KTILE rows of a tile
+    in the 128× smaller result."""
+    v = a.shape[-1]
+    strips, ktiles = -(-v // STRIP), -(-v // KTILE)
+    flat = a.reshape(-1, v, v)
+    if (ktiles * KTILE, strips * STRIP) != (v, v):
+        flat = torch.nn.functional.pad(
+            flat, (0, strips * STRIP - v, 0, ktiles * KTILE - v),
+            value=float("inf"))
+    low = flat.view(-1, ktiles, KTILE, strips, STRIP).amin(-1).amin(2)
+    occ = (low < float("inf")).to(torch.uint8).transpose(1, 2).contiguous()
+    return occ.reshape(*a.shape[:-2], strips, ktiles)
+
+
+def relax_ref(d: torch.Tensor, a: torch.Tensor,
+              occupancy: torch.Tensor | None = None) -> torch.Tensor:
     """One Bellman-Ford sweep: D' = min(D, D ⊗ A), D (..., s, v),
-    A (..., v, v). Out of place: D is never written."""
+    A (..., v, v). Out of place: D is never written. With
+    ``occupancy`` (``relax_occupancy(a)``), the tiles it marks empty
+    are read as +inf, as the kernel never reads them."""
+    if occupancy is not None:
+        v = a.shape[-1]
+        keep = occupancy.bool().transpose(-1, -2) \
+            .repeat_interleave(KTILE, -2).repeat_interleave(STRIP, -1)
+        a = torch.where(keep[..., :v, :v], a, float("inf"))
     return _min_plus_into(d, d, a)

@@ -77,7 +77,9 @@ class IncrementalBuilder:
     stage's output (``core.torch_builder.BuildState``); later weight and
     topology deltas repair the cache instead of rebuilding. ``timings``
     holds the last run's seconds per step and its stage-A sweep count
-    (``stage_a_sweeps``, 0 when stage A did not run)."""
+    (``stage_a_sweeps``, 0 when stage A did not run); stage A's seconds
+    are split into ``stage_a_pack_s`` and ``stage_a_sweeps_s``, and
+    ``stage_a_s`` is their sum."""
 
     def __init__(self, *, prune: bool = True,
                  device: torch.device | str | None = None):
@@ -192,7 +194,7 @@ class IncrementalBuilder:
 
         dirty = delta.dirty_districts
         intra = self._stage_a(g_new, packed, dirty, st.intra)
-        lap = self._lap("stage_a_s", lap)
+        lap = time.perf_counter()
         overlay = self._patch_overlay(g_new, part, packed, intra, dirty,
                                       delta, st.overlay)
         lap = self._lap("overlay_s", lap)
@@ -273,7 +275,7 @@ class IncrementalBuilder:
         # rebuilt from g_new, so closures/openings land automatically
         dirty = delta.dirty_districts
         intra = self._stage_a(g_new, packed, dirty, st.intra)
-        lap = self._lap("stage_a_s", lap)
+        lap = time.perf_counter()
         overlay = self._patch_overlay_structural(g_old, g_new, part,
                                                  packed, intra, dirty,
                                                  st.overlay)
@@ -365,20 +367,36 @@ class IncrementalBuilder:
 
     def _stage_a(self, g_new: Graph, packed, dirty: np.ndarray,
                  cached: np.ndarray) -> np.ndarray:
-        """Stage-A output with the dirty districts' rows recomputed."""
+        """Stage-A output with the dirty districts' rows recomputed.
+        Records ``stage_a_pack_s`` (host packing of the dirty districts
+        and their upload, device synchronised), ``stage_a_sweeps_s``
+        (the sweeps and the copy of their rows to the host),
+        ``stage_a_s`` (their sum) and ``stage_a_sweeps``."""
+        t0 = time.perf_counter()
+        pack_s = sweeps_s = 0.0
         self.timings["stage_a_sweeps"] = 0
-        if not len(dirty):
-            return cached
-        intra = cached.copy()
-        intra[dirty] = self._stage_a_subset(g_new, packed, dirty)
+        intra = cached
+        if len(dirty):
+            intra = cached.copy()
+            adj, pos = self._stage_a_inputs(g_new, packed, dirty)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            pack_s = t1 - t0
+            out, self.timings["stage_a_sweeps"] = stage_a_intra_distances(
+                adj, pos, iters=packed.kmax)
+            intra[dirty] = out[:len(dirty)].cpu().numpy()
+            sweeps_s = time.perf_counter() - t1
+        self.timings.update(stage_a_pack_s=pack_s, stage_a_sweeps_s=sweeps_s,
+                            stage_a_s=pack_s + sweeps_s)
         return intra
 
-    def _stage_a_subset(self, g_new: Graph, packed, dirty: np.ndarray
-                        ) -> np.ndarray:
-        """Dirty districts' stage A, padded to a power-of-two lane count
-        with absorbing entries (+inf adjacency / -1 border rows). The
-        dense adjacency blocks are rebuilt straight into the subset
-        buffer — O(dirty districts) work, never O(m)."""
+    def _stage_a_inputs(self, g_new: Graph, packed, dirty: np.ndarray
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Dirty districts' stage-A inputs on the device, padded to a
+        power-of-two lane count with absorbing entries (+inf adjacency /
+        -1 border rows). The dense adjacency blocks are rebuilt straight
+        into the subset buffer — O(dirty districts) work, never O(m)."""
         md = _pow2_bucket(len(dirty), packed.num_districts)
         sub_adj = np.full((md, packed.kmax, packed.kmax), INF,
                           dtype=np.float32)
@@ -388,9 +406,7 @@ class IncrementalBuilder:
             k = len(verts)
             sub_adj[j, :k, :k] = g_new.dense_adjacency(verts)
         sub_pos[:len(dirty)] = packed.border_pos[dirty]
-        out, self.timings["stage_a_sweeps"] = stage_a_intra_distances(
-            self._upload(sub_adj), self._upload(sub_pos), iters=packed.kmax)
-        return out[:len(dirty)].cpu().numpy()
+        return self._upload(sub_adj), self._upload(sub_pos)
 
     @staticmethod
     def _patch_overlay(g_new: Graph, part: Partition, packed,

@@ -107,9 +107,14 @@ def test_timings_and_sweeps_are_reported():
     timings = {"stale": 1.0}
     _, state = torch_builder.build_border_labels_stages(
         tg, tpart, device="cpu", timings=timings)
-    assert set(timings) == {"pack_s", "upload_s", "stage_a_s",
+    assert set(timings) == {"pack_s", "upload_s", "stage_a_pack_s",
+                            "stage_a_sweeps_s", "stage_a_s",
                             "stage_a_sweeps", "overlay_s", "stage_b_s",
                             "stage_c_s", "stage_d_s"}
+    assert timings["stage_a_pack_s"] == timings["pack_s"] \
+        + timings["upload_s"]
+    assert timings["stage_a_s"] == timings["stage_a_pack_s"] \
+        + timings["stage_a_sweeps_s"]
     assert 1 <= timings["stage_a_sweeps"] < state.packed.kmax
 
 

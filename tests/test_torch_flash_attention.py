@@ -110,6 +110,28 @@ def test_any_head_dim_on_cpu_matches_jax_ref_and_pallas(hd):
     np.testing.assert_allclose(got, pallas, rtol=2e-4, atol=2e-4)
 
 
+def test_float16_on_cpu_matches_jax_ref_and_pallas():
+    """float16 computes on the CPU and returns float16, as the JAX
+    package's entry point does there. Both sides compute in float32 on
+    the same float16 inputs and round once to float16, so they may
+    differ by one float16 ulp of the output: 2^-9 below magnitude 4."""
+    q, k, v = _qkv(16, 1, 8, 8, 4, 2, 16)
+    tq, tk, tv = (_t(x, torch.float16) for x in (q, k, v))
+    before = dict(kernel.LAUNCHES)
+    got = ops.flash_attention(tq, tk, tv)
+    assert kernel.LAUNCHES == before
+    assert got.dtype == torch.float16 and got.shape == (1, 8, 4, 16)
+    assert float(got.float().abs().max()) < 4
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.float16) for x in (q, k, v))
+    for want in (rattention_ref(jq, jk, jv),
+                 flash_attention_pallas(jq, jk, jv, bq=16, bk=16,
+                                        interpret=True)):
+        assert want.dtype == jnp.float16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=0, atol=2.0 ** -9)
+
+
 def _bad_inputs():
     f = torch.zeros
     good_q, good_kv = f(1, 8, 4, 32), f(1, 8, 2, 32)
@@ -117,7 +139,7 @@ def _bad_inputs():
         "head_dim": (f(1, 8, 4, 0), f(1, 8, 2, 0), f(1, 8, 2, 0)),
         "groups": (f(1, 8, 3, 32), good_kv, good_kv),
         "dtype_mix": (good_q.bfloat16(), good_kv, good_kv),
-        "float16": (good_q.half(), good_kv.half(), good_kv.half()),
+        "integer": (good_q.int(), good_kv.int(), good_kv.int()),
         "rank": (f(8, 4, 32), good_kv, good_kv),
         "kv_shapes": (good_q, good_kv, f(1, 9, 2, 32)),
         "no_keys": (good_q, f(1, 0, 2, 32), f(1, 0, 2, 32)),

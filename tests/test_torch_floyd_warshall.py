@@ -119,6 +119,25 @@ def test_border_rows_equal_stage_a_of_both_builders():
         np.testing.assert_array_equal(rows, rstate.intra[i, :len(pos), :k])
 
 
+@pytest.mark.parametrize("n", [1, 128, 130])
+def test_working_copy_pads_with_inf_and_has_no_negative_zero(n):
+    """The kernel's input: min(adj, diag 0) + 0.0 padded with +inf to a
+    multiple of the tile, so its int32-pattern minimum never sees -0.0
+    and the pad vertices reach nothing."""
+    adj = torch.from_numpy(_adjacency(n, True, seed=n))
+    adj[0, 0] = -0.0
+    if n > 1:
+        adj[0, 1] = adj[1, 0] = -0.0
+    d = kernel.working_copy(adj)
+    big = -(-n // kernel.TILE) * kernel.TILE
+    assert d.shape == (big, big) and d.is_contiguous()
+    assert not bool(torch.signbit(d).any())
+    assert torch.equal(d[:n, :n], ref.with_zero_diagonal(adj))
+    assert bool(torch.isinf(d[n:]).all()) and bool(torch.isinf(d[:, n:]).all())
+    assert kernel.launches_per_call(n) == (1 if big == kernel.TILE
+                                           else 3 * big // kernel.TILE)
+
+
 def test_cpu_runs_the_plain_version_and_launches_nothing():
     before = dict(kernel.LAUNCHES)
     adj = torch.from_numpy(_adjacency(40, True, seed=1))

@@ -108,6 +108,18 @@ def test_card_rebuild_window_matches_host(cuda):
         np.testing.assert_array_equal(a.exactness_codes, b.exactness_codes)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_precision_tables_raise_on_the_card(cuda, dtype):
+    """The plain version joins bfloat16 and float16 rows on the CPU; the
+    kernel takes float32 and 16-bit codes only, and says so."""
+    table = torch.zeros((4, 6), dtype=dtype, device=cuda)
+    ids = torch.zeros(2, dtype=torch.int64, device=cuda)
+    before = dict(kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="plain version"):
+        kernel.gather_join(table, ids, table, ids)
+    assert kernel.LAUNCHES == before
+
+
 @pytest.mark.parametrize("batch,m,k,n", [(None, 1, 1, 1), (None, 93, 93, 93),
                                          (None, 130, 70, 33),
                                          (16, 256, 8, 93), (3, 37, 0, 5)])
@@ -142,6 +154,47 @@ def test_relax_kernel_matches_plain_version(cuda, batch, s, v):
     assert mp.LAUNCHES["relax"] == before + 1
     assert torch.equal(got, mp_ref.relax_ref(d, a))
     assert torch.equal(d, keep)                 # out of place
+
+
+def _banded_card(rng, shape, band, cuda):
+    a = _rand_dist(rng, shape)
+    i, j = np.indices(shape[-2:])
+    a[..., np.abs(i - j) > band] = np.inf
+    return torch.from_numpy(a).to(cuda)
+
+
+# the stage-A sweep shapes of the build and the repairs: all districts of
+# n = 4096, one and two districts of n = 102 400 (split k ranges, banded
+# occupancy), and ragged ones
+@pytest.mark.parametrize("kind", ["banded", "random"])
+@pytest.mark.parametrize("batch,s,v", [(16, 8, 256), (1, 8, 6400),
+                                       (2, 8, 6400), (2, 13, 300),
+                                       (3, 5, 129), (None, 8, 33)])
+def test_relax_kernel_with_occupancy_matches_plain_version(cuda, kind,
+                                                           batch, s, v):
+    """The k-split relax kernel with and without the occupancy map
+    against the plain version with and without it, bit for bit."""
+    from repro_torch.kernels.minplus import kernel as mp, ref as mp_ref
+    rng = np.random.default_rng(s + v)
+    lead = () if batch is None else (batch,)
+    d = torch.from_numpy(_rand_dist(rng, (*lead, s, v))).to(cuda)
+    if kind == "banded":
+        a = _banded_card(rng, (*lead, v, v), 80, cuda)
+    else:
+        a = _rand_dist(rng, (*lead, v, v))
+        a[rng.random(a.shape) < 0.99] = np.inf
+        a = torch.from_numpy(a).to(cuda)
+    occ = mp.relax_occupancy(a)
+    before = mp.LAUNCHES["relax"]
+    got = mp.relax(d, a, occ)
+    dense = mp.relax(d, a)
+    torch.cuda.synchronize()
+    assert mp.LAUNCHES["relax"] == before + 2
+    want = mp_ref.relax_ref(d, a)
+    assert torch.equal(got, want) and torch.equal(dense, want)
+    assert torch.equal(mp_ref.relax_ref(d, a, occ), want)
+    if kind == "banded" and v > 1000:
+        assert float(occ.float().mean()) < 0.1
 
 
 def test_card_builder_equals_the_host_reference(cuda):
@@ -335,7 +388,7 @@ def test_lm_prefill_launches_flash_once_per_layer_and_decode_never(cuda):
 # exact, whatever the blocked order), rtol 1e-5 on real ones (the JAX
 # package's tolerance for its blocked kernel against the rank-1 loop)
 @pytest.mark.parametrize("integral", [True, False])
-@pytest.mark.parametrize("n", [1, 33, 64, 100, 130, 257])
+@pytest.mark.parametrize("n", [1, 33, 64, 100, 128, 130, 257, 300])
 def test_floyd_warshall_kernel_matches_plain_version(cuda, n, integral):
     from repro_torch.kernels.sssp_relax import kernel as fw, ref as fw_ref
     rng = np.random.default_rng(n)
@@ -355,6 +408,30 @@ def test_floyd_warshall_kernel_matches_plain_version(cuda, n, integral):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [130, 640])
+def test_floyd_warshall_phases_match_plain_version(cuda, n):
+    """The phase entry, pivot by pivot: bit for bit with the plain
+    version on integral weights, with a -0.0 weight among them."""
+    from repro_torch.kernels.sssp_relax import kernel as fw, ref as fw_ref
+    rng = np.random.default_rng(n)
+    adj = np.ceil(_rand_dist(rng, (n, n)))
+    adj[rng.random((n, n)) < 0.9] = np.inf
+    adj[0, 1] = adj[1, 0] = -0.0
+    adj = torch.from_numpy(np.minimum(adj, adj.T)).to(cuda)
+    d = fw.working_copy(adj)
+    assert not bool(torch.signbit(d).any())
+    big = d.shape[0]
+    ct = torch.empty((fw.TILE, big), device=cuda)
+    fn = fw.phase_entry()
+    stream = torch.cuda.current_stream().cuda_stream
+    for kb in range(big // fw.TILE):
+        for phase in (1, 2, 3):
+            assert fn(d.data_ptr(), ct.data_ptr(), big, kb, phase,
+                      stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(d[:n, :n], fw_ref.floyd_warshall_ref(adj))
 
 
 def test_floyd_warshall_bf16_and_district_rows_on_card(cuda):

@@ -73,6 +73,38 @@ def test_join_with_bound_matches_pallas_and_ref(q, h):
                                   np.asarray(lb))
 
 
+HALF_DTYPES = [(torch.bfloat16, jnp.bfloat16), (torch.float16, jnp.float16)]
+
+
+@pytest.mark.parametrize("tdt,jdt", HALF_DTYPES)
+@pytest.mark.parametrize("q,h", [(4, 6), (37, 133), (3, 1)])
+def test_half_precision_rows_match_the_reference_join(q, h, tdt, jdt):
+    """bfloat16 and float16 rows on the CPU, as the JAX package's
+    ``join`` / ``join_with_bound`` take them: widened to float32, joined,
+    each result rounded once to the rows' dtype. Bit for bit with the
+    reference entry points (its Pallas kernels do the same arithmetic).
+    Its pure-jnp oracles add in the narrow dtype; they agree here too:
+    on these values every float32 sum is exact (exponents within 7 of
+    each other), so both round the exact sum once, and rounding is
+    monotone, so it commutes with min."""
+    rng = np.random.default_rng(q * 5 + h)
+    s, t = _rand_dist(rng, (q, h)), _rand_dist(rng, (q, h))
+    js, jt = jnp.asarray(s).astype(jdt), jnp.asarray(t).astype(jdt)
+    ts_, tt_ = _t(s).to(tdt), _t(t).to(tdt)
+    before = dict(kernel.LAUNCHES)
+    got = ops.join(ts_, tt_)
+    got_lam, got_lb = ops.join_with_bound(ts_, tt_)
+    assert kernel.LAUNCHES == before
+    assert got.dtype == got_lam.dtype == got_lb.dtype == tdt
+    lam, lb = rops.join_with_bound(js, jt)
+    for mine, want in ((got, rops.join(js, jt)), (got_lam, lam),
+                       (got_lb, lb), (got, rjoin_ref(js, jt)),
+                       (got_lb, rlb_ref(js, jt))):
+        assert want.dtype == jdt
+        np.testing.assert_array_equal(mine.float().numpy(),
+                                      np.asarray(want, np.float32))
+
+
 @pytest.mark.parametrize("dtype", [np.uint16, np.int16])
 @pytest.mark.parametrize("scale", [1.0, 0.37])
 @pytest.mark.parametrize("q,h", [(7, 5), (100, 130), (300, 64)])

@@ -11,7 +11,8 @@ differences are ~4e-6 on values of order 1). The bf16 case allows 5e-2:
 both sides round every matmul output and the weights to bf16 (8 bits
 of mantissa, 2^-8 ≈ 4e-3 relative per rounding) at places that can
 differ between XLA and PyTorch, compounded over two layers (measured:
-0.047 on hidden states up to 3.6, three bf16 ulps there).
+0.047 on hidden states up to 3.6, three bf16 ulps there). The float16
+flash case allows 1e-2 for the same reason at 2^-11 per rounding.
 """
 import dataclasses
 
@@ -36,6 +37,7 @@ from repro_torch.train.train_step import make_prefill_step, make_serve_step
 
 TOL = 1e-4
 TOL_BF16 = 5e-2
+TOL_F16 = 1e-2
 
 
 def _cfgs(**kw):
@@ -173,6 +175,22 @@ def test_forward_bf16_matches_jax(impl):
     assert got.dtype == torch.bfloat16
     _close(got, rlm.forward(params, cfg_j, {"tokens": jnp.asarray(tok)})
            .astype(jnp.float32), TOL_BF16)
+
+
+def test_forward_float16_flash_matches_jax():
+    """float16 through the flash path on the CPU, as in the JAX package.
+    Both sides round every matmul output and the weights to float16
+    (11 bits of mantissa, 2^-11 relative per rounding) at places that
+    can differ between XLA and PyTorch, over two layers (measured:
+    0.0044 on hidden states up to 3.7, two float16 ulps there)."""
+    cfg_j, cfg_t = _cfgs(compute_dtype="float16", attention_impl="flash")
+    params, ours = _params(cfg_j)
+    tok = _tokens(cfg_j, 2, 24, seed=4)
+    got = lm.forward(ours, cfg_t, {"tokens": torch.from_numpy(tok)})
+    assert got.dtype == torch.float16
+    want = rlm.forward(params, cfg_j, {"tokens": jnp.asarray(tok)})
+    assert want.dtype == jnp.float16
+    _close(got, want.astype(jnp.float32), TOL_F16)
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])

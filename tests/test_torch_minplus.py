@@ -20,6 +20,7 @@ from repro.kernels.minplus.kernel import minplus_pallas, relax_pallas
 from repro.kernels.minplus.ref import minplus_ref as rminplus_ref
 from repro.kernels.minplus.ref import relax_ref as rrelax_ref
 from repro.kernels.sssp_relax.ops import multi_source as rmulti_source
+from repro.kernels.sssp_relax.ref import multi_source_ref as rmulti_source_ref
 from repro_torch.kernels.minplus import kernel, ops, ref
 from repro_torch.kernels.sssp_relax.ops import multi_source
 from repro_torch.kernels.sssp_relax.ref import multi_source_ref
@@ -96,6 +97,88 @@ def test_relax_equals_pallas_and_ref(s, v):
         got, _np(rrelax_ref(jnp.asarray(d), jnp.asarray(a))))
     np.testing.assert_array_equal(
         got, _np(relax_pallas(jnp.asarray(d), jnp.asarray(a), **BLOCKS)))
+
+
+def _bits(x) -> np.ndarray:
+    return np.ascontiguousarray(_np(x)).view(np.int32)
+
+
+def _banded(rng, shape, band):
+    """A grid-like adjacency: finite only within ``band`` of the
+    diagonal, as a grid district's is (its vertices in row order)."""
+    a = np.ceil(rng.uniform(0.5, 9.0, size=shape)).astype(np.float32)
+    i, j = np.indices(shape[-2:])
+    a[..., np.abs(i - j) > band] = np.inf
+    return a
+
+
+# (kind, batch, S, V, band): ragged V (not a multiple of the 32 x 128
+# tiles) and S not a multiple of 8
+RELAX_MAP_CASES = [("banded", 2, 13, 300, 20), ("banded", 1, 8, 257, 40),
+                   ("banded", 3, 5, 161, 3), ("random", 3, 5, 129, None),
+                   ("random", 2, 9, 70, None), ("random", 1, 1, 1, None)]
+
+
+@pytest.mark.parametrize("kind,b,s,v,band", RELAX_MAP_CASES)
+def test_relax_with_the_occupancy_map_equals_without_and_pallas(kind, b, s,
+                                                                v, band):
+    """The plain relax honouring the occupancy map gives the bits of the
+    plain relax without it and of the JAX package's relax_pallas: a tile
+    the map marks empty holds only +inf, whose terms change no min."""
+    rng = np.random.default_rng(b * 1000 + s * 10 + v)
+    d = _rand_dist(rng, (b, s, v))
+    a = _banded(rng, (b, v, v), band) if kind == "banded" \
+        else _rand_dist(rng, (b, v, v), inf_frac=0.97)
+    td, ta = torch.from_numpy(d), torch.from_numpy(a)
+    occ = kernel.relax_occupancy(ta)
+    strips, ktiles = -(-v // ref.STRIP), -(-v // ref.KTILE)
+    assert occ.dtype == torch.uint8 and occ.shape == (b, strips, ktiles)
+    assert occ.is_contiguous()                  # as the kernel takes it
+    pad = np.full((b, ktiles * ref.KTILE, strips * ref.STRIP), np.inf,
+                  np.float32)
+    pad[:, :v, :v] = a
+    want_occ = np.isfinite(pad.reshape(b, ktiles, ref.KTILE, strips,
+                                       ref.STRIP)).any(axis=(2, 4))
+    np.testing.assert_array_equal(occ.numpy(),
+                                  want_occ.transpose(0, 2, 1))
+    if kind == "banded" and v > 200:
+        assert occ.float().mean() < 0.7         # the map skips tiles
+    plain = ref.relax_ref(td, ta)
+    mapped = ref.relax_ref(td, ta, occ)
+    entry = kernel.relax(td, ta, occ)
+    for got in (mapped, entry):
+        np.testing.assert_array_equal(_bits(got), _bits(plain))
+    for z in range(b):
+        pallas = relax_pallas(jnp.asarray(d[z]), jnp.asarray(a[z]),
+                              **BLOCKS)
+        np.testing.assert_array_equal(_bits(mapped[z]), _bits(pallas))
+    # the plain version reads the map: marked all empty, no term is left
+    assert torch.equal(ref.relax_ref(td, ta, torch.zeros_like(occ)), td)
+
+
+def test_int32_pattern_minimum_is_the_float_minimum():
+    """What the kernels' atomicMin and DPX minimum rely on: for
+    non-negative floats and +inf, the minimum of the int32 bit patterns
+    is the pattern of the float minimum (0, subnormals, normals up to
+    the largest float, +inf, and sums of them)."""
+    f32 = np.finfo(np.float32)
+    special = np.array([0.0, 1e-45, 1e-40, f32.tiny, 1e-30, 0.5, 1.0, 3.0,
+                        4096.0, 1e30, f32.max, np.inf], np.float32)
+    rng = np.random.default_rng(8)
+    sums = (rng.uniform(0, 1e3, 500).astype(np.float32)
+            + rng.uniform(0, 1e3, 500).astype(np.float32))
+    vals = np.concatenate([special, special + special[::-1], sums])
+    x = torch.from_numpy(np.repeat(vals, len(vals)))
+    y = torch.from_numpy(np.tile(vals, len(vals)))
+    assert bool((x >= 0).all()) and not bool(torch.isnan(x).any())
+    by_pattern = torch.minimum(x.view(torch.int32), y.view(torch.int32))
+    np.testing.assert_array_equal(by_pattern.numpy(),
+                                  torch.minimum(x, y).view(torch.int32)
+                                  .numpy())
+    # -0.0 has the smallest pattern and the smallest value (0)
+    neg0 = torch.tensor([-0.0]).view(torch.int32)
+    assert int(neg0) == torch.iinfo(torch.int32).min
+    assert float(torch.tensor([-0.0])) == float(torch.minimum(x, y).min())
 
 
 def test_relax_batched_is_out_of_place():
@@ -177,6 +260,55 @@ def test_multi_source_early_exit_equals_all_sweeps(iters):
         assert sweeps < iters
 
 
+@pytest.mark.parametrize("mapped", [True, False],
+                         ids=["mapped", "below_the_size_gate"])
+def test_multi_source_with_the_map_matches_jax_sweep_for_sweep(
+        monkeypatch, mapped):
+    """multi_source passes the adjacency's occupancy map to every sweep
+    (none where the adjacency is below OCCUPANCY_MIN_BYTES) and gives the
+    JAX package's distances (multi_source_ref over all n sweeps) after
+    as many sweeps as its relax_ref needs to return its input, on a grid
+    whose adjacency leaves tiles empty."""
+    from repro_torch.core import grid_road_network
+    from repro_torch.kernels.sssp_relax import ops as sssp_ops
+    if mapped:
+        monkeypatch.setattr(sssp_ops, "OCCUPANCY_MIN_BYTES", 0)
+    g = grid_road_network(12, 12, seed=4)
+    n = g.num_vertices
+    adj = g.dense_adjacency()
+    init = np.full((5, n), np.inf, np.float32)
+    init[range(5), [0, 11, 70, 133, 143]] = 0.0
+    tadj = torch.from_numpy(adj)
+    occ = kernel.relax_occupancy(tadj)
+    assert 0 < int(occ.sum()) < occ.numel()
+    seen = []
+    real = kernel.relax
+
+    def relax(d, a, occupancy=None):
+        seen.append(occupancy)
+        return real(d, a, occupancy)
+
+    monkeypatch.setattr(kernel, "relax", relax)
+    got, sweeps = multi_source(tadj, torch.from_numpy(init), n)
+    assert len(seen) == sweeps
+    if mapped:
+        assert all(o is not None and torch.equal(o, occ) for o in seen)
+    else:
+        assert adj.nbytes < sssp_ops.OCCUPANCY_MIN_BYTES
+        assert all(o is None for o in seen)
+    want = np.asarray(rmulti_source_ref(jnp.asarray(adj), jnp.asarray(init),
+                                        iters=n))
+    np.testing.assert_array_equal(_bits(got), want.view(np.int32))
+    d, k = jnp.asarray(init), 0
+    while True:
+        k += 1
+        nxt = rrelax_ref(d, jnp.asarray(adj))
+        if np.array_equal(np.asarray(nxt), np.asarray(d)):
+            break
+        d = nxt
+    assert sweeps == k
+
+
 def test_multi_source_batched_stops_when_every_district_converged():
     rng = np.random.default_rng(2)
     adj = _rand_dist(rng, (4, 30, 30), inf_frac=0.85)
@@ -203,6 +335,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         kernel.relax(torch.zeros((2, 3), device="meta"),
                      torch.zeros((3, 3), device="meta"))
+    occ = kernel.relax_occupancy(torch.zeros((4, 4)))
+    for bad in (occ.bool(), occ[..., :0], occ[None]):
+        with pytest.raises(ValueError, match="occupancy"):
+            kernel.relax(torch.zeros((2, 4)), torch.zeros((4, 4)), bad)
 
 
 def test_cpu_calls_are_not_launches():

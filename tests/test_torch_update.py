@@ -283,9 +283,13 @@ def test_apply_delta_noop_and_timings(grids):
                                   np.random.default_rng(5), 0.02)
     _, rep = tb.apply_delta(tg.with_weights(w2), tpart)
     assert rep["incremental"]
-    assert set(tb.timings) == {"classify_s", "stage_a_s", "stage_a_sweeps",
-                               "overlay_s", "stage_b_s", "stage_c_s",
-                               "stage_d_s"}
+    assert set(tb.timings) == {"classify_s", "stage_a_pack_s",
+                               "stage_a_sweeps_s", "stage_a_s",
+                               "stage_a_sweeps", "overlay_s", "stage_b_s",
+                               "stage_c_s", "stage_d_s"}
+    assert tb.timings["stage_a_s"] == tb.timings["stage_a_pack_s"] \
+        + tb.timings["stage_a_sweeps_s"]
+    assert tb.timings["stage_a_pack_s"] > 0 < tb.timings["stage_a_sweeps_s"]
     assert 1 <= tb.timings["stage_a_sweeps"] < tb.state.packed.kmax
 
 
