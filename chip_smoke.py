@@ -8,8 +8,9 @@ per source, all at once), measures the card's sustained (min, +) term
 rate beside the issue ceiling its instructions allow (phase
 ``minplus_peak``; the ceiling is the operations rate of the min-plus
 bounds), holds each kernel against its plain PyTorch version on the
-card (``relax`` with and without its occupancy map), and drives the
-port's five paths:
+card (``relax`` with and without its occupancy map; the fused closure
+on each side of its cap; the k-major product; the join at every vector
+width), and drives the port's six paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -18,6 +19,9 @@ port's five paths:
 * the computing center at n = 102 400 — B built on the card by the
   staged builder, held against the host's Dijkstra stage A and
   hierarchical builder, then the rule-3 join;
+* stage B on each side of the fused closure's cap — B built on the card
+  at q = 160 (one closure launch) and q = 239 (the tiled kernel's
+  squarings), each held against the host reference;
 * the APSP entry point — ``sssp_relax.ops.floyd_warshall`` on every
   district of n = 102 400 ((6400, 6400) each) through the Floyd–Warshall
   kernel, held against its plain version, stage A's border rows and
@@ -119,20 +123,38 @@ def max_abs_err(a, b) -> float:
 
 # -- phase 2: kernels against their plain versions ---------------------------
 
+# (Q, W): widths of 1 to 1024 (row pitches of 4 B to 4 KB: every vector
+# width of the join, 16, 8, 4 and, for codes, 2 bytes), batches 1 to
+# 65 536; each table also sliced one element off its alignment
 JOIN_SHAPES = [(1, 1), (5, 7), (64, 128), (100, 257), (512, 512),
                (3, 1024), (257, 33), (9, 0), (4096, 96), (65536, 96),
-               (4096, 256)]
+               (4096, 256), (45, 6), (64, 12), (4096, 93), (1, 133),
+               (45, 96), (65536, 93)]
+
+
+def on_card_at(torch, dev, host: np.ndarray, offset: int):
+    """``host`` copied to the card as a contiguous table that starts
+    ``offset`` elements past its allocation's (256-byte) alignment."""
+    flat = torch.empty(host.size + offset, dtype=getattr(
+        torch, host.dtype.name), device=dev)
+    table = flat[offset:].view(host.shape)
+    table.copy_(torch.from_numpy(host))
+    return table
 
 
 def phase_kernels(torch, dev, kernel, ref, errs: dict) -> dict:
     rng = np.random.default_rng(0)
-    for q, w in JOIN_SHAPES:
+    layouts = set()
+    for (q, w), offset in [(shape, o) for shape in JOIN_SHAPES
+                           for o in (0, 1)]:
         rows = q + 5
         s = rng.uniform(0.5, 50.0, (rows, w)).astype(np.float32)
         t = rng.uniform(0.5, 50.0, (rows + 3, w)).astype(np.float32)
         s[rng.random(s.shape) < 0.3] = np.inf
         t[rng.random(t.shape) < 0.3] = np.inf
-        S, T = torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
+        S, T = on_card_at(torch, dev, s, offset), on_card_at(torch, dev, t,
+                                                             offset)
+        layouts.add(("float32",) + kernel.join_layout(S, T, q))
         rs = torch.from_numpy(rng.integers(0, rows, q)).to(dev)
         rt = torch.from_numpy(rng.integers(0, rows + 3, q)).to(dev)
         got = kernel.gather_join(S, rs, T, rt)
@@ -151,8 +173,9 @@ def phase_kernels(torch, dev, kernel, ref, errs: dict) -> dict:
             cs = rng.integers(0, sentinel + 1, (rows, w)).astype(npdt)
             ct = rng.integers(0, sentinel + 1, (rows + 3, w)).astype(npdt)
             cs[rng.random(cs.shape) < 0.3] = sentinel
-            CS = torch.from_numpy(cs.view(np.int16)).to(dev)
-            CT = torch.from_numpy(ct.view(np.int16)).to(dev)
+            CS = on_card_at(torch, dev, cs.view(np.int16), offset)
+            CT = on_card_at(torch, dev, ct.view(np.int16), offset)
+            layouts.add(("codes",) + kernel.join_layout(CS, CT, q))
             got = kernel.gather_join(CS, rs, CT, rt, quant=(sentinel, 0.5))
             sync(torch, dev)
             want = ref.gather_join_ref(CS, rs, CT, rt,
@@ -161,9 +184,15 @@ def phase_kernels(torch, dev, kernel, ref, errs: dict) -> dict:
                   f"label_join {npdt.__name__} {q}x{w}")
             errs["label_join"] = max(errs["label_join"],
                                      max_abs_err(got, want))
+    widths = {kind: sorted({v for k, v, _ in layouts if k == kind})
+              for kind in ("float32", "codes")}
+    check(widths == {"float32": [4, 8, 16], "codes": [2, 4, 8, 16]},
+          f"the join shapes missed a vector width: {widths}")
     return {"phase": "kernels_vs_plain", "shapes": JOIN_SHAPES,
-            "dtypes": ["float32", "uint16", "int16"], "tolerance": "bitwise",
-            "ok": True}
+            "table_offsets_elements": [0, 1],
+            "dtypes": ["float32", "uint16", "int16"],
+            "layouts_vec_bytes_lanes": sorted(layouts),
+            "tolerance": "bitwise", "ok": True}
 
 
 # min-plus shapes (batch or None, m, k, n): unaligned ones, then the
@@ -173,6 +202,16 @@ MINPLUS_SHAPES = [(None, 1, 1, 1), (None, 5, 7, 3), (None, 130, 70, 33),
                   (3, 37, 0, 5), (2, 200, 300, 65), (None, 93, 93, 93),
                   (None, 96, 96, 96), (16, 256, 8, 93), (16, 6400, 8, 96),
                   (1, 6400, 8, 96)]
+# k-major products (batch or None, m, k, n), A given as (batch, k, m):
+# stage C at both sizes, n % 4 != 0 (scalar stores), several column
+# tiles, k = 0, 1, 32 and 33 (the tiled kernel on a transposed copy)
+KMAJOR_SHAPES = [(16, 256, 8, 93), (16, 6400, 8, 96), (1, 6400, 8, 96),
+                 (None, 5, 1, 3), (3, 300, 32, 97), (2, 130, 8, 2048),
+                 (4, 129, 8, 1030), (3, 37, 0, 5), (2, 100, 33, 64)]
+# closures (q, +inf share): each side of the fused kernel's cap (160),
+# at the fixed schedule and from squaring 0 and 2 on
+CLOSURE_CASES = [(1, 0.0), (7, 0.9), (93, 0.9), (96, 0.0), (128, 0.9),
+                 (160, 0.9), (160, 0.0), (161, 0.9), (239, 0.9)]
 # relax shapes (batch or None, s, v): unaligned ones, then stage A's
 # sweep at both sizes, (m, bmax, kmax) x (m, kmax, kmax), and the
 # repairs' subset sweeps over 1, 2 or 4 districts
@@ -205,7 +244,7 @@ def banded_dist(torch, gen, shape, band: int):
 
 
 def phase_minplus_kernels(torch, dev, errs: dict) -> dict:
-    from repro_torch.kernels.minplus import kernel, ref
+    from repro_torch.kernels.minplus import kernel, ops, ref
     gen = torch.Generator(device=dev).manual_seed(1)
     for batch, m, k, n in MINPLUS_SHAPES:
         lead = () if batch is None else (batch,)
@@ -216,6 +255,56 @@ def phase_minplus_kernels(torch, dev, errs: dict) -> dict:
         want = ref.minplus_ref(a, b)
         check(torch.equal(got, want), f"minplus {lead}x{m}x{k}x{n}")
         errs["minplus"] = max(errs["minplus"], max_abs_err(got, want))
+    for batch, m, k, n in KMAJOR_SHAPES:
+        lead = () if batch is None else (batch,)
+        a_t = rand_dist(torch, gen, (*lead, k, m), 0.3)
+        b = rand_dist(torch, gen, (*lead, k, n), 0.3)
+        before = dict(kernel.LAUNCHES)
+        got = kernel.minplus_kmajor(a_t, b)
+        sync(torch, dev)
+        deep = k > kernel.KMAJOR_MAX_K
+        check(kernel.LAUNCHES["minplus_kmajor"] - before["minplus_kmajor"]
+              == int(not deep) and kernel.LAUNCHES["minplus"]
+              - before["minplus"] == int(deep),
+              f"minplus_kmajor {lead}x{k}x{m}x{n} dispatch")
+        want = ref.minplus_kmajor_ref(a_t, b)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"minplus_kmajor {lead}x{k}x{m}x{n}")
+        errs["minplus_kmajor"] = max(errs["minplus_kmajor"],
+                                     max_abs_err(got, want))
+    depths = {}
+    for q, inf_frac in CLOSURE_CASES:
+        d0 = rand_dist(torch, gen, (q, q), inf_frac)
+        d0.fill_diagonal_(0.0)
+        steps = ops.closure_steps(q)
+        for check_from in (steps, 0, 2):
+            before = dict(kernel.LAUNCHES)
+            got, depth = ops.closure_squarings(d0, steps, check_from)
+            depth = int(depth)
+            fused = q <= kernel.CLOSURE_MAX_Q
+            check(kernel.LAUNCHES["minplus_closure"]
+                  - before["minplus_closure"] == int(fused)
+                  and kernel.LAUNCHES["minplus"] - before["minplus"]
+                  == (0 if fused else min(steps, depth + 1)),
+                  f"closure q={q} dispatch")
+            want, want_depth = ref.closure_ref(d0, steps, check_from)
+            what = f"closure q={q} inf {inf_frac} from {check_from}"
+            check(depth == want_depth, f"{what}: depth {depth} vs "
+                  f"{want_depth}")
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  what)
+            errs["minplus_closure" if fused else "minplus"] = max(
+                errs["minplus_closure" if fused else "minplus"],
+                max_abs_err(got, want))
+            depths[f"q{q}_inf{inf_frac}_from{check_from}"] = depth
+    # a warm start from a fixpoint (integral weights): the first checked
+    # squaring returns its input
+    d0 = torch.ceil(rand_dist(torch, gen, (96, 96), 0.9))
+    d0.fill_diagonal_(0.0)
+    fix = ops.closure(d0)
+    got, depth = kernel.closure(fix, ops.closure_steps(96), 3)
+    check(int(depth) == 3 and torch.equal(got, fix),
+          f"warm closure at a fixpoint: depth {int(depth)}")
     kept_share = {}
     for batch, s, v in RELAX_SHAPES:
         lead = () if batch is None else (batch,)
@@ -241,7 +330,10 @@ def phase_minplus_kernels(torch, dev, errs: dict) -> dict:
             kept_share[f"{kind} {lead}x{s}x{v}"] = float(occ.float().mean())
             del a, occ, want, got, got_map
     return {"phase": "kernels_vs_plain_minplus",
-            "minplus_shapes": MINPLUS_SHAPES, "relax_shapes": RELAX_SHAPES,
+            "minplus_shapes": MINPLUS_SHAPES, "kmajor_shapes": KMAJOR_SHAPES,
+            "closure_cases": CLOSURE_CASES,
+            "closure_cap": kernel.CLOSURE_MAX_Q, "closure_depths": depths,
+            "relax_shapes": RELAX_SHAPES,
             "relax_inputs": f"random (90 % / 99 % +inf) and banded (finite "
             f"within {RELAX_BAND} of the diagonal), each without and with "
             "the occupancy map", "relax_occupancy_kept": kept_share,
@@ -249,6 +341,10 @@ def phase_minplus_kernels(torch, dev, errs: dict) -> dict:
 
 
 # -- phase 3: the serving path at n = 4096 -----------------------------------
+
+# the kernels the serving path (deploy, window rebuild, submits) launches
+SERVING_KERNELS = ("label_join", "label_join_lb", "relax", "minplus_closure",
+                   "minplus_kmajor")
 
 def mixed_batch(part, rng, size: int):
     """Seeded mixed-rule batch: cross-district pairs, same-district pairs,
@@ -286,24 +382,36 @@ def launch_counts(*modules) -> dict:
     return {k: v for mod in modules for k, v in mod.LAUNCHES.items()}
 
 
+# the min-plus wrappers whose first calls a path holds, and each one's
+# entry in the error table
+HELD = {"relax": "relax", "minplus": "minplus",
+        "minplus_kmajor": "minplus_kmajor", "closure": "minplus_closure"}
+
+
+def _clone(x):
+    return x.clone() if hasattr(x, "clone") else x
+
+
 @contextlib.contextmanager
 def hold_first_calls(mod, seen: set, held: list):
-    """While active, the first call of ``mod.relax`` / ``mod.minplus``
-    at each pair of operand shapes not in ``seen`` keeps copies of its
-    operands (and ``relax``'s occupancy map) and its result in ``held``,
-    for ``check_held``. Each call still launches the kernel once, as the
-    path does."""
-    real = {name: getattr(mod, name) for name in ("relax", "minplus")}
+    """While active, the first call of each wrapper of ``HELD`` at each
+    set of operand shapes (and, for ``closure``, squaring count and
+    first check) not in ``seen`` keeps copies of its arguments (a
+    ``relax`` call's occupancy map too, or None) and of its result in
+    ``held``, for ``check_held``. Each call still launches its kernel
+    once, as the path does."""
+    real = {name: getattr(mod, name) for name in HELD}
 
     def holding(name):
-        def call(x, y, *occupancy):
-            out = real[name](x, y, *occupancy)
-            key = (name, tuple(x.shape), tuple(y.shape))
+        def call(*args):
+            out = real[name](*args)
+            key = (name,) + tuple(tuple(a.shape) if hasattr(a, "shape")
+                                  else a for a in args)
             if key not in seen:
                 seen.add(key)
-                occ = occupancy[0] if occupancy else None
-                held.append((key, x.clone(), y.clone(), out.clone(),
-                             None if occ is None else occ.clone()))
+                outs = out if isinstance(out, tuple) else (out,)
+                held.append((key, [_clone(a) for a in args],
+                             [_clone(o) for o in outs]))
             return out
         return call
 
@@ -318,31 +426,51 @@ def hold_first_calls(mod, seen: set, held: list):
 
 def check_held(torch, held: list, errs: dict, what: str) -> list:
     """Holds each kept kernel result against the plain version on the
-    same operands, bit for bit — a ``relax`` result both against the
+    same arguments, bit for bit — a ``relax`` result both against the
     plain version without the occupancy map and with the map (the one
     it ran with, or ``relax_occupancy`` of its A where the path ran
-    none); returns the shapes (for ``relax``: whether the path passed a
-    map, and the map's kept share) and empties ``held``."""
+    none), a ``closure`` result and its depth against ``closure_ref``;
+    returns the calls (name, shapes; for ``relax``: whether the path
+    passed a map, and the map's kept share; for ``closure``: squarings,
+    first check and depth) and empties ``held``."""
     from repro_torch.kernels.minplus import ref
-    shapes = []
-    for (name, xs, ys), x, y, out, occ in held:
-        plain = getattr(ref, f"{name}_ref")
-        wants = [plain(x, y)]
-        row = [name, list(xs), list(ys)]
-        if name == "relax":
+    plain = {"relax": ref.relax_ref, "minplus": ref.minplus_ref,
+             "minplus_kmajor": ref.minplus_kmajor_ref,
+             "closure": ref.closure_ref}
+    rows = []
+    for key, args, outs in held:
+        name = key[0]
+        row = [name, list(key[1])]
+        if name == "closure":
+            want, want_depth = plain[name](*args)
+            depth = int(outs[1])
+            check(depth == want_depth, f"{what}: closure {row[1]} depth "
+                  f"{depth} differs from its plain version's {want_depth}")
+            wants = [want]
+            row += [args[1], args[2], depth]
+        elif name == "relax":
+            row.append(list(key[2]))
+            x, y = args[:2]
+            occ = args[2] if len(args) > 2 else None
             occ_ran = occ is not None
             if not occ_ran:
                 occ = ref.relax_occupancy(y)
-            wants.append(plain(x, y, occ))
+            wants = [plain[name](x, y), plain[name](x, y, occ)]
             row += [occ_ran, float(occ.float().mean())]
+        else:
+            row.append(list(key[2]))
+            wants = [plain[name](*args)]
         for want in wants:
-            check(torch.equal(out, want), f"{what}: {name} {list(xs)} x "
-                  f"{list(ys)} differs from its plain version")
-            errs[name] = max(errs[name], max_abs_err(out, want))
-        shapes.append(row)
+            check(torch.equal(outs[0].view(torch.int32),
+                              want.view(torch.int32)),
+                  f"{what}: {name} {row[1:3]} differs from its plain "
+                  "version")
+            errs[HELD[name]] = max(errs[HELD[name]],
+                                   max_abs_err(outs[0], want))
+        rows.append(row)
         del wants
     held.clear()
-    return shapes
+    return rows
 
 
 def phase_serving(torch, dev, launches: dict,
@@ -368,6 +496,9 @@ def phase_serving(torch, dev, launches: dict,
         system = EdgeSystem.deploy(g, part, builder="torch", device=dev)
     deploy_s = time.perf_counter() - t0
     build_held = check_held(torch, held, errs, "deploy build")
+    check({"relax", "closure", "minplus_kmajor"} <= {h[0] for h in build_held},
+          f"the deploy's build held no sweep, closure or stage C: "
+          f"{build_held}")
     center_build_s = system.center.last_build_seconds
     build_timings = dict(system.center.incremental_builder().timings)
     check(np.array_equal(system.center.border_labels.table,
@@ -456,8 +587,12 @@ def phase_serving(torch, dev, launches: dict,
           and np.array_equal(after16.distances, now.distances),
           "post-window steady state vs install_now")
     spots += spot_check_dijkstra(g2, ss, ts, after32.distances, dijkstra, 6)
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in SERVING_KERNELS),
           f"main path missed a kernel: {launches}")
+    # stage B: one fused closure launch per build (deploy and window), no
+    # tiled squaring (q = 93 <= the cap)
+    check(launches["minplus_closure"] == 2 and launches["minplus"] == 0,
+          f"stage B did not run as one launch per build: {launches}")
 
     shapes = {
         "engine_f32": (eng32.table, *eng32.row_ids(ss, ts), None),
@@ -527,8 +662,10 @@ def phase_center(torch, dev, errs: dict
         staged_s = center.rebuild()
     build_launches = launch_counts(mp_kernel)
     build_held = check_held(torch, held, errs, "center build")
-    check(any(h[0] == "relax" for h in build_held),
-          f"no stage-A sweep held: {build_held}")
+    check(any(h[0] == "relax" for h in build_held)
+          and any(h[0] == "closure" for h in build_held)
+          and any(h[0] == "minplus_kmajor" for h in build_held),
+          f"no stage-A sweep, closure or stage-C product held: {build_held}")
     state = center.incremental_builder().state
     steps = dict(center.incremental_builder().timings)
     bl = center.border_labels
@@ -538,8 +675,11 @@ def phase_center(torch, dev, errs: dict
     check(np.array_equal(state.intra, host_stage_a(g, part, state.packed)),
           "card stage A differs from the host Dijkstra stage A")
     host_stage_a_s = time.perf_counter() - t0
-    check(all(v > 0 for v in build_launches.values()),
-          f"the staged build missed a kernel: {build_launches}")
+    check(build_launches["relax"] > 0
+          and build_launches["minplus_closure"] == 1
+          and build_launches["minplus_kmajor"] == 1
+          and build_launches["minplus"] == 0,
+          f"the staged build's launches: {build_launches}")
 
     spec = QuantSpec.fit(bl.table)
     check(spec.lossless, "B does not quantize losslessly")
@@ -591,6 +731,59 @@ def phase_center(torch, dev, errs: dict
            "join_launches": dict(kernel.LAUNCHES), "ok": True}
     return out, shapes, state, {"inc": center.incremental_builder(),
                                 "graph": g, "partition": part}
+
+
+# -- phase 4b: stage B on each side of the fused closure's cap ----------------
+
+# synthetic continents whose overlays sit at the cap (q = 160: the fused
+# closure's largest) and above it (q = 239: the tiled kernel's squarings)
+AT_CAP = dict(grid=(5, 5), district=(12, 12), border_links=2, seed=7)
+ABOVE_CAP = dict(grid=(6, 6), district=(10, 10), border_links=2, seed=7)
+
+
+def phase_closure_cap(torch, dev, errs: dict, launches: dict
+                      ) -> tuple[dict, dict]:
+    """B built on the card by the staged builder at q = 160 (one fused
+    closure launch) and q = 239 (⌈log2 q⌉ tiled squarings), each held
+    against the host reference; the second build is the tiled kernel's
+    path: its launches go into ``launches["minplus"]``."""
+    from repro_torch.core import build_border_labels_reference
+    from repro_torch.edge import ComputingCenter
+    from repro_torch.ingest import synthetic_continent
+    from repro_torch.kernels.minplus import kernel as mp_kernel, ops
+
+    rows, states = [], {}
+    for tag, cfg in (("at_cap", AT_CAP), ("above_cap", ABOVE_CAP)):
+        csr, part = synthetic_continent(**cfg)
+        g = csr.to_graph()
+        center = ComputingCenter(g, part, builder="torch", device=dev)
+        seen, held = set(), []
+        reset_launches(mp_kernel)
+        with hold_first_calls(mp_kernel, seen, held):
+            build_s = center.rebuild()
+        counts = launch_counts(mp_kernel)
+        held_rows = check_held(torch, held, errs, f"build {tag}")
+        q = len(center.border_labels.border_ids)
+        check(np.array_equal(center.border_labels.table,
+                             build_border_labels_reference(g, part).table),
+              f"card-built B differs from the host reference at q = {q}")
+        fused = q <= mp_kernel.CLOSURE_MAX_Q
+        check(fused == (tag == "at_cap"), f"{tag}: q = {q}")
+        check(counts["minplus_closure"] == int(fused)
+              and counts["minplus"] == (0 if fused
+                                        else ops.closure_steps(q))
+              and counts["minplus_kmajor"] == 1 and counts["relax"] > 0,
+              f"{tag} build's launches: {counts}")
+        if not fused:
+            launches["minplus"] = counts["minplus"]
+        states[tag] = center.incremental_builder().state
+        rows.append({"build": tag, "n": int(g.num_vertices),
+                     "districts": int(part.num_districts), "q": q,
+                     "build_s": build_s, "launches": counts,
+                     "held_against_plain": held_rows,
+                     "b_equals_host_reference": True})
+    return {"phase": "closure_cap", "cap": mp_kernel.CLOSURE_MAX_Q,
+            "builds": rows, "ok": True}, states
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -645,6 +838,41 @@ def cold_inputs(args: tuple, touched: int) -> tuple[list, bool]:
     return copies, (k - 1) * touched >= 2 * L2_BYTES
 
 
+def join_lanes_ms(torch, kernel, ref, table, rs, rt, quant, with_lb: bool,
+                  inputs) -> dict:
+    """The join kernel at every lane count a query could take (1 to 32),
+    through the C entry's lanes override, each held against the plain
+    version once: what the entry's own pick of lanes is worth."""
+    fn = kernel._lib().repro_label_join
+    q, w = rs.shape[0], table.shape[1]
+    code, sentinel, scale = (0, 0, 1.0) if quant is None else (
+        1 if quant[0] == 0xFFFF else 2, quant[0], quant[1])
+
+    def run(lanes):
+        def call(tab, a, b):
+            out = torch.empty(q, device=tab.device)
+            lb = torch.empty(q, device=tab.device) if with_lb else None
+            err = fn(code, int(with_lb), lanes, tab.data_ptr(),
+                     a.data_ptr(), tab.shape[0], tab.data_ptr(), b.data_ptr(),
+                     tab.shape[0], q, w, sentinel, scale, out.data_ptr(),
+                     0 if lb is None else lb.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"join with {lanes} lanes: CUDA error {err}")
+            return out if lb is None else (out, lb)
+        return call
+
+    want = ref.gather_join_ref(table, rs, table, rt, quant=quant,
+                               with_lb=with_lb)
+    out = {}
+    for lanes in (1, 2, 4, 8, 16, 32):
+        got = run(lanes)(table, rs, rt)
+        check(all(torch.equal(x, y) for x, y in zip(
+            got if with_lb else (got,), want if with_lb else (want,))),
+            f"join with {lanes} lanes differs from the plain version")
+        out[lanes] = device_ms(torch, run(lanes), inputs)
+    return out
+
+
 def time_shape(torch, kernel, ref, name, table, ss, ts, quant) -> dict:
     with_lb = name.startswith("lb")
     ss = np.ascontiguousarray(ss, dtype=np.int64)
@@ -676,6 +904,9 @@ def time_shape(torch, kernel, ref, name, table, ss, ts, quant) -> dict:
     warm_ms = device_ms(torch, launch, warm)
     call_ms = event_ms(torch, lambda: launch(*warm[0]), 200)
     kernel.LAUNCHES.update(before)      # timing launches are not the path's
+    vec, lanes = kernel.join_layout(table, table, q)
+    lanes_ms = join_lanes_ms(torch, kernel, ref, table, rs, rt, quant,
+                             with_lb, cold)
     plain_ms = device_ms(torch, plain, cold)
     library_ms = None
     if quant is None and not with_lb:
@@ -688,6 +919,7 @@ def time_shape(torch, kernel, ref, name, table, ss, ts, quant) -> dict:
             else "label_join", "q": q, "w": w, "itemsize": itemsize,
             "distinct_rows": rows, "bytes": nbytes, "ops": ops,
             "copies": copies, "rows_from_hbm": from_hbm,
+            "vec_bytes": vec, "lanes": lanes, "lanes_ms": lanes_ms,
             "kernel_ms": kernel_ms, "l2_warm_ms": warm_ms,
             "wrapper_call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -695,29 +927,43 @@ def time_shape(torch, kernel, ref, name, table, ss, ts, quant) -> dict:
             "share_of_bound": bound_ms / kernel_ms if from_hbm else None}
 
 
-def builder_shapes(torch, tag: str, st) -> dict:
+def builder_shapes(torch, tag: str, st, stages: str = "abc") -> dict:
     """The staged builder's kernel inputs at one size, rebuilt on the
     card from its host ``BuildState``: stage A's sweep (the converged
-    distances and the dense adjacency), stage B's squaring and stage
-    C's product."""
+    distances and the dense adjacency), stage B's closure (its input:
+    the overlay with a 0 diagonal) and stage C's k-major product; only
+    the ``stages`` named."""
     slot = st.packed.border_slot
     crows = np.where((slot >= 0)[..., None],
                      st.closure[np.clip(slot, 0, None)], np.inf)
+    q = st.overlay.shape[0]
+    d0 = np.minimum(st.overlay, np.where(np.eye(q, dtype=bool), 0.0, np.inf))
     up = [torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).cuda()
-          for x in (st.intra, st.packed.adj, st.closure,
-                    st.intra.transpose(0, 2, 1), crows)]
-    intra, adj, clo, intra_t, crows = up
-    shapes = {f"stage_a_{tag}": ("relax", intra, adj),
-              f"closure_{tag}": ("minplus", clo, clo),
-              f"stage_c_{tag}": ("minplus", intra_t, crows)}
-    if adj.shape[0] > 1:
+          for x in (st.intra, st.packed.adj, d0, crows)]
+    intra, adj, d0, crows = up
+    shapes = {f"stage_a_{tag}": ("relax", (intra, adj)),
+              f"closure_{tag}": ("minplus_closure", (d0,)),
+              f"stage_c_{tag}": ("minplus_kmajor", (intra, crows))}
+    shapes = {k: v for k, v in shapes.items()
+              if {"relax": "a", "minplus_closure": "b",
+                  "minplus_kmajor": "c"}[v[0]] in stages}
+    if "a" in stages and adj.shape[0] > 1:
         # a one-district repair's sweep: the dirty district alone
-        shapes[f"stage_a_{tag}_one_district"] = ("relax", intra[:1].clone(),
-                                                 adj[:1].clone())
+        shapes[f"stage_a_{tag}_one_district"] = (
+            "relax", (intra[:1].clone(), adj[:1].clone()))
     return shapes
 
 
-def time_builder_shape(torch, name: str, kernel_name: str, x, y,
+def closure_input_shape(torch, tag: str, st) -> dict:
+    """One squaring of the tiled kernel at the closure input of a build
+    above the fused kernel's cap."""
+    q = st.overlay.shape[0]
+    d0 = np.minimum(st.overlay, np.where(np.eye(q, dtype=bool), 0.0, np.inf))
+    d0 = torch.from_numpy(np.ascontiguousarray(d0, np.float32)).cuda()
+    return {f"squaring_{tag}": ("minplus", (d0, d0))}
+
+
+def time_builder_shape(torch, name: str, kernel_name: str, args: tuple,
                        peak: dict) -> dict:
     """One builder kernel at one shape: its time with inputs from HBM,
     its plain version's, and its bounds. ``relax`` is timed as
@@ -727,22 +973,46 @@ def time_builder_shape(torch, name: str, kernel_name: str, x, y,
     ``occupancy_ms`` is the cost of building the map, and
     ``map_pays_after_sweeps`` how many sweeps repay it. Its bytes bound
     counts what these inputs need (D read, D' written, 4 bytes per finite
-    entry of A), its dense bound A whole (the bound of earlier rows)."""
-    from repro_torch.kernels.minplus import kernel, ref
+    entry of A), its dense bound A whole (the bound of earlier rows).
+    ``minplus_closure`` is the whole closure at the fixed schedule (one
+    launch), beside the tiled kernel's loop of as many squarings
+    (``loop_ms``) and one of them (``squaring_ms``); ``minplus_kmajor``
+    is stage C's product beside the tiled kernel on a transposed copy
+    made beforehand (``generic_ms``) and with the copy (the earlier
+    path, ``generic_with_copy_ms``)."""
+    from repro_torch.kernels.minplus import kernel, ops, ref
     from repro_torch.kernels.sssp_relax import ops as sssp_ops
     relax = kernel_name == "relax"
-    fn = getattr(kernel, kernel_name)
-    plain = ref.relax_ref if relax else ref.minplus_ref
-    before = dict(kernel.LAUNCHES)
-    out = fn(x, y)
-    batch = x.shape[0] if x.dim() == 3 else 1
-    terms = batch * x.shape[-2] * x.shape[-1] * y.shape[-1]
-    in_bytes = (x.numel() + y.numel()) * 4
-    dense_bytes = in_bytes + out.numel() * 4
+    x = args[0]
     row = {"shape": name, "kernel": kernel_name,
-           "dims": [list(x.shape), list(y.shape)], "terms": terms}
-    args = (x, y)
+           "dims": [list(a.shape) for a in args]}
+    before = dict(kernel.LAUNCHES)
+    if kernel_name == "minplus_closure":
+        q = x.shape[0]
+        steps = ops.closure_steps(q)
+
+        def fn(d):
+            return kernel.closure(d, steps, steps)[0]
+
+        def plain(d):
+            return ref.closure_ref(d, steps, steps)[0]
+
+        terms = steps * q ** 3
+        row["steps"] = steps
+    elif kernel_name == "minplus_kmajor":
+        fn, plain = kernel.minplus_kmajor, ref.minplus_kmajor_ref
+        terms = x.numel() * args[1].shape[-1]
+    else:
+        fn = getattr(kernel, kernel_name)
+        plain = ref.relax_ref if relax else ref.minplus_ref
+        batch = x.shape[0] if x.dim() == 3 else 1
+        terms = batch * x.shape[-2] * x.shape[-1] * args[1].shape[-1]
+    out = fn(*args)
+    in_bytes = sum(a.numel() for a in args) * 4
+    dense_bytes = in_bytes + out.numel() * 4
+    row["terms"] = terms
     if relax:
+        y = args[1]
         occ = kernel.relax_occupancy(y)
         uses_map = sssp_ops.occupancy_map(y) is not None
         args = (x, y, occ)
@@ -776,9 +1046,39 @@ def time_builder_shape(torch, name: str, kernel_name: str, x, y,
             row["occupancy_ms"] / saved if saved > 0 else None
         if not uses_map:
             kernel_ms = row["dense_ms"]
+    elif kernel_name == "minplus_closure":
+        def loop(d):
+            for _ in range(steps):
+                d = kernel.minplus(d, d)
+            return d
+        row["loop_ms"] = device_ms(torch, loop, inputs, calls, replays)
+        # where the launch's time goes: no squaring (load and store), one
+        # squaring
+        row["no_squaring_ms"] = device_ms(
+            torch, lambda d: kernel.closure(d, 0, 0)[0], inputs, calls,
+            replays)
+        row["one_squaring_ms"] = device_ms(
+            torch, lambda d: kernel.closure(d, 1, 1)[0], inputs, calls,
+            replays)
+        row["squaring_ms"] = device_ms(torch, lambda d: kernel.minplus(d, d),
+                                       inputs, calls, replays)
+        check(torch.equal(loop(x), out), f"{name}: the fused closure "
+              "differs from the tiled kernel's squarings")
+    elif kernel_name == "minplus_kmajor":
+        copied = [(a.transpose(-1, -2).contiguous(), b) for a, b in inputs]
+        row["generic_ms"] = device_ms(torch, kernel.minplus, copied, calls,
+                                      replays)
+        row["generic_with_copy_ms"] = device_ms(
+            torch, lambda a, b: kernel.minplus(a.transpose(-1, -2)
+                                               .contiguous(), b),
+            inputs, calls, replays)
+        check(torch.equal(kernel.minplus(*copied[0]), out),
+              f"{name}: the k-major product differs from the tiled kernel")
+        del copied
     kernel.LAUNCHES.update(before)      # timing launches are not the path's
-    plain_ms = device_ms(torch, lambda x, y, *o: plain(x, y), inputs,
-                         min(calls, 4), min(replays, 3))
+    plain_ms = device_ms(torch, lambda *a: plain(*a[:2]) if relax
+                         else plain(*a), inputs, min(calls, 4),
+                         min(replays, 3))
     copies = len(inputs)
     del inputs
     bound_ms = max(bytes_ms, ops_ms)
@@ -798,11 +1098,21 @@ def time_builder_shape(torch, name: str, kernel_name: str, x, y,
     return row
 
 
-def phase_builder_times(torch, states: dict, peak: dict) -> dict:
-    rows = []
+def phase_builder_times(torch, states: dict, at_cap: dict, above_cap: dict,
+                        peak: dict) -> dict:
+    shapes = {}
     for tag, st in states.items():
-        for name, (kname, x, y) in builder_shapes(torch, tag, st).items():
-            rows.append(time_builder_shape(torch, name, kname, x, y, peak))
+        shapes.update(builder_shapes(torch, tag, st))
+    for tag, st in at_cap.items():
+        shapes.update(builder_shapes(torch, tag, st, stages="b"))
+    for tag, st in above_cap.items():
+        shapes.update(closure_input_shape(torch, tag, st))
+    # a large-q squaring of the tiled kernel: (1024, 1024), 90 % +inf
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    big = rand_dist(torch, gen, (1024, 1024), 0.9)
+    shapes["squaring_q1024"] = ("minplus", (big, big))
+    rows = [time_builder_shape(torch, name, kname, args, peak)
+            for name, (kname, args) in shapes.items()]
     return {"phase": "builder_times", "timer": "device ms per launch from "
             "CUDA-graph replays timed with CUDA events; below 2x the L2 the "
             "calls cycle through copies of the inputs (inputs_from_hbm), "
@@ -810,9 +1120,15 @@ def phase_builder_times(torch, states: dict, peak: dict) -> dict:
             "multi_source calls it (kernel_ms), with the occupancy map "
             "(mapped_ms) and without it (dense_ms); occupancy_ms: "
             "relax_occupancy, CUDA events around 10 back-to-back calls "
-            "(device and host time), once per multi_source call",
+            "(device and host time), once per multi_source call; "
+            "minplus_closure: the whole closure (steps squarings, one "
+            "launch), loop_ms: the same squarings as tiled launches, "
+            "squaring_ms: one of them; minplus_kmajor: stage C, "
+            "generic_ms: the tiled kernel on a transposed copy, "
+            "generic_with_copy_ms: the copy and the tiled kernel",
             "bound": "max(bytes at 3.35 TB/s, terms / the (min, +) issue "
-            "ceiling of phase minplus_peak); relax: bytes = D + D' + "
+            "ceiling of phase minplus_peak); closure: terms = steps x q^3, "
+            "bytes = D read + written once; relax: bytes = D + D' + "
             "4 x finite entries of A, terms = rows x finite entries of A "
             "(dense_bytes_ms: A whole, as in earlier rows); "
             "ops_ms_2_instructions: 2 instructions per term on SMs x 128 "
@@ -1200,7 +1516,8 @@ def phase_updates_large(torch, dev, ctx: dict, errs: dict) -> dict:
                            intensity, g_new))
         cur = g_new
     rows = []
-    total = {"relax": 0, "minplus": 0}
+    total = {"relax": 0, "minplus": 0, "minplus_closure": 0,
+             "minplus_kmajor": 0}
     seen, held, held_shapes = set(), [], []
     for kind, name, intensity, g_new in epochs:
         reset_launches(mp_kernel)
@@ -1254,11 +1571,18 @@ def phase_updates_large(torch, dev, ctx: dict, errs: dict) -> dict:
           "no scoped structural repair")
     check(any(not r["incremental"] for r in rows
               if r["kind"] == "structural"), "no structural full rung")
-    check(total["relax"] > 0 and total["minplus"] > 0,
-          f"the repairs missed a kernel: {total}")
+    check(total["relax"] > 0 and total["minplus_closure"] > 0
+          and total["minplus_kmajor"] > 0 and total["minplus"] == 0,
+          f"the repairs' launches: {total}")
     check(any(s[0] == "relax" and 0 < s[1][0] < m for s in held_shapes)
-          and any(s[0] == "minplus" for s in held_shapes),
-          f"no subset sweep or min-plus product held: {held_shapes}")
+          and any(s[0] == "closure" for s in held_shapes)
+          and any(s[0] == "minplus_kmajor" for s in held_shapes),
+          f"no subset sweep, warm closure or stage-C product held: "
+          f"{held_shapes}")
+    # the warm closure: one launch and one host copy of its depth per
+    # restarted closure, at most one a repair
+    check(all(r["launches"]["minplus_closure"] <= 1 for r in rows),
+          "a repair launched the closure more than once")
     return {"phase": "updates_n102400", "n": int(g.num_vertices),
             "districts": m, "incident_seed": seed, "epochs": rows,
             "launches": total, "held_against_plain": "the first relax / "
@@ -1329,7 +1653,8 @@ def phase_updates_small(torch, dev, state: dict, errs: dict) -> dict:
     got = system.service().submit(ss, ts, client_districts=client)
     steps["submit_s"] = time.perf_counter() - t0
     launches = launch_counts(mp_kernel, lj_kernel)
-    check(all(launches[k] > 0 for k in ("relax", "minplus", "label_join")),
+    check(all(launches[k] > 0 for k in ("relax", "minplus_kmajor",
+                                        "label_join")),
           f"the update path missed a kernel: {launches}")
     check(any(s[0] == "relax" for s in held_shapes),
           f"no subset sweep held: {held_shapes}")
@@ -1824,15 +2149,22 @@ def phase_flash_times(torch, dev, logs: dict) -> dict:
 
 
 # each kernel at the shape its path's main run gives it (phase 3 for the
-# distance kernels, phase 7's prefill for flash attention, one district
-# of n = 102 400 for Floyd–Warshall), and the TPU kernel it replaces
+# distance kernels, phase 4b's build above the fused closure's cap for
+# the tiled min-plus kernel, phase 7's prefill for flash attention, one
+# district of n = 102 400 for Floyd–Warshall), and the TPU kernel it
+# replaces (the tiled, fused-closure and k-major kernels all replace
+# minplus_pallas)
 KERNELS = {
     "label_join": ("engine_f32", "label_join/csrc/label_join.cu",
                    "src/repro/kernels/label_join/kernel.py:63"),
     "label_join_lb": ("lb_window", "label_join/csrc/label_join.cu",
                       "src/repro/kernels/label_join/kernel.py:86"),
-    "minplus": ("closure_n4096", "minplus/csrc/minplus.cu",
+    "minplus": ("squaring_above_cap", "minplus/csrc/minplus.cu",
                 "src/repro/kernels/minplus/kernel.py:83"),
+    "minplus_closure": ("closure_n4096", "minplus/csrc/minplus.cu",
+                        "src/repro/kernels/minplus/kernel.py:83"),
+    "minplus_kmajor": ("stage_c_n4096", "minplus/csrc/minplus.cu",
+                       "src/repro/kernels/minplus/kernel.py:83"),
     "relax": ("stage_a_n4096", "minplus/csrc/minplus.cu",
               "src/repro/kernels/minplus/kernel.py:108"),
     "flash_attention": ("flash_b2_s4096",
@@ -1849,7 +2181,9 @@ KERNELS = {
 # instructions a term and at the measured rate
 KERNEL_EXTRAS = ("dense_bytes_ms", "dense_ms", "mapped_ms", "occupancy_kept",
                  "occupancy_ms", "multi_source_uses_map", "phase_ms",
-                 "ops_ms_2_instructions", "ops_ms_measured_rate")
+                 "ops_ms_2_instructions", "ops_ms_measured_rate", "steps",
+                 "loop_ms", "squaring_ms", "no_squaring_ms",
+                 "one_squaring_ms", "generic_ms", "generic_with_copy_ms")
 
 
 def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
@@ -1915,12 +2249,17 @@ def main() -> int:
     center, center_shapes, large_state, repair_ctx = phase_center(
         torch, dev, errs)
     emit(center)
+    cap, cap_states = phase_closure_cap(torch, dev, errs, launches)
+    emit(cap)
     shapes = {**state["shapes"], **center_shapes}
     times = phase_times(torch, state, shapes)
     emit(times)
     builder_times = phase_builder_times(
-        torch, {"n4096": state["build_state"], "n102400": large_state}, peak)
+        torch, {"n4096": state["build_state"], "n102400": large_state},
+        {"at_cap": cap_states["at_cap"]},
+        {"above_cap": cap_states["above_cap"]}, peak)
     emit(builder_times)
+    del cap_states
     fw = phase_fw_kernels(torch, dev, errs, launches, large_state, peak)
     emit(fw)
     del shapes, center_shapes, large_state

@@ -9,9 +9,12 @@ tensors:
            solved by fused Bellman-Ford sweeps over all districts
            (``kernels/sssp_relax`` → the ``relax`` kernel), stopping at
            the first sweep that returns its input bit for bit;
-  stage B  border-overlay closure by min-plus squaring (the
-           ``minplus`` kernel);
-  stage C  one batched min-plus product over the districts → the full
+  stage B  border-overlay closure by min-plus squaring (on the card
+           one launch of the fused closure kernel up to q = 160, the
+           tiled ``minplus`` kernel's squarings above);
+  stage C  one batched min-plus product over the districts, stage A's
+           (m, bmax, kmax) distances read k-major (the
+           ``minplus_kmajor`` kernel, no transpose copy) → the full
            B' table, scattered into (n, q) by an order-free ``amin``;
   stage D  rank-ordered vectorized prune (a loop over hub slots in
            plain torch ops) — +inf doubles as the "not kept" mask.
@@ -121,7 +124,7 @@ def stage_c_full_table(intra: torch.Tensor, border_slot: torch.Tensor,
     crows = torch.where(valid[..., None],
                         closure_rows[border_slot.clamp(min=0)],
                         float("inf"))                     # (m, bmax, q)
-    tables = mp.minplus(intra.transpose(1, 2), crows)     # (m, kmax, q)
+    tables = mp.minplus_kmajor(intra, crows)              # (m, kmax, q)
     flat_ids = vertex_ids.reshape(-1).long()
     keep = flat_ids >= 0
     rows = flat_ids[keep][:, None].expand(-1, q)

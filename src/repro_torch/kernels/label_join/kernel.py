@@ -10,10 +10,12 @@ with the XLA gathers in front of them.
 
 On a CUDA tensor the wrapper launches the kernel (building it on first
 use) or raises; on a CPU tensor it runs the plain version of ``ref.py``.
-There is no other path. The kernel takes float32 tables and 16-bit
-codes; the plain version also takes bfloat16 and float16 tables, as the
-JAX package's ``join`` / ``join_with_bound`` do. ``LAUNCHES`` counts
-kernel launches per kernel.
+There is no other path. The C entry picks the kernel's vector width
+and lanes per query from the row pitch, the tables' base alignment and
+the batch; ``join_layout`` reports its pick. The kernel takes float32
+tables and 16-bit codes; the plain version also takes bfloat16 and
+float16 tables, as the JAX package's ``join`` / ``join_with_bound``
+do. ``LAUNCHES`` counts kernel launches per kernel.
 """
 from __future__ import annotations
 
@@ -41,11 +43,33 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     fn = lib.repro_label_join
     if fn.argtypes is None:
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, i64, p, p, i64,
-                       i64, i64, ctypes.c_int, ctypes.c_float, p, p, p]
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [i32, i32, i32, p, p, i64, p, p, i64,
+                       i64, i64, i32, ctypes.c_float, p, p, p]
         fn.restype = ctypes.c_int
+        lib.repro_label_join_layout.argtypes = [i32, p, p, i64, i64, i32,
+                                                i32, p]
+        lib.repro_label_join_layout.restype = ctypes.c_int
     return lib
+
+
+def join_layout(s_table: torch.Tensor, t_table: torch.Tensor, q: int,
+                lanes: int = 0, sms: int = 0) -> tuple[int, int]:
+    """The (vector bytes, lanes a query) the kernel takes for ``q``
+    queries over two contiguous CUDA tables of one width, as its C entry
+    picks them: ``lanes`` if nonzero, on ``sms`` SMs (0: the tables'
+    card's)."""
+    code = _DTYPE_FLOAT32 if s_table.dtype == torch.float32 \
+        else _DTYPE_INT16
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(s_table.device):
+        err = _lib().repro_label_join_layout(
+            code, s_table.data_ptr(), t_table.data_ptr(), s_table.shape[1],
+            q, lanes, sms, out)
+    if err != 0:
+        raise ValueError(f"join_layout: no layout for {lanes} lanes "
+                         f"(CUDA error {err})")
+    return out[0], out[1]
 
 
 def _check(s_table, rs, t_table, rt, quant, with_lb) -> None:
@@ -119,7 +143,7 @@ def gather_join(s_table: torch.Tensor, rs: torch.Tensor,
             code = _SENTINELS[sentinel]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(code, int(with_lb),
+            err = fn(code, int(with_lb), 0,
                      storage16(s_table).data_ptr(), rs.data_ptr(),
                      s_table.shape[0],
                      storage16(t_table).data_ptr(), rt.data_ptr(),

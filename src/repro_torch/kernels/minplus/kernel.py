@@ -1,12 +1,19 @@
 """The min-plus (tropical) products on the card.
 
-``minplus`` and ``relax`` wrap the two entry points of
-``csrc/minplus.cu``, which replace the JAX package's Pallas kernels
-``minplus_pallas`` and ``relax_pallas``
-(``src/repro/kernels/minplus/kernel.py``). Both take an optional
+The wrappers of ``csrc/minplus.cu``, whose kernels replace the JAX
+package's Pallas kernels ``minplus_pallas`` and ``relax_pallas``
+(``src/repro/kernels/minplus/kernel.py``). They take an optional
 leading batch (district) axis:
 
 * ``minplus(a, b)``: C = A ⊗ B, a (..., m, k), b (..., k, n);
+* ``minplus_kmajor(a_t, b)``: the same product with A given k-major,
+  a_t (..., k, m) — stage C's operand as stage A leaves it, so no
+  transpose is copied. k ≤ ``KMAJOR_MAX_K`` runs the k-major kernel;
+  a deeper k runs ``minplus`` on the transposed copy;
+* ``closure(d, steps, check_from)``: up to ``steps`` squarings
+  D ← D ⊗ D of one (q, q) matrix in one launch (q ≤ ``CLOSURE_MAX_Q``),
+  stopping from squaring ``check_from`` on at the first that returns its
+  input; returns D and that squaring's index (``ref.squarings``'s rule);
 * ``relax(d, a, occupancy=None)``: D' = min(D, D ⊗ A), d (..., s, v),
   a (..., v, v), one fused Bellman-Ford sweep, written out of place.
   ``occupancy = relax_occupancy(a)`` marks which tiles of A (``KTILE``
@@ -29,7 +36,8 @@ from pathlib import Path
 import torch
 
 from .. import build
-from .ref import KTILE, STRIP, minplus_ref, relax_occupancy, relax_ref
+from .ref import (KTILE, STRIP, closure_ref, minplus_kmajor_ref, minplus_ref,
+                  relax_occupancy, relax_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "minplus.cu"
 # a measuring kernel, not a port of a TPU kernel: the card's sustained
@@ -38,9 +46,17 @@ PEAK_SOURCE = SOURCE.with_name("minplus_peak.cu")
 
 # kernel launches since the last reset, per kernel (plain-version calls
 # on the CPU are not launches)
-LAUNCHES = {"minplus": 0, "relax": 0}
+LAUNCHES = {"minplus": 0, "minplus_closure": 0, "minplus_kmajor": 0,
+            "relax": 0}
 
 _MAX_BATCH = 65535                      # gridDim.z
+# the fused closure holds two (q, q) matrices in each block's shared
+# memory (kClosureMaxQ in csrc/minplus.cu, whose entry refuses a larger
+# q), at most 32 squarings (kClosureMaxSteps)
+CLOSURE_MAX_Q = 160
+CLOSURE_MAX_STEPS = 32
+# the k-major kernel keeps k x 4 B values in registers
+KMAJOR_MAX_K = 32
 
 
 def _lib() -> ctypes.CDLL:
@@ -51,6 +67,11 @@ def _lib() -> ctypes.CDLL:
         lib.repro_minplus.restype = ctypes.c_int
         lib.repro_relax.argtypes = [p, p, p, p, i64, i64, i64, p]
         lib.repro_relax.restype = ctypes.c_int
+        lib.repro_minplus_kmajor.argtypes = [p, p, p, i64, i64, i64, i64, p]
+        lib.repro_minplus_kmajor.restype = ctypes.c_int
+        i32 = ctypes.c_int
+        lib.repro_minplus_closure.argtypes = [p, p, i32, i32, i32, p, p]
+        lib.repro_minplus_closure.restype = ctypes.c_int
     return lib
 
 
@@ -107,6 +128,61 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _launch("minplus", fn, out, a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), batch, m, k, n)
     return out
+
+
+def minplus_kmajor(a_t: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[..., i, j] = min_k A_t[..., k, i] + B[..., k, j], float32: the
+    product of ``a_t.transpose(-1, -2)`` and ``b``, reading A k-major."""
+    _check("minplus_kmajor", a_t, b)
+    if a_t.shape[-2] != b.shape[-2]:
+        raise ValueError(f"minplus_kmajor: depths differ, {tuple(a_t.shape)} "
+                         f"and {tuple(b.shape)}")
+    if a_t.device.type == "cpu":
+        return minplus_kmajor_ref(a_t, b)
+    _cuda_operands("minplus_kmajor", a_t, b)
+    k, m = a_t.shape[-2], a_t.shape[-1]
+    if k > KMAJOR_MAX_K:
+        return minplus(a_t.transpose(-1, -2).contiguous(), b)
+    fn = _lib().repro_minplus_kmajor
+    n = b.shape[-1]
+    out = torch.empty((*a_t.shape[:-2], m, n), dtype=torch.float32,
+                      device=a_t.device)
+    if out.numel():
+        batch = a_t.shape[0] if a_t.dim() == 3 else 1
+        _launch("minplus_kmajor", fn, out, a_t.data_ptr(), b.data_ptr(),
+                out.data_ptr(), batch, m, k, n)
+    return out
+
+
+def closure(d: torch.Tensor, steps: int, check_from: int
+            ) -> tuple[torch.Tensor, torch.Tensor | int]:
+    """Up to ``steps`` squarings D ← D ⊗ D of a (q, q) float32 ``d``,
+    stopping from squaring ``check_from`` on at the first that returns
+    its input. Returns the result (a new tensor) and the index of that
+    squaring, else ``steps`` (``ref.squarings``): on the card a 0-d
+    int32 tensor, which ``int()`` reads with one host copy; on the CPU
+    an int. One kernel launch for q ≤ ``CLOSURE_MAX_Q``."""
+    if d.dtype != torch.float32 or d.dim() != 2 \
+            or d.shape[0] != d.shape[1] or d.shape[0] == 0:
+        raise ValueError("closure: d must be one non-empty square float32 "
+                         f"matrix, got {d.dtype} {tuple(d.shape)}")
+    if not 0 <= steps <= CLOSURE_MAX_STEPS or check_from < 0:
+        raise ValueError(f"closure: steps must be in [0, {CLOSURE_MAX_STEPS}]"
+                         f" and check_from >= 0, got {steps}, {check_from}")
+    if d.device.type == "cpu":
+        return closure_ref(d, steps, check_from)
+    _cuda_operands("closure", d)
+    q = d.shape[0]
+    if q > CLOSURE_MAX_Q:
+        raise ValueError(f"closure: q = {q} exceeds {CLOSURE_MAX_Q} (the "
+                         "kernel's cap); ops.closure_squarings runs minplus "
+                         "there")
+    fn = _lib().repro_minplus_closure
+    out = torch.empty_like(d)
+    depth = torch.empty((), dtype=torch.int32, device=d.device)
+    _launch("minplus_closure", fn, out, d.data_ptr(), out.data_ptr(), q,
+            steps, min(check_from, steps), depth.data_ptr())
+    return out, depth
 
 
 def relax(d: torch.Tensor, a: torch.Tensor,

@@ -5,10 +5,12 @@ optional leading batch (district) axis. The contraction is taken in
 chunks of k, so the temporary is O(batch·m·chunk·n) and never the full
 O(batch·m·k·n) broadcast: ``min`` is exact and order-free and every
 term is one float32 add, so chunking changes no bit. The CPU runs them
-(``kernel.minplus`` / ``kernel.relax`` take them for tensors on the
-CPU), and the card's checks hold the CUDA kernels against them.
+(the wrappers of ``kernel.py`` take them for tensors on the CPU), and
+the card's checks hold the CUDA kernels against them.
 """
 from __future__ import annotations
+
+from collections.abc import Callable
 
 import torch
 
@@ -45,6 +47,36 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     shape = (*a.shape[:-1], b.shape[-1])
     acc = torch.full(shape, float("inf"), dtype=a.dtype, device=a.device)
     return _min_plus_into(acc, a, b)
+
+
+def minplus_kmajor_ref(a_t: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[..., i, j] = min_k A_t[..., k, i] + B[..., k, j]: the product with
+    A given k-major, a_t (..., k, m), b (..., k, n) → (..., m, n)."""
+    return minplus_ref(a_t.transpose(-1, -2), b)
+
+
+def squarings(d: torch.Tensor, steps: int, check_from: int,
+              product: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+              ) -> tuple[torch.Tensor, int]:
+    """Up to ``steps`` Jacobi squarings D ← D ⊗ D by ``product``; from
+    squaring ``check_from`` on, stop at the first squaring that returns
+    its input (a fixpoint: the squarings left would reproduce it).
+    Returns D and that squaring's index (``steps`` when none did) — the
+    warm closure's loop rule; ``check_from >= steps`` is the fixed
+    schedule."""
+    for s in range(steps):
+        nd = product(d, d)
+        if s >= check_from and torch.equal(nd, d):
+            return d, s
+        d = nd
+    return d, steps
+
+
+def closure_ref(d: torch.Tensor, steps: int,
+                check_from: int) -> tuple[torch.Tensor, int]:
+    """Plain version of the fused closure kernel: ``squarings`` with
+    ``minplus_ref``."""
+    return squarings(d, steps, check_from, minplus_ref)
 
 
 def relax_occupancy(a: torch.Tensor) -> torch.Tensor:

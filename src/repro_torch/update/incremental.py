@@ -18,7 +18,9 @@ the district structure, so each stage has a natural repair scope:
            the patched overlay but exits at the first bitwise fixpoint
            (squaring a fixpoint reproduces it, so the scheduled
            squarings left are no-ops). The previous epoch's convergence
-           depth seeds the first fixpoint check;
+           depth seeds the first fixpoint check. On the card the
+           squarings and the checks run in one launch of the fused
+           closure kernel, read back with one host copy;
   stage C  re-run only districts that are dirty OR whose borders'
            closure rows moved; every vertex row belongs to exactly one
            district, so the recomputed rows overwrite in place;
@@ -28,7 +30,7 @@ the district structure, so each stage has a natural repair scope:
            full.
 
 Stages A–D run on ``device`` through ``core.torch_builder`` (on the
-card: the ``relax`` and ``minplus`` CUDA kernels; on the CPU their plain
+card: the ``relax`` and min-plus CUDA kernels; on the CPU their plain
 versions); the host keeps the ``BuildState`` arrays, as the JAX package
 does. Subset shapes are padded to power-of-two buckets with absorbing
 +inf / -1 entries, as in the JAX package, so a subset run's lanes hold
@@ -113,7 +115,7 @@ class IncrementalBuilder:
 
     def _max_closure_steps(self) -> int:
         q = 0 if self.state is None else len(self.state.packed.border_ids)
-        return max(1, math.ceil(math.log2(max(2, q))))
+        return mp.closure_steps(q)
 
     def _lap(self, key: str, t0: float) -> float:
         now = time.perf_counter()
@@ -492,14 +494,9 @@ class IncrementalBuilder:
             return cached_closure, None, True
         steps = self._max_closure_steps()
         check_from = max(0, min(self._closure_depth, steps) - 1)
-        d = self._upload(_closure_init(overlay))
-        for s in range(steps):
-            nd = mp.minplus(d, d)
-            if s >= check_from and torch.equal(nd, d):
-                self._closure_depth = s
-                return d.cpu().numpy(), d, False
-            d = nd
-        self._closure_depth = steps
+        d, depth = mp.closure_squarings(self._upload(_closure_init(overlay)),
+                                        steps, check_from)
+        self._closure_depth = int(depth)
         return d.cpu().numpy(), d, False
 
     def _stage_c_subset(self, intra: np.ndarray, packed,

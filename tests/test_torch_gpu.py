@@ -7,9 +7,11 @@ shared fixtures out):
 
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
-The distance kernels must equal their plain versions bit for bit (same
-IEEE float32 operations; Floyd–Warshall on integral weights, within
-rtol 1e-5 on real ones), B built on the card by the staged builder
+The distance kernels (the joins at every vector width, the tiled,
+fused-closure and k-major min-plus products, relax) must equal their
+plain versions bit for bit (same IEEE float32 operations;
+Floyd–Warshall on integral weights, within rtol 1e-5 on real ones),
+B built on the card by the staged builder
 must equal the host reference's, repairs of B on the card must equal
 the same repairs on the CPU, and a deployment on the card must answer
 exactly as the same deployment on the CPU. The flash-attention
@@ -68,6 +70,106 @@ def test_kernel_matches_plain_version(cuda, q, w):
         torch.cuda.synchronize()
         assert torch.equal(got, ref.gather_join_ref(
             C, rs, C, rt, quant=(sentinel, 0.25)))
+
+
+def _table_at(cuda, dtype, rows, w, offset):
+    """A contiguous (rows, w) table on the card, ``offset`` elements
+    past a 256-byte-aligned allocation."""
+    flat = torch.zeros(rows * w + offset, dtype=dtype, device=cuda)
+    return flat[offset:].view(rows, w)
+
+
+# the join at every vector width: widths 1, 93, 96, 133, 256 give pitches
+# of 4 to 1024 bytes; offset 1 starts a table 4 (or 2) bytes off its
+# 16-byte alignment; batches from 1 to 65 536 queries
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("w", [1, 93, 96, 133, 256])
+@pytest.mark.parametrize("q", [1, 45, 4096, 65536])
+def test_kernel_matches_plain_version_at_every_vector_width(cuda, q, w,
+                                                            offset):
+    rng = np.random.default_rng(q + w + offset)
+    rows = 300
+    s = _table_at(cuda, torch.float32, rows, w, offset)
+    t = _table_at(cuda, torch.float32, rows + 5, w, offset)
+    s.copy_(torch.from_numpy(_rand_dist(rng, (rows, w))))
+    t.copy_(torch.from_numpy(_rand_dist(rng, (rows + 5, w))))
+    rs = torch.from_numpy(rng.integers(0, rows, q)).to(cuda)
+    rt = torch.from_numpy(rng.integers(0, rows + 5, q)).to(cuda)
+    vec, group = kernel.join_layout(s, t, q)
+    assert vec == (4 if offset or (w * 4) % 8 else 16 if w % 4 == 0 else 8)
+    before = dict(kernel.LAUNCHES)
+    got = kernel.gather_join(s, rs, t, rt)
+    lam, lb = kernel.gather_join(s, rs, t, rt, with_lb=True)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["label_join"] == before["label_join"] + 1
+    assert kernel.LAUNCHES["label_join_lb"] == before["label_join_lb"] + 1
+    assert torch.equal(got, ref.gather_join_ref(s, rs, t, rt))
+    want_lam, want_lb = ref.gather_join_ref(s, rs, t, rt, with_lb=True)
+    assert torch.equal(lam, want_lam) and torch.equal(lb, want_lb)
+    for npdt in (np.uint16, np.int16):
+        sentinel = int(np.iinfo(npdt).max)
+        codes = rng.integers(0, sentinel + 1, (rows + 5, w)).astype(npdt)
+        c = _table_at(cuda, torch.int16, rows + 5, w, offset)
+        c.copy_(torch.from_numpy(codes.view(np.int16)))
+        cvec, _ = kernel.join_layout(c, c, q)
+        assert cvec == max(v for v in (16, 8, 4, 2)
+                           if (2 * w) % v == 0 and (2 * offset) % v == 0)
+        got = kernel.gather_join(c, rs, c, rt, quant=(sentinel, 0.25))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.gather_join_ref(
+            c, rs, c, rt, quant=(sentinel, 0.25)))
+
+
+# (storage, width, offset in elements, vector bytes, lanes per query) at
+# a large batch, as the C entry picks them: a 16-byte pitch and base take
+# 16-byte loads, an offset or a pitch of 8 or 4 bytes narrower ones,
+# odd-width codes 2-byte ones; the lanes are the fewest that load a row
+# in at most 4 vectors each (kUnroll)
+LAYOUTS = [("float32", 96, 0, 16, 8), ("float32", 256, 0, 16, 16),
+           ("float32", 96, 1, 4, 32), ("float32", 96, 2, 8, 16),
+           ("float32", 6, 0, 8, 1), ("float32", 1, 0, 4, 1),
+           ("float32", 133, 0, 4, 32), ("float32", 0, 0, 16, 1),
+           ("float32", 1024, 0, 16, 32), ("uint16", 96, 0, 16, 4),
+           ("uint16", 93, 0, 2, 32), ("uint16", 256, 0, 16, 8),
+           ("int16", 96, 4, 8, 8), ("int16", 96, 1, 2, 32)]
+
+
+@pytest.mark.parametrize("storage,w,offset,vec,group", LAYOUTS)
+def test_join_layout_picks_the_widest_aligned_vector(cuda, storage, w, offset,
+                                                     vec, group):
+    dtype = torch.float32 if storage == "float32" else torch.int16
+    table = _table_at(cuda, dtype, 5, w, offset)
+    aligned = _table_at(cuda, dtype, 7, w, 0)
+    big = 1 << 20                       # queries: the batch asks no lanes
+    assert kernel.join_layout(table, table, big, sms=132) == (vec, group)
+    # the narrower alignment of either table decides
+    assert kernel.join_layout(aligned, table, big, sms=132)[0] == vec
+    assert kernel.join_layout(table, aligned, big, sms=132)[0] == vec
+    pitch = w * table.element_size()
+    assert pitch % vec == 0 and table.data_ptr() % vec == 0
+    assert -(-pitch // vec) <= group * 4 or group == 32
+    # a lanes override keeps the vector width
+    assert kernel.join_layout(table, table, big, lanes=2, sms=132) == (vec, 2)
+
+
+# (queries, width, lanes) on 132 SMs: a small batch takes more lanes a
+# query, up to 4x what its rows need, so that its blocks of 256 threads
+# cover more SMs (the rebuild window's 167 queries of 6 borders, the
+# engine's 4096 queries), then more while a lane would load over 32 bytes
+# of a row and twice its threads fit in 256 x 132 (4223 and 4224 queries
+# of 256: each side of that bound); a large one only what its rows need
+BATCH_LAYOUTS = [(167, 6, 4), (1, 96, 32), (4096, 96, 16), (4096, 256, 32),
+                 (4223, 256, 32), (4224, 256, 16), (65536, 96, 8),
+                 (65536, 6, 1), (33792, 6, 1), (33791, 6, 2), (1, 1024, 32)]
+
+
+@pytest.mark.parametrize("q,w,group", BATCH_LAYOUTS)
+def test_join_layout_spreads_small_batches_over_the_sms(cuda, q, w, group):
+    table = _table_at(cuda, torch.float32, 3, w, 0)
+    _, lanes = kernel.join_layout(table, table, q, sms=132)
+    assert lanes == group
+    _, rows_need = kernel.join_layout(table, table, 1 << 30, sms=132)
+    assert rows_need <= lanes <= max(rows_need, min(4 * rows_need, 32))
 
 
 def test_card_serves_as_the_host_does(cuda):
@@ -156,6 +258,75 @@ def test_relax_kernel_matches_plain_version(cuda, batch, s, v):
     assert torch.equal(d, keep)                 # out of place
 
 
+# the fused closure on each side of its cap (q <= 160: one launch; above:
+# the tiled kernel's squarings), dense and 90 %-inf, at the fixed
+# schedule and with early exits
+@pytest.mark.parametrize("check", ["fixed", "from_0", "from_2"])
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+@pytest.mark.parametrize("q", [1, 7, 93, 96, 128, 160, 161, 239])
+def test_closure_kernel_matches_plain_version(cuda, q, kind, check):
+    from repro_torch.kernels.minplus import kernel as mp, ops as mp_ops
+    from repro_torch.kernels.minplus import ref as mp_ref
+    rng = np.random.default_rng(q)
+    w = _rand_dist(rng, (q, q))
+    if kind == "sparse":
+        w[rng.random(w.shape) < 0.9] = np.inf
+    np.fill_diagonal(w, 0.0)
+    d0 = torch.from_numpy(w).to(cuda)
+    steps = mp_ops.closure_steps(q)
+    check_from = {"fixed": steps, "from_0": 0, "from_2": 2}[check]
+    before = dict(mp.LAUNCHES)
+    got, depth = mp_ops.closure_squarings(d0, steps, check_from)
+    depth = int(depth)
+    fused = q <= mp.CLOSURE_MAX_Q
+    assert mp.LAUNCHES["minplus_closure"] == before["minplus_closure"] \
+        + int(fused)
+    assert mp.LAUNCHES["minplus"] == before["minplus"] \
+        + (0 if fused else min(steps, depth + 1))
+    want, want_depth = mp_ref.closure_ref(d0, steps, check_from)
+    assert depth == want_depth
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("check_from", [0, 3])
+def test_closure_kernel_stops_at_a_warm_fixpoint(cuda, check_from):
+    """From a converged closure (integral weights: every path sum exact)
+    the first checked squaring returns its input."""
+    from repro_torch.kernels.minplus import kernel as mp, ops as mp_ops
+    rng = np.random.default_rng(5)
+    w = np.ceil(_rand_dist(rng, (96, 96)))
+    w[rng.random(w.shape) < 0.9] = np.inf
+    np.fill_diagonal(w, 0.0)
+    d0 = mp_ops.closure(torch.from_numpy(w).to(cuda))
+    got, depth = mp.closure(d0, mp_ops.closure_steps(96), check_from)
+    assert int(depth) == check_from
+    assert torch.equal(got, d0)
+
+
+# k-major products (batch or None, m, k, n): stage C at both sizes, n % 4
+# != 0 (scalar stores), several column tiles, k = 0, 1, 32, and k = 33
+# (the tiled kernel on a transposed copy)
+@pytest.mark.parametrize("batch,m,k,n", [
+    (16, 256, 8, 93), (16, 6400, 8, 96), (1, 6400, 8, 96), (None, 5, 1, 3),
+    (3, 300, 32, 97), (2, 130, 8, 2048), (4, 129, 8, 1030), (3, 37, 0, 5),
+    (2, 100, 33, 64)])
+def test_minplus_kmajor_kernel_matches_plain_version(cuda, batch, m, k, n):
+    from repro_torch.kernels.minplus import kernel as mp, ref as mp_ref
+    rng = np.random.default_rng(m + k + n)
+    lead = () if batch is None else (batch,)
+    a_t = torch.from_numpy(_rand_dist(rng, (*lead, k, m))).to(cuda)
+    b = torch.from_numpy(_rand_dist(rng, (*lead, k, n))).to(cuda)
+    before = dict(mp.LAUNCHES)
+    got = mp.minplus_kmajor(a_t, b)
+    torch.cuda.synchronize()
+    deep = k > mp.KMAJOR_MAX_K
+    assert mp.LAUNCHES["minplus_kmajor"] == before["minplus_kmajor"] \
+        + int(not deep)
+    assert mp.LAUNCHES["minplus"] == before["minplus"] + int(deep)
+    want = mp_ref.minplus_kmajor_ref(a_t, b)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def _banded_card(rng, shape, band, cuda):
     a = _rand_dist(rng, shape)
     i, j = np.indices(shape[-2:])
@@ -206,7 +377,11 @@ def test_card_builder_equals_the_host_reference(cuda):
     before = dict(mp.LAUNCHES)
     center = ComputingCenter(g, part, builder="torch", device=cuda)
     center.rebuild()
-    assert mp.LAUNCHES["minplus"] > before["minplus"]
+    # stage B: one fused closure launch (q <= CLOSURE_MAX_Q); stage C:
+    # the k-major product
+    assert mp.LAUNCHES["minplus_closure"] == before["minplus_closure"] + 1
+    assert mp.LAUNCHES["minplus_kmajor"] > before["minplus_kmajor"]
+    assert mp.LAUNCHES["minplus"] == before["minplus"]
     assert mp.LAUNCHES["relax"] > before["relax"]
     want = build_border_labels_reference(g, part)
     np.testing.assert_array_equal(center.border_labels.table, want.table)

@@ -260,6 +260,38 @@ def test_gather_join_rejects_what_the_kernel_does_not_take(case):
         kernel.gather_join(*args, **kw)
 
 
+# -- what the kernel's code path relies on ---------------------------------------
+
+@pytest.mark.parametrize("dtype,bias", [(np.uint16, 0), (np.int16, 1 << 15)])
+def test_code_widening_without_conversion_is_exact(dtype, bias):
+    """The kernel widens a 16-bit code c to the float with bit pattern
+    2^23 + (c + bias), less 2^23 + bias (``element`` in
+    csrc/label_join.cu): float(c) bit for bit, for every code."""
+    codes = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16).view(dtype)
+    pattern = np.uint32(0x4B000000) | (codes.astype(np.int64)
+                                       + bias).astype(np.uint32)
+    got = pattern.view(np.float32) - np.float32(2 ** 23 + bias)
+    assert np.array_equal(got.view(np.uint32),
+                          codes.astype(np.float32).view(np.uint32))
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int16])
+def test_sentinel_is_the_largest_code_of_its_type(dtype):
+    """The kernel skips a sum whose larger term is the sentinel, which is
+    right only because the wrapper takes each code type's largest value
+    as its sentinel and no other."""
+    top = int(np.iinfo(dtype).max)
+    assert top in kernel._SENTINELS
+    assert len(kernel._SENTINELS) == 2
+    table = torch.from_numpy(np.array([[top, 3, 5], [7, top, 1]],
+                                      dtype=dtype).view(np.int16))
+    ids = torch.tensor([0, 1])
+    got = kernel.gather_join(table, ids, table, ids.flip(0),
+                             quant=(top, 0.5))
+    # row 0 + row 1: (top + 7, 3 + top, 5 + 1) -> only 6 counts
+    assert torch.equal(got, torch.tensor([3.0, 3.0]))
+
+
 def test_build_targets_hopper_without_fast_math():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
@@ -267,3 +299,45 @@ def test_build_targets_hopper_without_fast_math():
     lib = build.library_path(kernel.SOURCE)
     assert lib.parent == build.BUILD_DIR
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
+
+
+# -- tables that start off their buffer's alignment ---------------------------
+
+def _table_at(storage, rows, w, offset):
+    """A contiguous (rows, w) table starting ``offset`` elements into a
+    64-byte-aligned buffer."""
+    dtype = torch.float32 if storage == "float32" else torch.int16
+    flat = torch.zeros(rows * w + offset + 64, dtype=dtype)
+    skip = (-flat.data_ptr() % 64) // flat.element_size()
+    table = flat[skip + offset:skip + offset + rows * w].view(rows, w)
+    assert table.is_contiguous()
+    assert (table.data_ptr() - offset * table.element_size()) % 64 == 0
+    return table
+
+
+@pytest.mark.parametrize("storage", ["float32", "uint16", "int16"])
+@pytest.mark.parametrize("w", [1, 93, 96, 133, 256])
+def test_joins_of_offset_tables_match_the_reference(storage, w):
+    """A table sliced one element off its buffer's alignment (the kernel
+    then loads 4- or 2-byte vectors) joins as the JAX package's gathered
+    joins do on the same rows, bit for bit."""
+    rng = np.random.default_rng(w + len(storage))
+    rows, qn = 40, 64
+    ss, ts = rng.integers(0, rows, qn), rng.integers(0, rows, qn)
+    table = _table_at("float32" if storage == "float32" else "int16", rows,
+                      w, 1)
+    if storage == "float32":
+        host = _rand_dist(rng, (rows, w))
+        table.copy_(torch.from_numpy(host))
+        np.testing.assert_array_equal(ops.join_gathered(table, ss, ts),
+                                      rops.join_gathered(host, ss, ts))
+        np.testing.assert_array_equal(ops.bound_gathered(table, ss, ts),
+                                      rops.bound_gathered(host, ss, ts))
+        return
+    host, sentinel = _rand_codes(rng, (rows, w), np.dtype(storage).type)
+    table.copy_(torch.from_numpy(host.view(np.int16)))
+    np.testing.assert_array_equal(
+        ops.join_quantized_gathered(table, ss, ts, sentinel=sentinel,
+                                    scale=0.5),
+        rops.join_quantized_gathered(host, ss, ts, sentinel=sentinel,
+                                     scale=0.5))

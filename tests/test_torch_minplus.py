@@ -347,3 +347,195 @@ def test_cpu_calls_are_not_launches():
     ops.relax(torch.zeros((2, 4)), torch.zeros((4, 4)))
     multi_source(torch.zeros((4, 4)), torch.zeros((2, 4)), 3)
     assert kernel.LAUNCHES == before
+
+
+# -- the fused closure and the k-major product (their plain versions) --------
+
+CLOSURE_QS = [1, 40, 93, 128, 129, 200]
+
+
+def _closure_input(q, kind, seed):
+    """A dense overlay or a 90 %-inf one, the diagonal set to 0 as the
+    closure's init does."""
+    rng = np.random.default_rng(seed)
+    w = _rand_dist(rng, (q, q), inf_frac=0.0 if kind == "dense" else 0.9)
+    np.fill_diagonal(w, 0.0)
+    return w
+
+
+def _jax_loop(d0, steps, check_from):
+    """The warm closure's loop rule on the JAX package's reference
+    product: up to ``steps`` squarings, from ``check_from`` on stop at
+    the first that returns its input; (D, that squaring or steps)."""
+    d = jnp.asarray(d0)
+    for s in range(steps):
+        nd = rminplus_ref(d, d)
+        if s >= check_from and np.array_equal(np.asarray(nd), np.asarray(d)):
+            return np.asarray(d), s
+        d = nd
+    return np.asarray(d), steps
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+@pytest.mark.parametrize("q", CLOSURE_QS)
+def test_fused_closure_plain_version_equals_the_jax_closure(q, kind):
+    """The fused closure's plain version (kernel.closure on the CPU) at
+    the fixed schedule (check_from = steps) and ops.closure, against the
+    JAX package's closure with its XLA reference and with the Pallas
+    kernel in interpret mode: bit for bit (min of single float32 adds).
+    q = 129 and 200 lie above the card kernel's cap, where the card runs
+    the tiled kernel's squarings instead."""
+    w = _closure_input(q, kind, q + len(kind))
+    steps = ops.closure_steps(q)
+    got, depth = kernel.closure(torch.from_numpy(w), steps, steps)
+    assert int(depth) == steps
+    want = _np(rops.closure(jnp.asarray(w)))
+    np.testing.assert_array_equal(_bits(got), want.view(np.int32))
+    np.testing.assert_array_equal(
+        _bits(ops.closure(torch.from_numpy(w))), want.view(np.int32))
+    np.testing.assert_array_equal(
+        want, _np(rops.closure(jnp.asarray(w), use_pallas=True)))
+
+
+# (q, kind, check_from): a cold start, checks from the start, from the
+# middle, and never (check_from past the schedule)
+DEPTH_CASES = [(40, "sparse", 0), (40, "sparse", 2), (93, "sparse", 1),
+               (93, "dense", 0), (128, "sparse", 4), (129, "sparse", 3),
+               (60, "sparse", 9)]
+
+
+@pytest.mark.parametrize("q,kind,check_from", DEPTH_CASES)
+def test_closure_depth_follows_the_loop_rule(q, kind, check_from):
+    """kernel.closure and ops.closure_squarings return the D and the
+    depth of the warm closure's loop (update/incremental.py's rule) on
+    the JAX package's reference product."""
+    d0 = _closure_input(q, kind, 7 * q + check_from)
+    steps = ops.closure_steps(q)
+    want, want_depth = _jax_loop(d0, steps, check_from)
+    for fn in (kernel.closure, ops.closure_squarings):
+        got, depth = fn(torch.from_numpy(d0), steps, check_from)
+        assert int(depth) == want_depth
+        np.testing.assert_array_equal(_bits(got), want.view(np.int32))
+
+
+@pytest.mark.parametrize("check_from", [0, 1, 3, 6])
+def test_closure_warm_start_stops_at_check_from(check_from):
+    """A warm start from a fixpoint (the previous epoch's closure): the
+    first checked squaring returns its input, so the depth is check_from
+    itself and D comes back unchanged. Integral weights, as a road
+    graph's: every path sum is exact, so the closure is a fixpoint (with
+    real weights another association can round a sum lower)."""
+    d0 = np.array(rops.closure(jnp.asarray(
+        np.ceil(_closure_input(93, "sparse", 5)))))
+    steps = ops.closure_steps(93)
+    want, want_depth = _jax_loop(d0, steps, check_from)
+    assert want_depth == check_from
+    got, depth = ops.closure_squarings(torch.from_numpy(d0), steps,
+                                       check_from)
+    assert int(depth) == check_from
+    np.testing.assert_array_equal(_bits(got), d0.view(np.int32))
+    np.testing.assert_array_equal(want, d0)
+
+
+def test_closure_squarings_round_other_dtypes_every_squaring():
+    """bf16 runs the loop of ops.minplus (widened, rounded back at every
+    squaring, as the JAX package's minplus_pallas does), not the fused
+    float32 closure."""
+    w = _closure_input(37, "sparse", 2)
+    tw = torch.from_numpy(w).to(torch.bfloat16)
+    got = ops.closure(tw)
+    assert got.dtype == torch.bfloat16
+    want = rops.closure(jnp.asarray(w).astype(jnp.bfloat16), use_pallas=True)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+KMAJOR_SHAPES = [(16, 8, 93), (3, 1, 5), (4, 32, 97), (6400 // 50, 8, 96),
+                 (9, 0, 4), (5, 33, 8)]
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("m,k,n", KMAJOR_SHAPES)
+def test_minplus_kmajor_equals_jax_minplus(m, k, n, batch):
+    """The k-major product (A given as a_t = A^T) against the JAX
+    package's reference and Pallas minplus on A, bit for bit; k = 0 is
+    the empty contraction (+inf), k = 33 the depth the card hands to the
+    tiled kernel."""
+    rng = np.random.default_rng(m * 100 + k * 10 + n)
+    lead = () if batch is None else (batch,)
+    a = _rand_dist(rng, (*lead, m, k))
+    b = _rand_dist(rng, (*lead, k, n))
+    a_t = torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, -1, -2)))
+    got = ops.minplus_kmajor(a_t, torch.from_numpy(b))
+    assert got.shape == (*lead, m, n)
+    for z in range(batch or 1):
+        az = a[z] if batch else a
+        bz = b[z] if batch else b
+        gz = got[z] if batch else got
+        want = _np(rminplus_ref(jnp.asarray(az), jnp.asarray(bz))) if k \
+            else np.full((m, n), np.inf, np.float32)
+        np.testing.assert_array_equal(_bits(gz), want.view(np.int32))
+        if k:
+            np.testing.assert_array_equal(
+                want, _np(minplus_pallas(jnp.asarray(az), jnp.asarray(bz),
+                                         **BLOCKS)))
+
+
+def test_builder_runs_one_closure_and_a_kmajor_stage_c(monkeypatch):
+    """The staged builder calls the fused closure once (stage B) and the
+    k-major product on stage A's own tensor (stage C: no transpose, no
+    copy); the warm closure of a repair calls it once too."""
+    from repro_torch.core import bfs_grow_partition, grid_road_network
+    from repro_torch.core import torch_builder
+    from repro_torch.update import IncrementalBuilder
+    calls = []
+    real = {name: getattr(kernel, name)
+            for name in ("closure", "minplus_kmajor", "minplus")}
+
+    def spy(name):
+        def call(*args):
+            calls.append((name, args))
+            return real[name](*args)
+        return call
+
+    for name in real:
+        monkeypatch.setattr(kernel, name, spy(name))
+    seen_intra = []
+    real_stage_c = torch_builder.stage_c_full_table
+
+    def stage_c(intra, *rest):
+        seen_intra.append(intra)
+        return real_stage_c(intra, *rest)
+
+    monkeypatch.setattr(torch_builder, "stage_c_full_table", stage_c)
+    g = grid_road_network(8, 8, seed=2)
+    part = bfs_grow_partition(g, 4)
+    inc = IncrementalBuilder(device="cpu")
+    inc.build_full(g, part)
+    names = [c[0] for c in calls]
+    assert names.count("closure") == 1 and "minplus" not in names
+    (a_t, _), = [c[1] for c in calls if c[0] == "minplus_kmajor"]
+    assert a_t is seen_intra[0]
+    q = len(inc.state.packed.border_ids)
+    steps = ops.closure_steps(q)
+    (_, c_steps, c_from), = [c[1] for c in calls if c[0] == "closure"]
+    assert (c_steps, c_from) == (steps, steps)
+    calls.clear()
+    w2 = np.asarray(g.weights) * np.float32(1.5)
+    inc.apply_delta(g.with_weights(w2), part)
+    names = [c[0] for c in calls]
+    assert names.count("closure") == 1 and "minplus" not in names
+
+
+def test_closure_wrapper_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="square"):
+        kernel.closure(torch.zeros((3, 4)), 2, 2)
+    with pytest.raises(ValueError, match="square"):
+        kernel.closure(torch.zeros((3, 3), dtype=torch.float64), 2, 2)
+    with pytest.raises(ValueError, match="steps"):
+        kernel.closure(torch.zeros((3, 3)), kernel.CLOSURE_MAX_STEPS + 1, 0)
+    with pytest.raises(ValueError, match="depths differ"):
+        kernel.minplus_kmajor(torch.zeros((4, 5)), torch.zeros((3, 2)))
+    before = dict(kernel.LAUNCHES)
+    ops.closure_squarings(torch.zeros((5, 5)), 3, 0)
+    ops.minplus_kmajor(torch.zeros((2, 4)), torch.zeros((2, 3)))
+    assert kernel.LAUNCHES == before    # plain versions: no launch
