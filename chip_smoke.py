@@ -10,12 +10,24 @@ rate beside the issue ceiling its instructions allow (phase
 bounds), holds each kernel against its plain PyTorch version on the
 card (``relax`` with and without its occupancy map; the fused closure
 on each side of its cap; the k-major product; the join at every vector
-width), and drives the port's six paths:
+width), and drives the port's eight paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
   uint16 storage → a rebuild window (B rebuilt by the staged builder)
   under all three modes → back to steady state;
+* the paper's oracle API at n = 4096 — ``DistanceOracle.build`` under
+  the hierarchical and the reference builder, serving on the card, its
+  Table-2 columns (BL, Districts) and ``query_many`` on the serving
+  batch against Dijkstra and the deployed system's answers;
+* the sharded layouts at n = 4096 — ``ServingPolicy(engine="sharded")``
+  on the deployed system for 4 and 8 logical shards on the card, B
+  replicated and row-sharded, float32 and uint16, each shard's sharded
+  kernel call held against its plain version and every answer against
+  the replicated engine's; then a ``RebalancePlanner`` plan from the
+  service's load and ``EdgeSystem.migrate``; and the row-sharded join at
+  the center's size (65 536 rule-3 queries over n = 102 400's B, 8
+  shards);
 * the computing center at n = 102 400 — B built on the card by the
   staged builder, held against the host's Dijkstra stage A and
   hierarchical builder, then the rule-3 join;
@@ -623,6 +635,7 @@ def phase_serving(torch, dev, launches: dict,
            "ok": True}
     return out, {"system": system, "svc32": svc32, "svc16": svc16,
                  "ss": ss, "ts": ts, "client": client, "shapes": shapes,
+                 "first_answers": b32.distances,
                  "build_state": system.center.incremental_builder().state}
 
 
@@ -1690,6 +1703,417 @@ def phase_updates_small(torch, dev, state: dict, errs: dict) -> dict:
             "ok": True}
 
 
+# -- phase 3b: the paper's oracle API at n = 4096 ----------------------------
+
+ORACLE_BUILDERS = ("hierarchical", "reference")
+
+
+def phase_oracle(torch, dev, state: dict, launches: dict) -> dict:
+    """``DistanceOracle.build`` on the card under both builders; its
+    ``query_many`` on the serving batch against Dijkstra and, bit for
+    bit, against the deployed system's answers on the same graph."""
+    from repro_torch.core import DistanceOracle, dijkstra
+    from repro_torch.ingest import synthetic_continent
+    from repro_torch.kernels.label_join import kernel
+
+    csr, part = synthetic_continent(**SMALL)
+    g = csr.to_graph()
+    ss, ts, want = state["ss"], state["ts"], state["first_answers"]
+    rows = {}
+    for builder in ORACLE_BUILDERS:
+        t0 = time.perf_counter()
+        oracle = DistanceOracle.build(g, part, builder=builder, device=dev)
+        build_s = time.perf_counter() - t0
+        reset_launches(kernel)
+        t0 = time.perf_counter()
+        got = oracle.query_many(ss, ts)
+        query_s = time.perf_counter() - t0
+        counts = dict(kernel.LAUNCHES)
+        check(counts["label_join"] > 0, f"query_many launched no join: "
+              f"{counts}")
+        check(np.array_equal(got, want), f"oracle ({builder}) differs from "
+              "the deployed system's answers")
+        spots = spot_check_dijkstra(g, ss, ts, got, dijkstra, 6)
+        check(oracle.border_table_device().is_cuda, "B is not on the card")
+        rows[builder] = {**oracle.stats.as_row(),
+                         "bl_seconds": oracle.stats.bl_seconds,
+                         "districts_seconds": oracle.stats.districts_seconds,
+                         "build_s": build_s, "query_many_s": query_s,
+                         "join_launches": counts,
+                         "dijkstra_spot_pairs": spots}
+        del oracle
+    launches["oracle_label_join"] = rows[ORACLE_BUILDERS[0]][
+        "join_launches"]["label_join"]
+    return {"phase": "oracle_n4096", "n": int(g.num_vertices),
+            "districts": int(part.num_districts), "batch": len(ss),
+            "builders": rows, "equals_deployed_system": "bit for bit, "
+            "every builder", "timer": "host clock after a device "
+            "synchronise (bl_s: Table 2's BL column, districts_s: its "
+            "Districts column)", "ok": True}
+
+
+# -- phase 3c: the sharded serving layouts at n = 4096 -----------------------
+
+SHARD_COUNTS = (4, 8)
+
+
+@contextlib.contextmanager
+def hold_sharded_calls(ops, held: list):
+    """While active, every call the path makes to the sharded kernel's
+    wrapper keeps copies of its tensors and its result in ``held`` (the
+    call itself launches once, as the path does)."""
+    real = ops.sharded_gather_join
+
+    def call(block, border, owner, shard, rs, rt, **kw):
+        out = real(block, border, owner, shard, rs, rt, **kw)
+        held.append(([_clone(x) for x in (block, border, owner)], shard,
+                     [rs.clone(), rt.clone()], kw, out.clone()))
+        return out
+
+    ops.sharded_gather_join = call
+    try:
+        yield
+    finally:
+        ops.sharded_gather_join = real
+
+
+def check_sharded_held(torch, held: list, errs: dict, what: str) -> int:
+    """Each kept sharded-kernel result against the plain version on the
+    same arguments, bit for bit; returns the count and empties ``held``."""
+    from repro_torch.kernels.label_join import ref
+    for (block, border, owner), shard, (rs, rt), kw, out in held:
+        want = ref.sharded_gather_join_ref(block, border, owner, shard, rs,
+                                           rt, **kw)
+        check(torch.equal(out, want), f"{what}: shard {shard}'s kernel "
+              "differs from its plain version")
+        errs["label_join_sharded"] = max(errs["label_join_sharded"],
+                                         max_abs_err(out, want))
+    count = len(held)
+    held.clear()
+    return count
+
+
+def host_p50_ms(torch, fn, reps: int = 30) -> dict:
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return {"p50_ms": float(np.percentile(samples, 50)),
+            "min_ms": float(min(samples))}
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def phase_sharded(torch, dev, state: dict, launches: dict,
+                  errs: dict) -> tuple[dict, dict]:
+    """``ServingPolicy(engine="sharded")`` on the deployed n = 4096
+    system for E in SHARD_COUNTS logical shards on the card, B replicated
+    and row-sharded, float32 and uint16: bit for bit with the replicated
+    engine, every shard's kernel call with its plain version; then a
+    rebalance plan fed by the service's load and ``migrate``."""
+    from repro_torch.core import dijkstra
+    from repro_torch.edge import ShardedBatchedEngine, default_edge_mesh
+    from repro_torch.kernels.label_join import kernel, ops
+    from repro_torch.serve import ServingPolicy
+    from repro_torch.topo import RebalancePlanner
+
+    system = state["system"]
+    part = system.partition
+    g = system.graph
+    ss, ts, client = state["ss"], state["ts"], state["client"]
+    n, q = system.center.border_labels.table.shape
+    want, rep_latency = {}, {}
+    for dtype in ("float32", "uint16"):
+        svc = system.service(ServingPolicy(engine="replicated",
+                                           label_dtype=dtype))
+        want[dtype] = svc.submit(ss, ts, client_districts=client).distances
+        rep_latency[dtype] = host_p50_ms(torch, lambda: svc.submit(
+            ss, ts, client_districts=client))
+    check(np.array_equal(want["float32"], want["uint16"]),
+          "replicated f32 vs uint16")
+
+    rows, held, shapes = [], [], {}
+    reset_launches(kernel)
+    held_count = path_launches = 0
+    for e in SHARD_COUNTS:
+        system.mesh = default_edge_mesh(e, device=dev)
+        for border in (False, True):
+            for dtype in ("float32", "uint16"):
+                svc = system.service(ServingPolicy(
+                    engine="sharded", shard_border=border, label_dtype=dtype))
+                before = kernel.LAUNCHES["label_join_sharded"]
+                with hold_sharded_calls(ops, held):
+                    got = svc.submit(ss, ts, client_districts=client)
+                per_batch = kernel.LAUNCHES["label_join_sharded"] - before
+                path_launches += per_batch
+                held_count += check_sharded_held(
+                    torch, held, errs, f"sharded E={e} border={border} "
+                    f"{dtype}")
+                eng = svc.plan(ss, ts).plane
+                check(isinstance(eng, ShardedBatchedEngine)
+                      and eng.num_devices == e
+                      and eng.shard_border == border, "sharded engine not "
+                      f"selected: {type(eng).__name__}")
+                check(np.array_equal(got.distances, want[dtype]),
+                      f"sharded E={e} border={border} {dtype} differs from "
+                      "the replicated engine")
+                check(got.exact.all(), "sharded answers not flagged exact")
+                check(per_batch == e, f"{per_batch} launches a batch, "
+                      f"{e} shards")
+                item = 4 if dtype == "float32" else 2
+                d = eng.data
+                shard_bytes = {
+                    "district": eng.district_table_bytes_per_device(),
+                    "border": eng.border_table_bytes_per_device()}
+                check(shard_bytes["district"] == d.districts_per_device
+                      * d.kmax * d.width * item
+                      and shard_bytes["border"] == (-(-n // e) if border
+                                                    else n) * q * item,
+                      "per-shard bytes differ from the memory model")
+                card = {"district": tensor_bytes(eng.blocks),
+                        "border": tensor_bytes(eng.btables)}
+                check(card["district"] == e * shard_bytes["district"]
+                      and card["border"] == e * shard_bytes["border"],
+                      "the card does not hold E times one shard")
+                rows.append({
+                    "shards": e, "shard_border": border, "dtype": dtype,
+                    "per_shard_bytes": shard_bytes,
+                    "whole_card_bytes": card,
+                    "launches_a_batch": per_batch,
+                    "submit_host_ms": host_p50_ms(torch, lambda: svc.submit(
+                        ss, ts, client_districts=client))})
+                if e == SHARD_COUNTS[-1]:
+                    owner, rs, rt = (torch.from_numpy(x).to(dev)
+                                     for x in eng.row_ids(ss, ts))
+                    quant = None if eng.quant is None else eng.quant.key()
+                    bt = eng.btables[0]
+                    if border:
+                        cross_base = eng.blocks[0].shape[0]
+                        bt = ops.assemble_border_rows(
+                            eng.btables, rs, rt, cross_base, mesh=eng.mesh,
+                            quant=quant)
+                        rs, rt = ops.assembled_row_ids(rs, rt, cross_base)
+                    tag = "row" if border else "rep"
+                    shapes[f"sharded_e{e}_{tag}_{dtype}"] = (
+                        eng.blocks[0], bt, owner, 0, rs, rt, quant)
+        spots = spot_check_dijkstra(g, ss, ts, got.distances, dijkstra, 4)
+    # the path's launches: the checked submits (not the latency loops)
+    launches["label_join_sharded"] = path_launches
+
+    # the MIN seam on this path: E answer partials of (Q,), and the
+    # row-sharded assembly's E partials of (2Q, q)
+    seam = {}
+    for e in SHARD_COUNTS:
+        mesh = default_edge_mesh(e, device=dev)
+        answers = [torch.rand(len(ss), device=dev) for _ in range(e)]
+        rows_ = [torch.rand(2 * len(ss), q, device=dev) for _ in range(e)]
+        seam[f"e{e}_answers_ms"] = event_ms(torch,
+                                            lambda: mesh.pmin(answers), 50)
+        seam[f"e{e}_assembly_ms"] = event_ms(torch,
+                                             lambda: mesh.pmin(rows_), 50)
+
+    # rebalance: hot traffic on the first shard's districts, a plan from
+    # the service's load, then migrate; the next batch routes anew
+    e = SHARD_COUNTS[-1]
+    system.mesh = default_edge_mesh(e, device=dev)
+    svc = system.service(ServingPolicy(engine="sharded"))
+    planner = RebalancePlanner.for_system(system, num_hosts=e)
+    hot = np.isin(part.assignment[ss], planner.placement.districts_of(0))
+    svc.submit(ss, ts, client_districts=client)
+    for _ in range(3):
+        svc.submit(ss[hot], ts[hot])
+    planner.observe_load(svc.district_load)
+    plan = planner.plan()
+    check(plan is not None, "the planner found no move for a hot shard")
+    old = svc.plan(ss, ts).plane
+    old_key = system._engines_version
+    report = system.migrate(plan)
+    got = svc.submit(ss, ts, client_districts=client)
+    new = svc.plan(ss, ts).plane
+    check(new is not old and system._engines_version != old_key,
+          "migrate did not swap the engine")
+    check(np.array_equal(new.data.device_of,
+                         plan.placement.host_of.astype(np.int64)),
+          "the engine does not route on the new placement")
+    check(np.array_equal(got.distances, want["float32"]),
+          "answers changed through the migration")
+    spots += spot_check_dijkstra(g, ss, ts, got.distances, dijkstra, 2)
+    rebalance = {**plan.summary(), "report": report,
+                 "district_load": svc.district_load.tolist(),
+                 "engine_key_before": repr(old_key[2]),
+                 "engine_key_after": repr(system._engines_version[2])}
+    system.mesh = None
+    system.placement = None
+    return ({"phase": "sharded_n4096", "n": int(n), "q": int(q),
+             "batch": len(ss), "shard_counts": list(SHARD_COUNTS),
+             "replicated_submit_host_ms": rep_latency, "rows": rows,
+             "held_against_plain": held_count,
+             "equals_replicated_engine": "bit for bit, every row",
+             "dijkstra_spot_pairs": spots, "seam_ms": seam,
+             "rebalance": rebalance,
+             "launches": {"label_join_sharded":
+                          launches["label_join_sharded"]},
+             "bytes": "per_shard_bytes: one shard's district block and "
+             "share of B (the reference's per-device formulas); "
+             "whole_card_bytes: all E shards on the one card",
+             "timer": "submit: host clock, device synchronised, 30 "
+             "submits; seam: CUDA events around 50 folds", "ok": True},
+            shapes)
+
+
+# -- phase 4c: the row-sharded join at the center's size ---------------------
+
+CENTER_SHARDS = 8
+
+
+def phase_sharded_center(torch, dev, center_shapes: dict, part,
+                         errs: dict) -> tuple[dict, dict]:
+    """65 536 rule-3 queries over n = 102 400's B (q = 96) row-sharded
+    over CENTER_SHARDS logical shards, each with a one-row +inf district
+    block (no query reads it): bit for bit with the replicated rule-3
+    join, every shard's call with its plain version."""
+    from repro_torch.edge import default_edge_mesh
+    from repro_torch.kernels.label_join import ops
+
+    mesh = default_edge_mesh(CENTER_SHARDS, device=dev)
+    out, shapes, held = {}, {}, []
+    for dtype, key in (("float32", "rule3_f32_q65536"),
+                       ("uint16", "rule3_u16_q65536")):
+        table, ss, ts, quant = center_shapes[key]
+        n, q = table.shape
+        rpd = -(-n // CENTER_SHARDS)
+        bshards = [table[d * rpd:(d + 1) * rpd] for d in range(CENTER_SHARDS)]
+        fill = float("inf") if quant is None else -1      # 0xFFFF as int16
+        blocks = [torch.full((1, q), fill, dtype=table.dtype, device=dev)
+                  for _ in range(CENTER_SHARDS)]
+        dpd = -(-part.num_districts // CENTER_SHARDS)
+        owner = torch.from_numpy(part.assignment[ss].astype(np.int64)
+                                 // dpd).to(dev)
+        rs = torch.from_numpy(ss + 1).to(dev)
+        rt = torch.from_numpy(ts + 1).to(dev)
+        want = ops.join_quantized_gathered(
+            table, ss, ts, sentinel=quant[0], scale=quant[1]) \
+            if quant is not None else ops.join_gathered(table, ss, ts)
+        with hold_sharded_calls(ops, held):
+            got = ops.join_sharded_border_gathered(blocks, bshards, owner, rs,
+                                                   rt, mesh=mesh, quant=quant)
+        count = check_sharded_held(torch, held, errs,
+                                   f"center row-sharded {dtype}")
+        check(count == CENTER_SHARDS, f"{count} launches, {CENTER_SHARDS} "
+              "shards")
+        check(np.array_equal(got.cpu().numpy(), want), "row-sharded rule-3 "
+              f"{dtype} differs from the replicated join")
+        assembled = ops.assemble_border_rows(bshards, rs, rt, 1, mesh=mesh,
+                                             quant=quant)
+        shapes[f"center_e{CENTER_SHARDS}_row_{dtype}"] = (
+            blocks[0], assembled, owner, 0,
+            *ops.assembled_row_ids(rs, rt, 1), quant)
+        out[dtype] = {
+            "batch_ms": event_ms(torch, lambda: ops.join_sharded_border_gathered(
+                blocks, bshards, owner, rs, rt, mesh=mesh, quant=quant), 20),
+            "replicated_join_ms": event_ms(
+                torch, lambda: ops.join_gathered(table, ss, ts) if quant is None
+                else ops.join_quantized_gathered(table, ss, ts,
+                                                 sentinel=quant[0],
+                                                 scale=quant[1]), 20),
+            "b_shard_rows": rpd, "q": int(q)}
+    return ({"phase": "sharded_center_n102400", "shards": CENTER_SHARDS,
+             "batch": int(len(center_shapes["rule3_f32_q65536"][1])),
+             "rows": out, "equals_replicated_join": True,
+             "note": "n = 102 400 is the center alone: its edge servers' "
+             "host PLL limits the deployed stack to n = 4096, so each "
+             "shard's district block is one +inf row no query reads",
+             "timer": "batch_ms / replicated_join_ms: CUDA events around "
+             "20 back-to-back calls (wrapper, ragged assembly, 8 launches "
+             "and both seams; host ids to device and back included)",
+             "ok": True}, shapes)
+
+
+def sharded_bound(torch, block, border, owner, shard, rs, rt):
+    """Bytes and operations one shard's launch needs on these inputs:
+    owner and both row ids of every lane once, the distinct rows its own
+    lanes read (block rows at W, border rows at q), the output; an add
+    and a min per lane folded."""
+    own = (owner == shard).cpu().numpy()
+    rs_, rt_ = rs.cpu().numpy()[own], rt.cpu().numpy()[own]
+    cross_base, w = block.shape[0], block.shape[1]
+    bw, item = border.shape[1], block.element_size()
+    qn = rs.shape[0]
+    blk = np.union1d(rs_[rs_ < cross_base], rt_[rt_ < cross_base])
+    brd = np.union1d(rs_[rs_ >= cross_base], rt_[rt_ >= cross_base])
+    nbytes = 28 * qn + (len(blk) * w + len(brd) * bw) * item
+    both_blk = (rs_ < cross_base) & (rt_ < cross_base)
+    ops_ = 2 * int(np.where(both_blk, w, bw).sum())
+    return nbytes, ops_
+
+
+def time_sharded_shape(torch, kernel, ref, name, block, border, owner,
+                       shard, rs, rt, quant) -> dict:
+    """One shard's launch at a path's shape: device ms from CUDA-graph
+    replays cycling through copies of its inputs, against its bound, its
+    plain version and the ``amin`` of the gathered sums."""
+    nbytes, ops_ = sharded_bound(torch, block, border, owner, shard, rs, rt)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops_ / PEAK_F32_OPS_PER_S * 1e3
+    cold, from_hbm = cold_inputs((block, border, owner, rs, rt), nbytes)
+
+    def launch(b, bt, o, a, c):
+        return kernel.sharded_gather_join(b, bt, o, shard, a, c, quant=quant)
+
+    def plain(b, bt, o, a, c):
+        return ref.sharded_gather_join_ref(b, bt, o, shard, a, c,
+                                           quant=quant)
+
+    before = dict(kernel.LAUNCHES)
+    kernel_ms = device_ms(torch, launch, cold)
+    warm_ms = device_ms(torch, launch, [(block, border, owner, rs, rt)])
+    call_ms = event_ms(torch, lambda: launch(block, border, owner, rs, rt),
+                       200)
+    kernel.LAUNCHES.update(before)      # timing launches are not the path's
+    vec, lanes = kernel.sharded_join_layout(block, border, rs.shape[0])
+    plain_ms = device_ms(torch, plain, cold)
+    library_ms = None
+    if quant is None:
+        # the rows the plain version gathers, pads and selects, per copy
+        rows = [ref.sharded_gather_rows(b, bt, a, c)
+                for b, bt, _, a, c in cold]
+        library_ms = device_ms(torch, lambda s_, t_: torch.amin(s_ + t_, 1),
+                               rows)
+        del rows
+    copies = len(cold)
+    del cold
+    bound_ms = max(bytes_ms, ops_ms)
+    return {"shape": name, "kernel": "label_join_sharded",
+            "q": int(rs.shape[0]), "w": int(block.shape[1]),
+            "border_w": int(border.shape[1]), "itemsize": block.element_size(),
+            "owned_lanes": int((owner == shard).sum()),
+            "bytes": nbytes, "ops": ops_, "copies": copies,
+            "rows_from_hbm": from_hbm, "vec_bytes": vec, "lanes": lanes,
+            "kernel_ms": kernel_ms, "l2_warm_ms": warm_ms,
+            "wrapper_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound_ms / kernel_ms if from_hbm else None}
+
+
+def phase_sharded_times(torch, shapes: dict) -> dict:
+    from repro_torch.kernels.label_join import kernel, ref
+    rows = [time_sharded_shape(torch, kernel, ref, name, *args)
+            for name, args in shapes.items()]
+    return {"phase": "sharded_times", "timer": "device ms per shard launch "
+            "from CUDA-graph replays timed with CUDA events, cycling through "
+            "copies of the inputs so rows come from HBM (rows_from_hbm); "
+            "bound: owner + row ids of every lane, the distinct rows the "
+            "shard's own lanes read, the output, at 3.35 TB/s; library: "
+            "torch.amin of the sums of the rows the plain version gathers "
+            "(every lane, gathered beforehand; float32 only)", "rows": rows,
+            "ok": True}
+
+
 def phase_times(torch, state: dict, shapes: dict) -> dict:
     from repro_torch.kernels.label_join import kernel, ref
 
@@ -1704,14 +2128,8 @@ def phase_times(torch, state: dict, shapes: dict) -> dict:
         before = kernel.LAUNCHES["label_join"]
         svc.submit(ss, ts, client_districts=client)
         per_submit[label] = kernel.LAUNCHES["label_join"] - before
-        samples = []
-        for _ in range(30):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            svc.submit(ss, ts, client_districts=client)
-            samples.append((time.perf_counter() - t0) * 1e3)
-        latency[label] = {"p50_ms": float(np.percentile(samples, 50)),
-                          "min_ms": float(min(samples))}
+        latency[label] = host_p50_ms(torch, lambda: svc.submit(
+            ss, ts, client_districts=client))
     return {"phase": "times", "timer": "kernel/plain/library: device ms "
             "per call from CUDA-graph replays timed with CUDA events, "
             "cycling through copies of the inputs so rows come from HBM "
@@ -2159,6 +2577,10 @@ KERNELS = {
                    "src/repro/kernels/label_join/kernel.py:63"),
     "label_join_lb": ("lb_window", "label_join/csrc/label_join.cu",
                       "src/repro/kernels/label_join/kernel.py:86"),
+    # join_pallas as ops.py:211 and :259 run it under shard_map
+    "label_join_sharded": ("sharded_e8_rep_float32",
+                           "label_join/csrc/label_join.cu",
+                           "src/repro/kernels/label_join/kernel.py:63"),
     "minplus": ("squaring_above_cap", "minplus/csrc/minplus.cu",
                 "src/repro/kernels/minplus/kernel.py:83"),
     "minplus_closure": ("closure_n4096", "minplus/csrc/minplus.cu",
@@ -2246,9 +2668,19 @@ def main() -> int:
     emit(phase_minplus_kernels(torch, dev, errs))
     serving, state = phase_serving(torch, dev, launches, errs)
     emit(serving)
+    emit(phase_oracle(torch, dev, state, launches))
+    sharded, sharded_shapes = phase_sharded(torch, dev, state, launches, errs)
+    emit(sharded)
     center, center_shapes, large_state, repair_ctx = phase_center(
         torch, dev, errs)
     emit(center)
+    sharded_center, center_sharded_shapes = phase_sharded_center(
+        torch, dev, center_shapes, repair_ctx["partition"], errs)
+    emit(sharded_center)
+    sharded_times = phase_sharded_times(
+        torch, {**sharded_shapes, **center_sharded_shapes})
+    emit(sharded_times)
+    del sharded_shapes, center_sharded_shapes
     cap, cap_states = phase_closure_cap(torch, dev, errs, launches)
     emit(cap)
     shapes = {**state["shapes"], **center_shapes}
@@ -2274,8 +2706,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_times = phase_flash_times(torch, dev, logs)
     emit(flash_times)
-    emit(kernels_line(times["rows"] + builder_times["rows"]
-                      + flash_times["rows"] + fw["rows"], launches, errs))
+    emit(kernels_line(times["rows"] + sharded_times["rows"]
+                      + builder_times["rows"] + flash_times["rows"]
+                      + fw["rows"], launches, errs))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

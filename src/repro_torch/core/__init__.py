@@ -1,5 +1,6 @@
 """Core library of the port: graph substrate, PLL, Border Labeling,
-shortcuts, quantized storage, local indexes and the §4.2 routing rules.
+shortcuts, quantized storage, local indexes, the §4.2 routing rules and
+the paper's ``DistanceOracle`` API.
 
 Host NumPy copies of the matching ``repro.core`` modules (the port
 imports nothing of the JAX package); ``local_index`` additionally keeps
@@ -22,10 +23,13 @@ from .torch_builder import (BuildState, PackedDistricts,
                             build_border_labels_torch, hub_prune_order,
                             pack_districts)
 from .shortcuts import border_shortcut_matrix, shortcut_edges
-from .local_index import LocalIndex, build_local_index
-from .query import (Rule, route, local_bound, certified_local_query,
-                    bucket_by_rule)
+from .local_index import LocalIndex, build_local_index, \
+    build_all_local_indexes
+from .query import (Rule, route, cross_district_query, same_district_query,
+                    local_bound, certified_local_query, bucket_by_rule,
+                    query_batch)
 from .quantize import (LABEL_DTYPES, QuantSpec, dtype_name, fit_label_spec,
                        sentinel_of)
+from .oracle import DistanceOracle, BuildStats
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -143,3 +143,12 @@ def build_local_index(g: Graph, part: Partition, district_id: int,
     labels, verts = pll_subgraph(g, vertices, extra_edges=extra)
     return LocalIndex(district_id, verts, border_locals, labels,
                       augmented=bl is not None, device=device)
+
+
+def build_all_local_indexes(g: Graph, part: Partition,
+                            bl: BorderLabels | None = None,
+                            device: torch.device | str | None = None
+                            ) -> list[LocalIndex]:
+    """Every district's L_i (bl=None) or L_i⁺, serving on ``device``."""
+    return [build_local_index(g, part, i, bl=bl, device=device)
+            for i in range(part.num_districts)]

@@ -12,18 +12,19 @@ center); during a rebuild window (center pushed a new index version,
 shortcuts not yet installed) answers are served from the stale L_i
 under the Theorem-3 certificate (λ ≤ Local Bound ⇒ still exact), and
 the uncertified residue is resolved per the policy's rebuild mode.
-``_current_engine`` snapshots one index version into the replicated
-batched serving engine on the system's device and swaps it whenever the
-center's version moves.
+``_current_engine`` snapshots one index version into a batched serving
+engine — replicated on the system's device, or district-sharded over
+the logical shards of the system's ``EdgeMesh`` — and swaps it whenever
+the center's version or the placement moves.
 
 Everything that holds tensors lives on ``device``: ``deploy(device=None)``
 means the CUDA card and raises without one; ``device="cpu"`` runs the
 kernels' plain versions.  Traffic updates run the paper's full cycle
 or the delta-scoped one (``apply_traffic_update(incremental=True)``),
 topology updates (closures/openings) the scoped structural one; the
-center repairs B on ``device`` either way.  The sharded engines, the
-scatter-gather plane and migration come with later slices (ROADMAP
-Queue 1 items 7–8).
+center repairs B on ``device`` either way.  ``migrate`` installs a new
+district → edge-host placement (``topo.rebalance``).  The scatter-gather
+plane comes with a later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -38,12 +39,19 @@ from ..core.partition import Partition
 from ..device import resolve_device
 from .center import ComputingCenter
 from .server import EdgeServer
+from .sharded_oracle import EdgeMesh, default_edge_mesh
 
 if TYPE_CHECKING:                                   # pragma: no cover
     from ..serve.service import DistanceService, ServingPolicy
 
 # sentinel: "use the EdgeSystem attribute" (None already means auto-pick)
 _SELF = object()
+
+# auto-pick threshold for row-sharding the border table B: replicating B
+# costs n·q·4 bytes per shard and no assembly, so it stays replicated
+# until it is big enough to matter (override per-system with
+# ``EdgeSystem.shard_border``)
+SHARD_BORDER_AUTO_BYTES = 64 << 20
 
 # auto-pick threshold for quantized label storage: once the float32
 # index footprint (B + dense district tables) crosses this, the engines
@@ -61,23 +69,45 @@ class EdgeSystem:
     stats: dict = field(default_factory=lambda: {
         "rule1": 0, "rule2": 0, "rule3": 0, "lb_certified": 0,
         "lb_fallback_attempts": 0})
-    # engine selection: None/False = the replicated engine; True (the
-    # district-sharded engine) raises until the sharded slice lands
+    # engine selection: None = auto (sharded iff the mesh has more than
+    # one shard), True/False = force sharded/replicated
     prefer_sharded: bool | None = None
+    # border-table placement within the sharded engine: None = auto (row-
+    # shard B once its replicated footprint n·q·4 exceeds
+    # SHARD_BORDER_AUTO_BYTES), True/False = force sharded/replicated B.
+    # Only consulted when the sharded engine is selected.
+    shard_border: bool | None = None
     # label storage dtype: None/"auto" = float32 until the index crosses
     # QUANT_AUTO_BYTES and the fitted uint16 spec is lossless;
     # "float32" / "uint16" / "int16" force the storage (an explicit
     # integer dtype is honored even when the fit is lossy)
     label_dtype: str | None = None
-    # steady-state serving engines, snapshots of one index version: one
-    # per label-storage dtype asked for, all dropped when the version
-    # moves (the only engine cache; services ask it on every plan)
+    # district → edge-host routing table (topo.rebalance); None = the
+    # blocked default layout.  ``migrate`` swaps it atomically — its key
+    # joins every engine cache key, so the next batch routes on the new
+    # table while in-flight batches keep the snapshot (= the old owner)
+    # they started with
+    placement: object | None = None
+    # the logical edge shards of the sharded engine (the port's
+    # counterpart of the JAX runtime's device list); None =
+    # ``default_edge_mesh(device=self.device)``
+    mesh: EdgeMesh | None = None
+    # steady-state serving engines, snapshots of one index version and
+    # placement: one per label dtype and layout asked for, all dropped
+    # when the version or the placement moves (the only engine cache;
+    # services ask it on every plan)
     _engines: dict = field(default_factory=dict, repr=False)
     _engines_version: tuple | None = field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.center.device
+
+    def edge_mesh(self) -> EdgeMesh:
+        """The system's ``mesh``, or the default one on its device."""
+        if self.mesh is not None:
+            return self.mesh
+        return default_edge_mesh(device=self.device)
 
     @classmethod
     def deploy(cls, g: Graph, part: Partition, builder: str = "reference",
@@ -207,6 +237,33 @@ class EdgeSystem:
                 "stale_shortcut_districts": sorted(stale),
                 "clean_districts": clean}
 
+    def migrate(self, plan_or_placement) -> dict:
+        """Install a new district → host placement atomically (the
+        ``RebalancePlanner`` execute step).
+
+        The placement key joins every engine cache key, so the swap is a
+        pointer write: batches planned after this call route on the new
+        table (the next ``_current_engine`` call re-packs the blocks —
+        districts' cached dense tables are copied, not recomputed);
+        batches already in flight keep the engine snapshot — and
+        therefore the old owner — they started with.  Index versions are
+        untouched, so exactness is preserved through the swap."""
+        plan = plan_or_placement
+        placement = getattr(plan, "placement", plan)
+        m = self.partition.num_districts
+        if placement.num_districts != m:
+            raise ValueError(f"placement covers {placement.num_districts} "
+                             f"districts, system has {m}")
+        old = self.placement
+        self.placement = placement
+        return {"placement_version": placement.version,
+                "num_hosts": placement.num_hosts,
+                "moved_districts":
+                    [] if old is None and plan is placement
+                    else [mv.district for mv in getattr(plan, "moves", ())],
+                "previous_version":
+                    None if old is None else old.version}
+
     def service(self, policy: "ServingPolicy | None" = None
                 ) -> "DistanceService":
         """A typed request-plane front door over this system (see
@@ -242,40 +299,79 @@ class EdgeSystem:
         return fit_label_spec(btable, locals_,
                               dtype=LABEL_DTYPES[label_dtype])
 
-    def _current_engine(self, prefer_sharded=_SELF, label_dtype=_SELF):
+    def _current_engine(self, prefer_sharded=_SELF, shard_border=_SELF,
+                        label_dtype=_SELF):
         """Engine snapshot for the current index version, or None while
-        any district's shortcuts are stale (rebuild window): the
-        replicated ``BatchedQueryEngine`` on the system's device.
-        ``label_dtype`` picks the storage dtype (see ``_resolve_quant``);
-        arguments take precedence over the instance attributes."""
+        any district's shortcuts are stale (rebuild window). A one-shard
+        mesh gets the replicated ``BatchedQueryEngine`` on the system's
+        device; a mesh of more shards shards the district tables over
+        them (``ShardedBatchedEngine``), and within the sharded engine B
+        itself is row-sharded once its replicated footprint crosses
+        SHARD_BORDER_AUTO_BYTES. ``label_dtype`` picks the storage dtype
+        (see ``_resolve_quant``). ``prefer_sharded`` / ``shard_border``
+        / ``label_dtype`` override the auto choices (arguments take
+        precedence over the instance attributes; the request plane
+        passes its ``ServingPolicy`` placement through them)."""
         if prefer_sharded is _SELF:
             prefer_sharded = self.prefer_sharded
+        if shard_border is _SELF:
+            shard_border = self.shard_border
         if label_dtype is _SELF:
             label_dtype = self.label_dtype
-        if prefer_sharded:
-            raise NotImplementedError(
-                "the sharded engines are not ported yet (ROADMAP Queue 1 "
-                "item 7, sharded layouts)")
         if any(srv.augmented is None
                or srv.augmented_version != self.center.version
                for srv in self.servers):
             return None
+        mesh = self.edge_mesh()
+        num_devices = mesh.size
+        sharded = (num_devices > 1 if prefer_sharded is None
+                   else bool(prefer_sharded))
+        btable = self.center.border_labels.table
+        shard_border = sharded and (
+            btable.size * 4 > SHARD_BORDER_AUTO_BYTES
+            if shard_border is None else bool(shard_border))
+        # the placement maps districts to edge hosts; it becomes the
+        # shard layout when the host and shard counts line up (one host
+        # a shard), and joins the key either way so a migration always
+        # swaps the snapshot
+        placement = self.placement
+        pkey = None if placement is None else placement.key()
+        host_of = placement.host_of \
+            if placement is not None \
+            and placement.num_hosts == num_devices else None
         version = (self.center.version,
-                   tuple(srv.augmented_version for srv in self.servers))
+                   tuple(srv.augmented_version for srv in self.servers),
+                   pkey)
         if self._engines_version != version:
             # drop the stale engines' device tables BEFORE building a
             # replacement: holding both doubles peak device memory
             self._engines.clear()
             self._engines_version = version
+        # replicated: one engine a storage dtype; sharded: at most one
+        # resident, keyed by dtype, B layout and mesh (shard count)
         key = label_dtype or "auto"
+        if sharded:
+            key = (key, shard_border, num_devices, mesh)
         engine = self._engines.get(key)
         if engine is None:
-            from .engine import BatchedQueryEngine
-            engine = self._engines[key] = BatchedQueryEngine(
-                self.center.border_labels.table,
-                [srv.augmented for srv in self.servers],
-                self.partition.assignment,
-                quant=self._resolve_quant(label_dtype), device=self.device)
+            from .engine import BatchedQueryEngine, ShardedBatchedEngine
+            quant = self._resolve_quant(label_dtype)
+            locals_ = [srv.augmented for srv in self.servers]
+            if sharded:
+                # drop the other sharded snapshot first, as the stale
+                # ones above: E shards' tables are the layout whose
+                # purpose is memory, and two of them double its peak
+                for k in [k for k in self._engines if isinstance(k, tuple)]:
+                    del self._engines[k]
+                engine = ShardedBatchedEngine(
+                    btable, locals_, self.partition.assignment, mesh=mesh,
+                    axis=mesh.axis, shard_border=shard_border, quant=quant,
+                    placement=host_of)
+            else:
+                engine = BatchedQueryEngine(
+                    btable, locals_, self.partition.assignment, quant=quant,
+                    device=self.device)
+            self._engines[key] = engine
         return engine
 
     def current_engine(self):

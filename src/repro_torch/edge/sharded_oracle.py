@@ -1,13 +1,20 @@
-"""Host layout of the serving tables (districts → devices).
+"""Districts → shards: the edge deployment mapped onto an ``EdgeMesh``.
 
-A copy of the host half of ``repro.edge.sharded_oracle``:
-``ShardedOracleData``, ``pack_tables`` and ``prepare_queries``. Every
-device of an edge mesh owns a *blocked* slice of the combined
-hub-aligned district tables — ``dpd = ceil(m / E)`` districts per
-device, every district densified to the same ``(kmax, W)`` layout — plus
-the border-label table B, replicated at its natural width q or
-row-sharded. The replicated engine (``edge.engine``) is the one-device
-case with ``combined=True``: districts and B in one buffer.
+The port of ``repro.edge.sharded_oracle``. Every logical shard of an
+edge mesh plays the role of a group of edge servers: it owns a *blocked*
+slice of the combined hub-aligned district tables — ``dpd = ceil(m / E)``
+districts per shard, every district densified to the same ``(kmax, W)``
+layout — plus the border-label table B, replicated at its natural width
+q or row-sharded (``ceil(n/E)`` rows a shard). The replicated engine
+(``edge.engine``) is the one-shard case with ``combined=True``:
+districts and B in one buffer.
+
+``EdgeMesh`` is the port's form of the reference's 1-D ``edge`` mesh: E
+logical shards, each with a torch device (on one card all of them), and
+the MIN-reduce seam that stands in for ``jax.lax.pmin`` over the axis.
+On one process the seam is an elementwise ``torch.minimum`` fold over
+the shards' partials, written as one method so that a process group's
+``all_reduce(op=MIN)`` can take its place.
 
 A query batch is preprocessed on the host into (owner, row)
 coordinates:
@@ -18,17 +25,26 @@ coordinates:
   rule 3   — owner = the device holding the *source* district, row =
              the vertex's row in B (offset past the district block).
 
-The mesh dispatch over these coordinates (``make_sharded_query_fn``,
-``default_edge_mesh``) comes with the sharded-layouts slice.
+then one dispatch answers the whole mixed-rule batch: each shard runs
+the sharded gather-join kernel over [its district block; B], masking
+lanes it does not own to +inf, and the MIN seam assembles the answer
+vector (``make_sharded_query_fn``). This is the §4.2 routing with a
+MIN-reduce instead of RPCs.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from ..core.labels import BorderLabels
 from ..core.local_index import LocalIndex
+from ..core.partition import Partition
 from ..core.quantize import QuantSpec
+from ..device import resolve_device
+from ..kernels.label_join import ops as lj
 
 INF = np.float32(np.inf)
 
@@ -239,3 +255,127 @@ def prepare_queries(data: ShardedOracleData, ss: np.ndarray,
     rs = np.where(cross, data.cross_base + ss, slot_base + data.local_pos[ss])
     rt = np.where(cross, data.cross_base + ts, slot_base + data.local_pos[ts])
     return {"owner": data.device_of[ds], "rs": rs, "rt": rt}
+
+
+def pack_for_mesh(part: Partition, bl: BorderLabels,
+                  locals_: list[LocalIndex], num_devices: int, *,
+                  shard_border: bool = False,
+                  quant: QuantSpec | None = None) -> ShardedOracleData:
+    """Paper-facing wrapper: pack a built index for an E-shard edge mesh."""
+    return pack_tables(bl.table.astype(np.float32), locals_,
+                       part.assignment, num_devices,
+                       shard_border=shard_border, quant=quant)
+
+
+@dataclass(frozen=True, eq=False)
+class EdgeMesh:
+    """E logical edge shards, shard d on ``devices[d]``, and the MIN seam
+    over them (the reference's 1-D ``Mesh`` with one named axis)."""
+    devices: tuple[torch.device, ...]
+    axis: str = "edge"
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {self.axis: len(self.devices)}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def pmin(self, partials: list[torch.Tensor]) -> torch.Tensor:
+        """Elementwise minimum of the shards' partials, one each, on the
+        first shard's device — the ``pmin`` over the axis. In one
+        process it is a ``torch.minimum`` fold; across processes each
+        rank would hold one partial and this is ``all_reduce(op=MIN)``."""
+        if len(partials) != self.size:
+            raise ValueError(f"pmin takes one partial a shard ({self.size})"
+                             f", got {len(partials)}")
+        dev = self.devices[0]
+        return functools.reduce(torch.minimum,
+                                (x.to(dev) for x in partials))
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_cache(num_devices: int, axis: str,
+                device: torch.device) -> EdgeMesh:
+    return EdgeMesh((device,) * num_devices, axis)
+
+
+def default_edge_mesh(num_devices: int | None = None, axis: str = "edge",
+                      device: torch.device | str | None = None) -> EdgeMesh:
+    """1-D edge mesh of ``num_devices`` logical shards, all on ``device``
+    (None = the CUDA card). ``num_devices=None`` counts the CUDA devices
+    (1 on a one-card machine), 1 on the CPU. Cached: the same arguments
+    give the same mesh object, so caches keyed on it stay warm."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if num_devices is None:
+        num_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if num_devices < 1:
+        raise ValueError(f"an edge mesh needs >= 1 shard, got {num_devices}")
+    return _mesh_cache(int(num_devices), axis, dev)
+
+
+def place_tables(data: ShardedOracleData, mesh: EdgeMesh
+                 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Shard d's district block and share of B, each uploaded once to
+    ``mesh.devices[d]``: rows ``d·dpd·kmax ..`` of the district table,
+    and all of B (replicated) or its ``d``-th row-slice (row-sharded).
+    On one card the device holds E times one shard."""
+    e = data.num_devices
+    if mesh.size != e:
+        raise ValueError(f"tables packed for {e} shards, mesh has "
+                         f"{mesh.size}")
+    rows = data.districts_per_device * data.kmax
+    rpd = data.border_rows_per_device
+    blocks, btables = [], []
+    for d, dev in enumerate(mesh.devices):
+        blocks.append(lj.upload(data.district_table[d * rows:(d + 1) * rows],
+                                dev))
+        bt = data.btable[d * rpd:(d + 1) * rpd] if data.border_sharded \
+            else data.btable
+        btables.append(lj.upload(bt, dev))
+    return blocks, btables
+
+
+def make_sharded_query_fn(mesh: EdgeMesh, axis: str = "edge",
+                          shard_border: bool = False,
+                          quant: tuple[int, float] | None = None):
+    """``fn(blocks, btables, owner, rs, rt)`` bound to ``mesh``: each
+    shard's sharded gather-join over [block; B] + the MIN seam. With
+    ``shard_border`` the btables are the row-sharded B and the touched
+    rows are assembled by ragged gather + the seam first. ``quant`` is a
+    ``QuantSpec.key()`` pair when the tables hold quantized codes.
+    (PyTorch compiles nothing here, so unlike the reference's jitted
+    programs there is nothing to cache.)"""
+    if axis != mesh.axis:
+        raise ValueError(f"mesh axis is {mesh.axis!r}, not {axis!r}")
+    join = lj.join_sharded_border_gathered if shard_border \
+        else lj.join_sharded_gathered
+    return functools.partial(join, mesh=mesh, quant=quant)
+
+
+def upload_queries(queries: dict[str, np.ndarray], mesh: EdgeMesh
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The prepared (owner, rs, rt) as int64 tensors on the mesh's first
+    device (one copy; on one card every shard reads it)."""
+    dev = mesh.devices[0]
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        queries[k], dtype=np.int64)).to(dev) for k in ("owner", "rs", "rt"))
+
+
+def sharded_query(data: ShardedOracleData, mesh: EdgeMesh,
+                  queries: dict[str, np.ndarray],
+                  axis: str = "edge") -> np.ndarray:
+    """One-shot deployment entry point (tests / notebooks): place the
+    packed tables on the mesh and answer one prepared batch. Serving hot
+    paths should hold a ``ShardedBatchedEngine`` instead, which keeps the
+    tables device-resident across batches."""
+    if len(queries["rs"]) == 0:
+        return np.zeros(0, dtype=np.float32)
+    fn = make_sharded_query_fn(
+        mesh, axis, shard_border=data.border_sharded,
+        quant=data.quant.key() if data.quant is not None else None)
+    blocks, btables = place_tables(data, mesh)
+    return fn(blocks, btables, *upload_queries(queries, mesh)).cpu().numpy()

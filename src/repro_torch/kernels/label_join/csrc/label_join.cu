@@ -46,6 +46,24 @@
 //     partial mins and the group's first lane writes the result.
 // A row id outside its table yields +inf instead of a fault (the Python
 // wrapper rejects such ids before launching).
+//
+// sharded_join_kernel is one logical edge shard's half of the sharded
+// serving join: it replaces join_pallas as the JAX package runs it under
+// shard_map in kernels/label_join/ops.py (join_sharded_gathered and
+// join_sharded_border_gathered), with the gathers, the pad to W and the
+// select in front of it; the MIN over the shards stays outside. It reads
+// from two sources of different widths: a row id r < block_rows is row r
+// of the shard's district block (pitch W), any other row id a row of the
+// border table (pitch bw <= W), row r - block_rows (for the row-sharded
+// B the caller assembles the touched rows into a (2Q, bw) buffer and
+// points query i's ids at its rows i and Q + i). Lanes >= bw of a border
+// row are the reference's padding (+inf, or the sentinel), which never
+// win the min, so the fold runs over W lanes when both rows come from the
+// block and over the first bw lanes otherwise: bit for bit the padded
+// join. A query whose owner is another shard is +inf and loads no row.
+// Same memory bound, same group-of-lanes design as gather_join_kernel;
+// the vector width is the widest that both pitches and both base
+// addresses allow.
 
 #include <atomic>
 #include <cstdint>
@@ -196,6 +214,47 @@ gather_join_kernel(const T* __restrict__ s_table,
                            lb);
 }
 
+// Shard `shard`'s half of the sharded join (see the header). Block b
+// serves queries b * (kThreads >> group_log2) onward, one a group of
+// 1 << group_log2 lanes.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+sharded_join_kernel(const T* __restrict__ block, int64_t block_rows,
+                    int64_t w, const T* __restrict__ border,
+                    int64_t border_rows, int64_t bw,
+                    const int64_t* __restrict__ owner, int64_t shard,
+                    const int64_t* __restrict__ rs,
+                    const int64_t* __restrict__ rt, int64_t q, int group_log2, float scale, float* __restrict__ out) {
+  using VT = typename VecOf<V>::type;
+  constexpr int kElems = V / static_cast<int>(sizeof(T));
+  const int group = 1 << group_log2;
+  const int lane = threadIdx.x & (group - 1);
+  const int wvec = static_cast<int>(w / kElems);    // vectors a block row
+  const int bvec = static_cast<int>(bw / kElems);   // vectors a border row
+  const int64_t query = (static_cast<int64_t>(blockIdx.x) * kThreads +
+                         threadIdx.x) >> group_log2;
+  const float inf = inf_f();
+  float acc = inf, smin = inf, tmin = inf;
+  if (query < q) {
+    // three independent loads: one memory latency before the rows
+    const int64_t own = owner[query];
+    const int64_t r_s = rs[query];
+    const int64_t r_t = rt[query];
+    const bool s_blk = r_s < block_rows, t_blk = r_t < block_rows;
+    const int64_t b_s = r_s - block_rows, b_t = r_t - block_rows;
+    const VT* bvecs = reinterpret_cast<const VT*>(block);
+    const VT* rvecs = reinterpret_cast<const VT*>(border);
+    if (own == shard && r_s >= 0 && r_t >= 0 &&
+        (s_blk || b_s < border_rows) && (t_blk || b_t < border_rows))
+      fold_rows<T, false, V>(s_blk ? bvecs + r_s * wvec : rvecs + b_s * bvec,
+                             t_blk ? bvecs + r_t * wvec : rvecs + b_t * bvec,
+                             s_blk && t_blk ? wvec : bvec, lane, group, acc,
+                             smin, tmin);
+  }
+  reduce_store<T, false>(acc, smin, tmin, group, lane, query, q, scale, out,
+                         nullptr);
+}
+
 constexpr int kMaxDevices = 64;
 
 // the SM count of `device`, read once per device
@@ -245,36 +304,37 @@ Launch pick(int vec) {
   }
 }
 
-// The load layout of a join of q queries over rows of w items of `item`
-// bytes on `sms` SMs: the widest vector (16, 8, 4 bytes, or 2 for 16-bit
-// codes) dividing the row pitch and both tables' base addresses, and the
-// lanes a query: `lanes` if nonzero, else the fewest (a power of two, at
-// most 32) that load each row in at most kUnroll vectors a lane. A batch
-// too small to fill the card is latency-bound, so it takes more: doubled
-// (up to 4x) while its blocks would leave SMs idle, then doubled while a
-// lane would load more than 32 bytes of a row and twice the threads
-// would still fit that bound; more lanes a query lengthen its shuffle
-// reduction, which a short row does not repay (the H100's best at the
-// engine's, the center's and the rebuild window's batches).
-// False where `lanes` is not a power of two in [1, 32].
-bool layout(int64_t item, const void* s_table, const void* t_table,
-            int64_t w, int64_t q, int lanes, int sms, int* vec, int* group) {
-  const int64_t pitch = w * item;
-  *vec = 0;
+// The widest vector (16, 8, 4 bytes, or 2 for 16-bit codes) dividing
+// every pitch and base address given; 0 where none does.
+int widest_vec(int64_t item, std::initializer_list<int64_t> pitches,
+               std::initializer_list<const void*> bases) {
   for (int v : {16, 8, 4, 2}) {
-    if (v >= item && pitch % v == 0 &&
-        reinterpret_cast<uintptr_t>(s_table) % v == 0 &&
-        reinterpret_cast<uintptr_t>(t_table) % v == 0) {
-      *vec = v;
-      break;
-    }
+    bool fits = v >= item;
+    for (int64_t p : pitches) fits = fits && p % v == 0;
+    for (const void* b : bases)
+      fits = fits && reinterpret_cast<uintptr_t>(b) % v == 0;
+    if (fits) return v;
   }
-  if (*vec == 0) return false;
+  return 0;
+}
+
+// The lanes a query of q on `sms` SMs, for rows of `pitch` bytes read in
+// `vec`-byte vectors: `lanes` if nonzero, else the fewest (a power of
+// two, at most 32) that load each row in at most kUnroll vectors a lane.
+// A batch too small to fill the card is latency-bound, so it takes more:
+// doubled (up to 4x) while its blocks would leave SMs idle, then doubled
+// while a lane would load more than 32 bytes of a row and twice the
+// threads would still fit that bound; more lanes a query lengthen its
+// shuffle reduction, which a short row does not repay (the H100's best at
+// the engine's, the center's and the rebuild window's batches).
+// False where `lanes` is not a power of two in [1, 32].
+bool lanes_for(int64_t pitch, int vec, int64_t q, int lanes, int sms,
+               int* group) {
   if (lanes != 0) {
     *group = lanes;
     return lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
   }
-  const int64_t want = (pitch / *vec + kUnroll - 1) / kUnroll;
+  const int64_t want = (pitch / vec + kUnroll - 1) / kUnroll;
   int g = 1;
   while (g < want && g < 32) g *= 2;
   const int cap = g * 4 < 32 ? g * 4 : 32;
@@ -283,6 +343,69 @@ bool layout(int64_t item, const void* s_table, const void* t_table,
   while (g < 32 && pitch > 32 * g && q * g < 2 * threads) g *= 2;
   *group = g;
   return true;
+}
+
+// The load layout of a join of q queries over rows of w items of `item`
+// bytes: the widest vector dividing the row pitch and both tables' base
+// addresses, and the lanes a query for that pitch.
+bool layout(int64_t item, const void* s_table, const void* t_table,
+            int64_t w, int64_t q, int lanes, int sms, int* vec, int* group) {
+  const int64_t pitch = w * item;
+  *vec = widest_vec(item, {pitch}, {s_table, t_table});
+  return *vec != 0 && lanes_for(pitch, *vec, q, lanes, sms, group);
+}
+
+using ShardedLaunch = cudaError_t (*)(const void*, int64_t, int64_t,
+                                      const void*, int64_t, int64_t,
+                                      const int64_t*, int64_t, const int64_t*,
+                                      const int64_t*, int64_t, int, float,
+                                      float*, cudaStream_t);
+
+template <typename T, int V>
+cudaError_t launch_sharded(const void* block, int64_t block_rows, int64_t w,
+                           const void* border, int64_t border_rows,
+                           int64_t bw, const int64_t* owner, int64_t shard,
+                           const int64_t* rs, const int64_t* rt, int64_t q,
+                           int group_log2, float scale, float* out,
+                           cudaStream_t stream) {
+  const int64_t per_block = kThreads >> group_log2;
+  const int64_t blocks = (q + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  sharded_join_kernel<T, V>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          static_cast<const T*>(block), block_rows, w,
+          static_cast<const T*>(border), border_rows, bw, owner, shard, rs,
+          rt, q, group_log2, scale, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+ShardedLaunch pick_sharded(int vec) {
+  switch (vec) {
+    case 16: return launch_sharded<T, 16>;
+    case 8: return launch_sharded<T, 8>;
+    case 4: return launch_sharded<T, 4>;
+    case 2:
+      if constexpr (sizeof(T) == 2) return launch_sharded<T, 2>;
+      return nullptr;
+    default: return nullptr;
+  }
+}
+
+// the SM count of the current device
+int current_sms() {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return 0;
+  return sm_count(device);
+}
+
+// The sharded join's layout on the current device: the widest vector
+// both sources allow, the lanes of a block row (the longest fold).
+bool sharded_layout(int64_t item, const void* block, const void* border,
+                    int64_t w, int64_t bw, int64_t q, int* vec, int* group) {
+  const int sms = current_sms();
+  *vec = widest_vec(item, {w * item, bw * item}, {block, border});
+  return sms > 0 && *vec != 0 && lanes_for(w * item, *vec, q, 0, sms, group);
 }
 
 }  // namespace
@@ -344,6 +467,52 @@ extern "C" int repro_label_join_layout(int dtype, const void* s_table,
   }
   if (sms <= 0 || !layout(dtype == 0 ? 4 : 2, s_table, t_table, w, q, lanes,
                           sms, layout_out, layout_out + 1))
+    return cudaErrorInvalidValue;
+  return 0;
+}
+
+// One logical shard's half of the sharded join (sharded_join_kernel).
+//   dtype, sentinel, scale: as repro_label_join
+//   block: (block_rows, w) district block; border: (border_rows, bw) border
+//          table, bw <= w; owner, rs, rt: q int64 each; shard: this shard
+// Returns the cudaError_t of the launch (0 = launched). q must be > 0.
+extern "C" int repro_label_join_sharded(int dtype, const void* block,
+                                        int64_t block_rows,
+                                        int64_t w, const void* border,
+                                        int64_t border_rows, int64_t bw,
+                                        const void* owner, int64_t shard,
+                                        const void* rs, const void* rt,
+                                        int64_t q, int sentinel, float scale,
+                                        void* out, void* stream) {
+  const int64_t item = dtype == 0 ? 4 : 2;
+  if (q <= 0 || w < 0 || w > 0x7fffffffLL || bw < 0 || bw > w ||
+      (dtype == 1 && sentinel != 0xFFFF) || (dtype == 2 && sentinel != 0x7FFF))
+    return cudaErrorInvalidValue;
+  int vec = 0, group = 0;
+  if (!sharded_layout(item, block, border, w, bw, q, &vec, &group))
+    return cudaErrorInvalidValue;
+  ShardedLaunch fn = dtype == 0   ? pick_sharded<float>(vec)
+                     : dtype == 1 ? pick_sharded<uint16_t>(vec)
+                     : dtype == 2 ? pick_sharded<int16_t>(vec)
+                                  : nullptr;
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  int group_log2 = 0;
+  while ((1 << group_log2) < group) ++group_log2;
+  return fn(block, block_rows, w, border, border_rows, bw,
+            static_cast<const int64_t*>(owner), shard,
+            static_cast<const int64_t*>(rs), static_cast<const int64_t*>(rt),
+            q, group_log2, scale, static_cast<float*>(out),
+            static_cast<cudaStream_t>(stream));
+}
+
+// The layout repro_label_join_sharded picks for these arguments on the
+// current device, as repro_label_join_layout reports it.
+extern "C" int repro_label_join_sharded_layout(int dtype, const void* block,
+                                               const void* border, int64_t w,
+                                               int64_t bw, int64_t q,
+                                               int* layout_out) {
+  if (!sharded_layout(dtype == 0 ? 4 : 2, block, border, w, bw, q,
+                      layout_out, layout_out + 1))
     return cudaErrorInvalidValue;
   return 0;
 }

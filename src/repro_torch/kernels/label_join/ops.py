@@ -12,6 +12,14 @@ path of the port (anchors refer to PAPER.md / the source paper):
   kernel).
 * ``join_with_bound`` / ``bound_gathered`` — the fused λ + Local Bound
   (Definition 5) pass that certifies Theorem 3.
+* ``join_sharded_gathered`` — the mesh-sharded §4.2 dispatch: district
+  blocks sharded over the logical shards of an ``EdgeMesh``, the border
+  table replicated at its natural width q; one launch of the sharded
+  kernel a shard, then the mesh's MIN seam over the shards' partials.
+* ``join_sharded_border_gathered`` — the fully-sharded variant: B itself
+  is row-sharded; the touched rows are assembled by a ragged gather
+  (plain torch, as the reference's XLA) and the MIN seam, then joined
+  like the replicated case.
 * ``join_quantized`` / ``join_quantized_gathered`` — the same joins over
   uint16/int16 ``core.quantize`` codes: the min runs in raw code units
   with one final ``· scale``, so a lossless spec serves bit-for-bit the
@@ -30,12 +38,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernel import gather_join
-from .ref import INF_I32, join_sparse_ref
+from .kernel import gather_join, sharded_gather_join
+from .ref import INF_I32, join_sparse_ref, pad_value, storage16
 
 __all__ = ["INF_I32", "join", "join_with_bound", "join_quantized",
            "join_sparse", "join_gathered", "join_quantized_gathered",
-           "join_sparse_gathered", "bound_gathered", "upload"]
+           "join_sparse_gathered", "bound_gathered", "upload",
+           "join_sharded_gathered", "join_sharded_border_gathered",
+           "assemble_border_rows"]
 
 
 def upload(table: np.ndarray, device: torch.device | str) -> torch.Tensor:
@@ -148,3 +158,102 @@ def bound_gathered(border_dist, ss: np.ndarray,
     rt = _ids(ts, border_dist.shape[0], border_dist.device)
     _, lb = gather_join(border_dist, rs, border_dist, rt, with_lb=True)
     return lb.cpu().numpy()
+
+
+def join_sharded_gathered(blocks: list[torch.Tensor],
+                          btables: list[torch.Tensor], owner: torch.Tensor,
+                          rs: torch.Tensor, rt: torch.Tensor, *, mesh,
+                          quant: tuple[int, float] | None = None
+                          ) -> torch.Tensor:
+    """Mesh-sharded serving join, B replicated. ``blocks[d]`` is shard
+    d's slice of the district tables (width W) and ``btables[d]`` its
+    copy of the border table at its natural width q ≤ W, both on
+    ``mesh.devices[d]``; ``owner``/``rs``/``rt`` are the host routing
+    pass's coordinates (row ids ≥ ``blocks[d].shape[0]`` read B). Each
+    shard joins the lanes it owns — one sharded-kernel launch — and the
+    mesh's MIN seam (``mesh.pmin``, the reference's ``pmin`` over the
+    axis) assembles the float32 answer vector.
+
+    With ``quant=(sentinel, scale)`` the tables hold ``core.quantize``
+    codes; the answers are float32 either way."""
+    partials = []
+    for d, (block, btable) in enumerate(zip(blocks, btables)):
+        dev = block.device
+        partials.append(sharded_gather_join(
+            block, btable, owner.to(dev), d, rs.to(dev), rt.to(dev),
+            quant=quant))
+    return mesh.pmin(partials)
+
+
+def _unsigned_order(codes: torch.Tensor,
+                    quant: tuple[int, float] | None) -> torch.Tensor:
+    """uint16 codes are stored as int16 bits, which a signed minimum
+    orders 0x8000–0xFFFF below 0: flipping the sign bit maps unsigned
+    order onto signed order (and flips back)."""
+    if quant is None or quant[0] != 0xFFFF:
+        return codes
+    return torch.bitwise_xor(codes, -0x8000)
+
+
+def assemble_border_rows(bshards: list[torch.Tensor], rs: torch.Tensor,
+                         rt: torch.Tensor, cross_base: int, *, mesh,
+                         quant: tuple[int, float] | None = None
+                         ) -> torch.Tensor:
+    """The row-sharded B's touched rows, assembled: each shard gathers
+    the rows it owns of row ids ``rs`` then ``rt`` (ids ≥ ``cross_base``
+    mean row ``id - cross_base`` of B; the other lanes get the min
+    identity: +inf, or the sentinel for codes), and ONE (2·batch, q) MIN
+    seam over the shards leaves every touched row — s rows first, then
+    t rows. Plain torch, as the reference's ragged gather is XLA; for
+    uint16 codes the seam compares unsigned (``_unsigned_order``)."""
+    rows_pd = bshards[0].shape[0]   # = ceil(n/E) ≥ 1 whenever n ≥ 1
+    both_rows = torch.cat([rs, rt])
+    parts = []
+    for d, bshard in enumerate(bshards):
+        bshard = storage16(bshard)
+        rows = both_rows.to(bshard.device)
+        local = rows < cross_base
+        gid = torch.where(local, 0, rows - cross_base)
+        own = (~local) & (gid // rows_pd == d)
+        vals = bshard[torch.where(own, gid % rows_pd, 0)]
+        parts.append(_unsigned_order(
+            torch.where(own[:, None], vals, pad_value(quant, bshard)),
+            quant))
+    return _unsigned_order(mesh.pmin(parts), quant)
+
+
+def assembled_row_ids(rs: torch.Tensor, rt: torch.Tensor, cross_base: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row ids that point query i's border rows at the assembled buffer
+    of ``assemble_border_rows``: row i (s side) and row Q + i (t side),
+    offset past the block as every border id is; block ids stay."""
+    lanes = torch.arange(rs.shape[0], dtype=torch.int64, device=rs.device)
+    return (torch.where(rs < cross_base, rs, cross_base + lanes),
+            torch.where(rt < cross_base, rt, cross_base + rs.shape[0] + lanes))
+
+
+def join_sharded_border_gathered(blocks: list[torch.Tensor],
+                                 bshards: list[torch.Tensor],
+                                 owner: torch.Tensor, rs: torch.Tensor,
+                                 rt: torch.Tensor, *, mesh,
+                                 quant: tuple[int, float] | None = None
+                                 ) -> torch.Tensor:
+    """Fully-sharded serving join: like ``join_sharded_gathered`` but
+    the border table is ROW-SHARDED too — ``bshards[d]`` is shard d's
+    ``ceil(n/E)`` row-slice of B at natural width q. Row ids keep the
+    replicated convention (≥ ``blocks[d].shape[0]`` means "row v of B").
+    The touched B rows are assembled first (``assemble_border_rows``:
+    ragged gather + the MIN seam) and the ids pointed at them
+    (``assembled_row_ids``); then one sharded-kernel launch a shard
+    joins its lanes against them, and the seam assembles the answers."""
+    cross_base = blocks[0].shape[0]
+    assembled = assemble_border_rows(bshards, rs, rt, cross_base,
+                                     mesh=mesh, quant=quant)
+    rs, rt = assembled_row_ids(rs, rt, cross_base)
+    partials = []
+    for d, block in enumerate(blocks):
+        dev = block.device
+        partials.append(sharded_gather_join(
+            block, assembled.to(dev), owner.to(dev), d, rs.to(dev),
+            rt.to(dev), quant=quant))
+    return mesh.pmin(partials)

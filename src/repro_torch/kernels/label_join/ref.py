@@ -105,3 +105,59 @@ def gather_join_ref(s_table: torch.Tensor, rs: torch.Tensor,
     # one rounding of each float32 result, as the reference's kernels
     return tuple(x.to(s_table.dtype) for x in out) if with_lb \
         else out.to(s_table.dtype)
+
+
+def pad_value(quant: tuple[int, float] | None, like: torch.Tensor
+              ) -> torch.Tensor:
+    """The min identity of a table's storage as a 0-d tensor: +inf for
+    float32 rows, the sentinel (as int16 bits) for 16-bit codes."""
+    if quant is None:
+        return torch.full((), float("inf"), dtype=like.dtype,
+                          device=like.device)
+    bits = int(np.array(quant[0], dtype=np.uint16).view(np.int16))
+    return torch.full((), bits, dtype=torch.int16, device=like.device)
+
+
+def sharded_gather_rows(block: torch.Tensor, border: torch.Tensor,
+                        rs: torch.Tensor, rt: torch.Tensor, *,
+                        quant: tuple[int, float] | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (Q, W) rows a sharded join reads, as the JAX package gathers
+    them: ids below ``block.shape[0]`` from the block, the rest from the
+    border table (row ``r - block.shape[0]``), the border rows padded to
+    the block's width W with the min identity."""
+    block, border = storage16(block), storage16(border)
+    cross_base = block.shape[0]
+    wpad = block.shape[1] - border.shape[1]
+    pad = pad_value(quant, block)
+    qn = rs.shape[0]
+
+    def gather(rows):
+        local = rows < cross_base
+        dist = block[torch.where(local, rows, 0)]
+        bord = border[torch.where(local, 0, rows - cross_base)]
+        if wpad:
+            bord = torch.cat([bord, pad.expand(qn, wpad)], dim=1)
+        return torch.where(local[:, None], dist, bord)
+
+    return gather(rs), gather(rt)
+
+
+def sharded_gather_join_ref(block: torch.Tensor, border: torch.Tensor,
+                            owner: torch.Tensor, shard: int,
+                            rs: torch.Tensor, rt: torch.Tensor, *,
+                            quant: tuple[int, float] | None = None
+                            ) -> torch.Tensor:
+    """Plain version of the sharded gather-join kernel: shard ``shard``'s
+    half of the JAX package's ``join_sharded_gathered`` /
+    ``join_sharded_border_gathered``, step for step — gather, pad and
+    select the rows (``sharded_gather_rows``), join, and mask the lanes
+    another shard owns to +inf. Float32 ``(Q,)`` out."""
+    s_rows, t_rows = sharded_gather_rows(block, border, rs, rt,
+                                         quant=quant)
+    if quant is None:
+        ans = join_ref(s_rows, t_rows)
+    else:
+        ans = join_quantized_ref(s_rows, t_rows, sentinel=quant[0],
+                                 scale=quant[1])
+    return torch.where(owner == shard, ans, float("inf"))

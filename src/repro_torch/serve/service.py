@@ -9,10 +9,12 @@ versions behind one interface.  This module is that interface:
   exactness flag (``exact`` | ``certified_stale`` | ``stale``), the
   index version that answered it, and the dispatch latency.
 * ``ServingPolicy`` — one config object for the serving knobs: engine
-  placement, label storage dtype, and the rebuild-window mode.
+  placement (``auto``/``replicated``/``sharded`` + ``shard_border``),
+  label storage dtype, and the rebuild-window mode.
 * ``QueryPlane`` — the protocol every execution backend implements
   (``execute(ss, ts) -> distances``): the steady-state
-  ``BatchedQueryEngine`` snapshot, the per-bucket ``BucketedPlane``
+  ``BatchedQueryEngine`` / ``ShardedBatchedEngine`` snapshots, the
+  per-bucket ``BucketedPlane``
   (rebuild windows), and the per-query ``ScalarLoopPlane``.
 * ``DistanceService`` — plans a batch onto a plane
   (``plan(batch) -> QueryPlan`` holding the chosen plane), executes it,
@@ -40,10 +42,10 @@ indexes; the rebuild-window modes are the three readings of the paper's
 update discipline (§5): strict consistency via waiting, Theorem-3
 certification, and bounded staleness.
 
-A port of ``repro.serve.service``: the placements ``sharded`` and
-``scatter_gather``, fault plans, the simulator's batching and migration
-knobs and ``DistanceService.batcher`` come with their slices (ROADMAP
-Queue 1 items 7–8). The reference's ``use_kernels=False`` host-NumPy
+A port of ``repro.serve.service``: the placement ``scatter_gather``,
+fault plans, the simulator's batching and migration knobs and
+``DistanceService.batcher`` come with their slice (ROADMAP Queue 1
+item 8). The reference's ``use_kernels=False`` host-NumPy
 path has no counterpart: the joins run where the tables live, and
 ``device="cpu"`` runs their plain versions.
 """
@@ -76,8 +78,7 @@ _EXACTNESS = (EXACT, CERTIFIED_STALE, STALE)
 
 ENGINE_PLACEMENTS = ("auto", "replicated", "sharded", "scatter_gather")
 # placements of the JAX package whose planes are not ported yet
-_NOT_PORTED = {"sharded": "Queue 1 item 7, sharded layouts",
-               "scatter_gather": "Queue 1 item 8, scatter-gather"}
+_NOT_PORTED = {"scatter_gather": "Queue 1 item 8, scatter-gather"}
 LABEL_DTYPE_CHOICES = ("auto", "float32", "uint16", "int16")
 
 _COUNTER_KEYS = ("rule1", "rule2", "rule3", "lb_certified",
@@ -92,10 +93,13 @@ def _fresh_counters() -> dict[str, int]:
 class ServingPolicy:
     """Every serving knob in one immutable config object.
 
-    ``engine`` picks the steady-state plane placement: ``"auto"`` or
-    ``"replicated"`` (the replicated engine; ``"sharded"`` and
-    ``"scatter_gather"`` raise ``NotImplementedError`` until their
-    slices land).  ``rebuild`` is the rebuild-window mode (see module
+    ``engine`` picks the steady-state plane placement: ``"auto"``
+    (defer to the system's override attributes, then the shard-count
+    heuristic), ``"replicated"`` or ``"sharded"`` (``"scatter_gather"``
+    raises ``NotImplementedError`` until its slice lands).
+    ``shard_border`` picks the border-table placement inside the
+    sharded engine (None = defer to the system override / byte-size
+    heuristic).  ``rebuild`` is the rebuild-window mode (see module
     docstring).  ``label_dtype`` picks the label-storage
     dtype: ``"auto"`` (defer to the system attribute, then the
     byte-size heuristic — quantize to uint16 only when the fit is
@@ -104,6 +108,7 @@ class ServingPolicy:
     even when the fit is lossy).
     """
     engine: str = "auto"
+    shard_border: bool | None = None
     rebuild: str = INSTALL_NOW
     label_dtype: str = "auto"
 
@@ -260,8 +265,8 @@ class ResultBatch:
 class QueryPlane(Protocol):
     """Execution backend contract: answer a routed batch.
 
-    Implemented by ``BatchedQueryEngine`` (the steady-state device
-    snapshot), ``BucketedPlane`` (rebuild windows), and
+    Implemented by ``BatchedQueryEngine`` and ``ShardedBatchedEngine``
+    (the steady-state device snapshots), ``BucketedPlane`` (rebuild windows), and
     ``ScalarLoopPlane`` (per-query reference).
     """
 
@@ -450,16 +455,20 @@ class DistanceService:
     # -- planning -----------------------------------------------------------
 
     def _resolve_engine(self):
-        """Steady-state engine snapshot of the policy's storage dtype,
-        asked of the router's cache on every call so that no service
-        keeps a stale engine's device table alive (only called once
-        ``plan`` verified the window is closed)."""
+        """Steady-state engine snapshot per the policy's placement and
+        storage dtype, asked of the router's cache on every call (its
+        key holds the index version and the placement) so that no
+        service keeps a stale engine's device tables alive (only called
+        once ``plan`` verified the window is closed)."""
         p = self.policy
         dtype = (self.system.label_dtype if p.label_dtype == "auto"
                  else p.label_dtype)
-        prefer = (self.system.prefer_sharded if p.engine == "auto"
-                  else False)
+        prefer = {"auto": self.system.prefer_sharded,
+                  "replicated": False, "sharded": True}[p.engine]
+        border = (self.system.shard_border if p.shard_border is None
+                  else p.shard_border)
         return self.system._current_engine(prefer_sharded=prefer,
+                                           shard_border=border,
                                            label_dtype=dtype)
 
     def plan(self, ss: np.ndarray, ts: np.ndarray,

@@ -210,6 +210,105 @@ def test_card_rebuild_window_matches_host(cuda):
         np.testing.assert_array_equal(a.exactness_codes, b.exactness_codes)
 
 
+def _sharded_inputs(cuda, rng, storage, nq, w, bw, offset, assembled,
+                    shards=4):
+    """A (rows, w) district block ``offset`` elements off its alignment,
+    a border table of width bw (the (2Q, bw) assembled rows, or 300
+    rows of B), owners over ``shards`` shards and mixed row ids: both
+    rows from the block, both from B, one of each."""
+    rows = 40
+    if storage == "float32":
+        blk, bord = _rand_dist(rng, (rows, w)), _rand_dist(
+            rng, (2 * nq if assembled else 300, bw))
+        quant, dtype = None, torch.float32
+    else:
+        npdt = np.uint16 if storage == "uint16" else np.int16
+        sentinel = int(np.iinfo(npdt).max)
+        blk = rng.integers(0, sentinel + 1, (rows, w)).astype(npdt)
+        bord = rng.integers(0, sentinel + 1,
+                            (2 * nq if assembled else 300, bw)).astype(npdt)
+        blk[rng.random(blk.shape) < 0.3] = sentinel
+        bord[rng.random(bord.shape) < 0.3] = sentinel
+        blk, bord = blk.view(np.int16), bord.view(np.int16)
+        quant, dtype = (sentinel, 0.25), torch.int16
+    block = _table_at(cuda, dtype, rows, w, offset)
+    block.copy_(torch.from_numpy(blk))
+    border = torch.from_numpy(bord).to(cuda)
+    kind = rng.integers(0, 3, nq)
+    rs = np.where(kind == 1, rows + rng.integers(0, 300, nq),
+                  rng.integers(0, rows, nq))
+    rt = np.where(kind >= 1, rows + rng.integers(0, 300, nq),
+                  rng.integers(0, rows, nq))
+    if assembled:       # row-sharded B: ids point at rows i and Q + i
+        lanes = np.arange(nq)
+        rs = np.where(kind == 1, rows + lanes, rs)
+        rt = np.where(kind >= 1, rows + nq + lanes, rt)
+    owner = rng.integers(0, shards, nq)
+    ids = [torch.from_numpy(x.astype(np.int64)).to(cuda)
+           for x in (owner, rs, rt)]
+    return block, border, ids, quant
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("w,bw", [(256, 93), (96, 96), (96, 7), (33, 0)])
+@pytest.mark.parametrize("storage", ["float32", "uint16", "int16"])
+@pytest.mark.parametrize("assembled", [False, True])
+def test_sharded_kernel_matches_plain_version(cuda, assembled, storage, w,
+                                              bw, offset):
+    rng = np.random.default_rng(w + bw + offset)
+    for nq in (1, 45, 4096):
+        block, border, (owner, rs, rt), quant = _sharded_inputs(
+            cuda, rng, storage, nq, w, bw, offset, assembled)
+        for shard in range(4):
+            before = kernel.LAUNCHES["label_join_sharded"]
+            got = kernel.sharded_gather_join(block, border, owner, shard, rs,
+                                             rt, quant=quant)
+            torch.cuda.synchronize()
+            assert kernel.LAUNCHES["label_join_sharded"] == before + 1
+            want = ref.sharded_gather_join_ref(block, border, owner, shard,
+                                               rs, rt, quant=quant)
+            assert torch.equal(got, want), (nq, shard)
+            assert torch.isinf(got[owner != shard]).all()
+
+
+@pytest.mark.parametrize("storage,w,bw,offset,vec", [
+    ("float32", 256, 96, 0, 16), ("float32", 256, 93, 0, 4),
+    ("float32", 96, 96, 1, 4), ("int16", 256, 96, 0, 16),
+    ("int16", 256, 93, 0, 2), ("int16", 96, 92, 0, 8),
+    ("int16", 96, 96, 1, 2), ("int16", 96, 0, 0, 16)])
+def test_sharded_layout_fits_both_sources(cuda, storage, w, bw, offset, vec):
+    """The vector width divides both pitches and both base addresses:
+    B's q = 93 (odd) and an offset block narrow it."""
+    dtype = torch.float32 if storage == "float32" else torch.int16
+    block = _table_at(cuda, dtype, 8, w, offset)
+    border = torch.zeros((8, bw), dtype=dtype, device=cuda)
+    assert kernel.sharded_join_layout(block, border, 4096)[0] == vec
+
+
+def test_card_serves_sharded_as_the_host_does(cuda):
+    from repro_torch.edge import ShardedBatchedEngine, default_edge_mesh
+    csr, part = synthetic_continent((2, 2), (8, 8), seed=3)
+    g = csr.to_graph()
+    on_card = EdgeSystem.deploy(g, part, device=cuda)
+    on_host = EdgeSystem.deploy(g, part, device="cpu")
+    rng = np.random.default_rng(1)
+    ss = rng.integers(0, g.num_vertices, 500)
+    ts = rng.integers(0, g.num_vertices, 500)
+    want = on_host.service(ServingPolicy(label_dtype="float32")).submit(
+        ss, ts).distances
+    for shards in (1, 3):
+        on_card.mesh = default_edge_mesh(shards, device=cuda)
+        for border in (False, True):
+            for dtype in ("float32", "uint16"):
+                svc = on_card.service(ServingPolicy(
+                    engine="sharded", shard_border=border, label_dtype=dtype))
+                np.testing.assert_array_equal(svc.submit(ss, ts).distances,
+                                              want)
+                eng = svc.plan(ss, ts).plane
+                assert isinstance(eng, ShardedBatchedEngine)
+                assert all(b.is_cuda for b in eng.blocks + eng.btables)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_half_precision_tables_raise_on_the_card(cuda, dtype):
     """The plain version joins bfloat16 and float16 rows on the CPU; the

@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import bfs_grow_partition, grid_road_network
-from repro_torch.edge import BatchedQueryEngine, ComputingCenter, EdgeSystem
+from repro_torch.core import (DistanceOracle, bfs_grow_partition,
+                              grid_road_network)
+from repro_torch.edge import (BatchedQueryEngine, ComputingCenter, EdgeSystem,
+                              ShardedBatchedEngine, default_edge_mesh)
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.label_join import kernel, ops
@@ -78,7 +80,8 @@ assert sys.modules["jax"] is None
 print("OK")
 """
 
-# the modules of the updates slice and of the Floyd–Warshall kernel
+# the modules of the updates slice and of the Floyd–Warshall kernel, then
+# (one process for the lot) those of the oracle API and the sharded layouts
 UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.update.incremental", "repro_torch.update",
                   "repro_torch.topo.structural", "repro_torch.topo",
@@ -86,12 +89,17 @@ UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.kernels.sssp_relax.ref",
                   "repro_torch.kernels.sssp_relax.kernel",
                   "repro_torch.kernels.sssp_relax.ops",
-                  "repro_torch.edge.center", "repro_torch.edge.router"]
+                  "repro_torch.edge.center", "repro_torch.edge.router",
+                  "repro_torch.core.oracle repro_torch.core.query "
+                  "repro_torch.core.local_index repro_torch.topo.rebalance "
+                  "repro_torch.edge.sharded_oracle repro_torch.edge.engine "
+                  "repro_torch.serve.service"]
 
 
 @pytest.mark.parametrize("module", UPDATE_MODULES)
 def test_update_modules_import_alone_without_jax(module):
-    out = subprocess.run([sys.executable, "-c", _IMPORT_NEW, module],
+    out = subprocess.run([sys.executable, "-c", _IMPORT_NEW,
+                          *module.split()],
                          env=_env(), capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -124,6 +132,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lm.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedDecoder(cfg, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistanceOracle.build(g, part)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_edge_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedBatchedEngine(np.zeros((16, 0), np.float32), [],
+                             part.assignment)
 
 
 class _CudaLooking(torch.Tensor):
@@ -155,6 +170,28 @@ def test_cuda_tensor_launches_or_raises_never_falls_back(monkeypatch,
     before = dict(kernel.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc"):
         kernel.gather_join(table, rows, table, rows, with_lb=with_lb)
+    assert kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("codes", [False, True])
+def test_cuda_tensor_launches_or_raises_never_falls_back_sharded(
+        monkeypatch, codes):
+    _require_cpu_only_host()
+
+    def no_fallback(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(kernel, "sharded_gather_join_ref", no_fallback)
+    monkeypatch.setattr(kernel.build, "_LOADED", {})
+    monkeypatch.setenv("PATH", "")           # no nvcc on this host anyway
+    dtype = torch.int16 if codes else torch.float32
+    block = torch.zeros((6, 4), dtype=dtype).as_subclass(_CudaLooking)
+    border = torch.zeros((6, 3), dtype=dtype).as_subclass(_CudaLooking)
+    ids = torch.arange(3).as_subclass(_CudaLooking)
+    before = dict(kernel.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernel.sharded_gather_join(block, border, ids, 0, ids, ids,
+                                   quant=(0xFFFF, 0.5) if codes else None)
     assert kernel.LAUNCHES == before
 
 

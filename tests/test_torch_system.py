@@ -391,25 +391,38 @@ def test_apply_traffic_update_matches_reference(case):
             ss, ts, client_districts=client))
 
 
+# -- the sharded placements serve (tests/test_torch_sharded.py holds them) ---
+
+def test_sharded_placements_serve(deployed):
+    _, (_, rpart, rsys), _, conv = deployed
+    ss, ts, client = _batch(rpart, 31)
+    want = rsys.service(rserve.ServingPolicy(engine="sharded")).submit(
+        ss, ts, client_districts=client)
+    svc = conv.service(tserve.ServingPolicy(engine="sharded"))
+    _assert_batches_equal(svc.submit(ss, ts, client_districts=client), want)
+    assert isinstance(svc.plan(ss, ts).plane, tedge.ShardedBatchedEngine)
+    conv.prefer_sharded = True
+    try:
+        _assert_batches_equal(
+            conv.service().submit(ss, ts, client_districts=client), want)
+        assert isinstance(conv.current_engine(), tedge.ShardedBatchedEngine)
+    finally:
+        conv.prefer_sharded = None
+    assert isinstance(conv.current_engine(), tedge.BatchedQueryEngine)
+
+
 # -- what this slice leaves out raises ---------------------------------------
 
 def test_unported_placements_and_paths_raise(deployed):
     _, (rg, rpart, _), (tg, tpart, _), conv = deployed
-    for engine in ("sharded", "scatter_gather"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.ServingPolicy(engine=engine)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.ServingPolicy(engine="scatter_gather")
     with pytest.raises(ValueError, match="engine"):
         tserve.ServingPolicy(engine="hybrid")
     with pytest.raises(ValueError, match="rebuild"):
         tserve.ServingPolicy(rebuild="yolo")
     with pytest.raises(ValueError, match="label_dtype"):
         tserve.ServingPolicy(label_dtype="uint8")
-    conv.prefer_sharded = True
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            conv.service().submit(np.array([0]), np.array([1]))
-    finally:
-        conv.prefer_sharded = None
     with pytest.raises(ValueError, match="'torch'"):
         tedge.ComputingCenter(rg, rpart, builder="jax", device="cpu")
     with pytest.raises(ValueError, match="builder"):
