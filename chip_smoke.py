@@ -10,7 +10,7 @@ rate beside the issue ceiling its instructions allow (phase
 bounds), holds each kernel against its plain PyTorch version on the
 card (``relax`` with and without its occupancy map; the fused closure
 on each side of its cap; the k-major product; the join at every vector
-width), and drives the port's eight paths:
+width), and drives the port's ten paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -28,6 +28,17 @@ width), and drives the port's eight paths:
   service's load and ``EdgeSystem.migrate``; and the row-sharded join at
   the center's size (65 536 rule-3 queries over n = 102 400's B, 8
   shards);
+* the scatter-gather read path at n = 4096 —
+  ``ServingPolicy(engine="scatter_gather")`` on the deployed system (16
+  edge servers, each a logical shard of the card) in float32 and
+  uint16, every server's partial launch held against its plain version
+  and the answers against the replicated and sharded engines and the
+  scalar loop; the plane's bytes, exchanges and the host split of a
+  submit; three fault plans, each replayed twice byte for byte with no
+  unflagged wrong answer; ``DistanceBatcher`` at 1024; the open-loop
+  load harness at the reference benchmark's parameters (0.5x and 1.5x
+  the measured capacity, a bounded queue, 10^6 clients) on the
+  replicated and scatter placements;
 * the computing center at n = 102 400 — B built on the card by the
   staged builder, held against the host's Dijkstra stage A and
   hierarchical builder, then the rule-3 join;
@@ -46,6 +57,11 @@ width), and drives the port's eight paths:
   ``apply_traffic_update(incremental=True)`` and one
   ``apply_topology_update`` of the deployed n = 4096 system, whose
   answers are held against Dijkstra;
+* the §5 latency simulator at n = 4096 — ``run_update_epochs`` (repairs
+  and the centralized baseline's full build of B on the card), the
+  simulator's edge (forwarded and scatter) against centralized latency
+  over a 5000-query trace, and a rebuild window under the load harness
+  in the ``stale_ok`` and ``certify_or_wait`` modes;
 * the dense-LM serving path at the full width of Qwen3-4B (random
   weights from a seed) — ``make_prefill_step`` through the flash-
   attention kernel (36 layers, bf16, 2 x 4096 tokens) against the dense
@@ -1703,6 +1719,123 @@ def phase_updates_small(torch, dev, state: dict, errs: dict) -> dict:
             "ok": True}
 
 
+# -- phase 8b: the §5 latency simulator at n = 4096 ---------------------------
+
+SIM_QUERIES = 5_000
+SIM_HORIZON_MS = 60_000.0
+WINDOW_LOAD_MULT = 0.4
+WINDOW_HORIZON_MS = 1_000.0
+
+
+def phase_latency_sim(torch, dev, state: dict) -> dict:
+    """Measured traffic epochs on the deployed system (repairs and the
+    centralized baseline's from-scratch build of B on the card), the §5
+    simulator's edge-against-centralized latency over them (forwarded
+    and scatter), then a rebuild window under the load harness in the
+    ``stale_ok`` and ``certify_or_wait`` modes. Changes the system's
+    weights."""
+    from repro_torch.core import dijkstra
+    from repro_torch.edge import (LatencyModel, Topology, make_trace,
+                                  run_update_epochs, simulate_centralized,
+                                  simulate_edge)
+    from repro_torch.kernels.label_join import kernel as lj_kernel
+    from repro_torch.kernels.minplus import kernel as mp_kernel
+    from repro_torch.serve import (CERTIFY_OR_WAIT, STALE_OK,
+                                   OpenLoopLoadGen, ServingPolicy,
+                                   close_rebuild_window, open_rebuild_window)
+    from repro_torch.update import scenario_weights
+
+    system = state["system"]
+    part = system.partition
+    ss, ts = state["ss"], state["ts"]
+    reset_launches(mp_kernel, lj_kernel)
+    t0 = time.perf_counter()
+    schedule, reports = run_update_epochs(system, "incident", 2, 4_000.0,
+                                          seed=3, intensity=0.02)
+    epochs_s = time.perf_counter() - t0
+    counts = launch_counts(mp_kernel, lj_kernel)
+    check(all(counts[k] > 0 for k in ("relax", "minplus_closure",
+                                      "minplus_kmajor")),
+          f"the epochs did not build on the card: {counts}")
+    check(system.current_engine() is not None, "the epochs left a window")
+    g = system.graph
+    got = system.service().submit(ss, ts).distances
+    uniq, inv = np.unique(ss, return_inverse=True)
+    exact = scipy_dijkstra(g, uniq)[inv, ts].astype(np.float32)
+    check(np.array_equal(got, exact), "answers after the epochs differ "
+          "from Dijkstra")
+    spots = spot_check_dijkstra(g, ss, ts, got, dijkstra, 4)
+    epochs = [{k: rep[k] for k in ("epoch_ms", "incremental", "bl_rebuild_s",
+                                   "full_rebuild_s", "local_parallel_s",
+                                   "global_ready_s")} for rep in reports]
+
+    trace = make_trace(g, SIM_QUERIES, SIM_HORIZON_MS, seed=5)
+    topo = Topology(part.num_districts, LatencyModel())
+    certified = system.service().certifier()
+    sims = {"centralized": simulate_centralized(trace, topo, schedule)}
+    for name, pol in (("edge_forwarded", ServingPolicy()),
+                      ("edge_scatter", ServingPolicy(
+                          engine="scatter_gather"))):
+        sims[name] = simulate_edge(trace, topo, schedule, part.assignment,
+                                   certified, part.num_districts,
+                                   policy=pol)
+    sim_rows = {name: {**r.row(name), "mean_ms_unrounded": r.mean_ms,
+                       "p95_ms_unrounded": r.p95_ms,
+                       "p99_ms_unrounded": r.p99_ms}
+                for name, r in sims.items()}
+    check(all(np.isfinite(r.latencies_ms).all() and len(r.latencies_ms)
+              == SIM_QUERIES for r in sims.values()),
+          "a simulated latency is missing or not finite")
+
+    # a rebuild window under the load harness
+    w2 = scenario_weights("incident", g, part, np.random.default_rng(7),
+                          0.02)
+    open_rebuild_window(system, w2)
+    check(system.current_engine() is None, "the window did not open")
+    sb, tb = ss[:LOAD_BATCH], ts[:LOAD_BATCH]
+    probe = system.service(ServingPolicy(rebuild=STALE_OK))
+    cap = host_p50_ms(torch, lambda: probe.submit(sb, tb), 5)
+    cap_qps = LOAD_BATCH / (cap["p50_ms"] / 1e3)
+    clients = max(1, int(round(WINDOW_LOAD_MULT * cap_qps
+                               / LOAD_PER_CLIENT_QPS)))
+    window = {}
+    for mode in (STALE_OK, CERTIFY_OR_WAIT):
+        svc = system.service(ServingPolicy(rebuild=mode))
+        t0 = time.perf_counter()
+        rep = OpenLoopLoadGen(svc, batch_size=LOAD_BATCH,
+                              window_ms=LOAD_WINDOW_MS, seed=2).run(
+            clients, LOAD_PER_CLIENT_QPS, WINDOW_HORIZON_MS)
+        window[mode] = {**rep.row(), "wall_s": time.perf_counter() - t0}
+    check(window[STALE_OK]["stale_frac"] + window[STALE_OK]["certified_frac"]
+          > 0.0, "the window served nothing stale or certified")
+    check(window[CERTIFY_OR_WAIT]["stale_frac"] == 0.0,
+          "certify_or_wait served a stale answer")
+    t0 = time.perf_counter()
+    close_rebuild_window(system)
+    close_s = time.perf_counter() - t0
+    check(system.current_engine() is not None, "the window did not close")
+    g = system.graph
+    got = system.service().submit(ss, ts).distances
+    exact = scipy_dijkstra(g, uniq)[inv, ts].astype(np.float32)
+    check(np.array_equal(got, exact), "answers after the window differ "
+          "from Dijkstra")
+    return {"phase": "latency_sim_n4096", "n": int(g.num_vertices),
+            "districts": int(part.num_districts), "epochs": epochs,
+            "epochs_s": epochs_s, "epoch_launches": counts,
+            "trace": {"queries": SIM_QUERIES, "horizon_ms": SIM_HORIZON_MS,
+                      "seed": 5}, "simulated_ms": sim_rows,
+            "window": {"capacity_batch_ms": cap, "capacity_qps": cap_qps,
+                       "clients": clients, "rows": window,
+                       "close_s": close_s},
+            "equals_dijkstra": "after the epochs and after the window",
+            "dijkstra_spot_pairs": spots,
+            "timer": "epochs: host clock, device synchronised (each "
+            "epoch's seconds are charged as simulated ms); simulated_ms: "
+            "the simulator's virtual clock; window: the open-loop "
+            "harness's virtual ms, each batch charged its host clock",
+            "ok": True}
+
+
 # -- phase 3b: the paper's oracle API at n = 4096 ----------------------------
 
 ORACLE_BUILDERS = ("hierarchical", "reference")
@@ -1963,6 +2096,319 @@ def phase_sharded(torch, dev, state: dict, launches: dict,
              "timer": "submit: host clock, device synchronised, 30 "
              "submits; seam: CUDA events around 50 folds", "ok": True},
             shapes)
+
+
+# -- phase 3d: the scatter-gather read path at n = 4096 ----------------------
+
+# the sharded engine the plane is held against (E logical shards)
+SCATTER_SHARDS = 8
+# the load harness at the reference benchmark's parameters
+# (benchmarks/bench_load.py): batch, window, rate a client, horizon, the
+# multiples of the measured capacity, the bounded queue, the
+# million-client point at 0.7 x capacity
+LOAD_BATCH = 1024
+LOAD_WINDOW_MS = 2.0
+LOAD_PER_CLIENT_QPS = 0.5
+LOAD_HORIZON_MS = 2_000.0
+LOAD_MULTS = (0.5, 1.5)
+LOAD_MAX_QUEUE = 8 * LOAD_BATCH
+MEGA_CLIENTS = 1_000_000
+
+
+def scrub_border_rows(system) -> None:
+    """Back to the post-push state: each server keeps only its own
+    border rows, so that a faulted plane runs its peer exchanges (and
+    their faults) again."""
+    for srv in system.servers:
+        own = srv._border_rows.get(srv.district_id)
+        srv._border_rows = {} if own is None else {srv.district_id: own}
+
+
+@contextlib.contextmanager
+def hold_join_calls(mod, held: list):
+    """While active, every call the path makes to ``mod.gather_join``
+    keeps copies of its tensors and its result in ``held`` (the call
+    itself launches once, as the path does)."""
+    real = mod.gather_join
+
+    def call(s_table, rs, t_table, rt, **kw):
+        out = real(s_table, rs, t_table, rt, **kw)
+        held.append(([_clone(x) for x in (s_table, rs, t_table, rt)], kw,
+                     out.clone()))
+        return out
+
+    mod.gather_join = call
+    try:
+        yield
+    finally:
+        mod.gather_join = real
+
+
+def check_join_held(torch, held: list, errs: dict, what: str) -> int:
+    """Each kept join result against the plain version on the same
+    arguments, bit for bit; returns the count and empties ``held``."""
+    from repro_torch.kernels.label_join import ref
+    for (s_table, rs, t_table, rt), kw, out in held:
+        want = ref.gather_join_ref(s_table, rs, t_table, rt, **kw)
+        check(torch.equal(out, want), f"{what}: the join kernel differs "
+              "from its plain version")
+        errs["label_join"] = max(errs["label_join"], max_abs_err(out, want))
+    count = len(held)
+    held.clear()
+    return count
+
+
+def scatter_host_split(torch, plane, ss, ts, reps: int = 30) -> dict:
+    """Host clock of the plane's three steps on a warm batch, p50 of
+    ``reps``: the coordinator's routing (``prepare_queries``, the lanes
+    grouped by owner, the exchange check), the partial launches (the
+    row ids up once, one wrapper call a server; no wait), and the
+    consolidation (the partials concatenated, copied back — which waits
+    for the device — and put in lane order)."""
+    samples = {"route_ms": [], "launch_ms": [], "consolidate_ms": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        groups, rs, rt = plane._route(ss, ts)
+        t1 = time.perf_counter()
+        lanes, parts = plane._launch(groups, rs, rt)
+        t2 = time.perf_counter()
+        plane._consolidate(np.empty(len(ss), np.float32), lanes, parts)
+        t3 = time.perf_counter()
+        for key, dt in zip(samples, (t1 - t0, t2 - t1, t3 - t2)):
+            samples[key].append(dt * 1e3)
+    return {k: float(np.percentile(v, 50)) for k, v in samples.items()}
+
+
+def load_rows(torch, system, engine: str, ss, ts) -> dict:
+    """The open-loop harness at the reference benchmark's parameters on
+    one placement: the capacity of one warm full batch of the serving
+    batch's first lanes, then 0.5x and 1.5x that (unbounded queue),
+    1.5x with the bounded queue, and the million-client point."""
+    from repro_torch.serve import OpenLoopLoadGen, ServingPolicy
+    svc = system.service(ServingPolicy(engine=engine))
+    sb, tb = ss[:LOAD_BATCH], ts[:LOAD_BATCH]
+    cap = host_p50_ms(torch, lambda: svc.submit(sb, tb), 20)
+    cap_qps = LOAD_BATCH / (cap["p50_ms"] / 1e3)
+
+    def run(label, clients, qps, horizon, **kw):
+        gen = OpenLoopLoadGen(svc, batch_size=LOAD_BATCH,
+                              window_ms=LOAD_WINDOW_MS, seed=0,
+                              max_queue=kw.pop("max_queue", None))
+        gen.warmup()
+        t0 = time.perf_counter()
+        rep = gen.run(clients, qps, horizon, **kw)
+        wall = time.perf_counter() - t0
+        check(rep.admitted > 0 and np.isfinite(rep.p999_ms),
+              f"load {engine} {label}: no answers")
+        return {**rep.row(), "wall_s": wall}
+
+    rows = {}
+    for mult in LOAD_MULTS:
+        clients = max(1, int(round(mult * cap_qps / LOAD_PER_CLIENT_QPS)))
+        rows[f"open_x{mult:g}"] = run(f"x{mult:g}", clients,
+                                      LOAD_PER_CLIENT_QPS, LOAD_HORIZON_MS)
+    mult = LOAD_MULTS[-1]
+    clients = max(1, int(round(mult * cap_qps / LOAD_PER_CLIENT_QPS)))
+    rows[f"bounded_x{mult:g}"] = run("bounded", clients, LOAD_PER_CLIENT_QPS,
+                                     LOAD_HORIZON_MS,
+                                     max_queue=LOAD_MAX_QUEUE)
+    check(rows[f"bounded_x{mult:g}"]["shed_frac"] > 0.0,
+          f"load {engine}: the bounded queue shed nothing at {mult}x")
+    per_client = 0.7 * cap_qps / MEGA_CLIENTS
+    horizon = 1.05 * MEGA_CLIENTS / (0.7 * cap_qps) * 1e3
+    rows["mega_1m_clients"] = run("mega", MEGA_CLIENTS, per_client, horizon,
+                                  max_arrivals=4_000_000)
+    check(rows["mega_1m_clients"]["offered"] >= MEGA_CLIENTS,
+          "the million-client point offered fewer than 10^6 arrivals")
+    return {"capacity_qps": cap_qps, "capacity_batch_ms": cap, "rows": rows}
+
+
+def phase_scatter(torch, dev, state: dict, launches: dict,
+                  errs: dict) -> tuple[dict, dict]:
+    """``ServingPolicy(engine="scatter_gather")`` on the deployed n = 4096
+    system, float32 and uint16: bit for bit with the replicated and
+    sharded engines and the scalar loop, every partial launch held
+    against its plain version; bytes, exchange stats and the host split
+    of a submit; three fault plans replayed twice; the distance batcher;
+    the open-loop harness on the replicated and scatter placements."""
+    from repro_torch.core import dijkstra
+    from repro_torch.edge import (FaultPlan, ScatterGatherPlane,
+                                  default_edge_mesh, district_outage_storm)
+    from repro_torch.kernels.label_join import kernel, ops
+    from repro_torch.serve import ServingPolicy
+
+    system = state["system"]
+    part = system.partition
+    g = system.graph
+    ss, ts, client = state["ss"], state["ts"], state["client"]
+    m = part.num_districts
+    n, q = system.center.border_labels.table.shape
+    want, rep_latency = {}, {}
+    for dtype in ("float32", "uint16"):
+        svc = system.service(ServingPolicy(engine="replicated",
+                                           label_dtype=dtype))
+        want[dtype] = svc.submit(ss, ts, client_districts=client).distances
+        rep_latency[dtype] = host_p50_ms(torch, lambda: svc.submit(
+            ss, ts, client_districts=client))
+    system.mesh = default_edge_mesh(SCATTER_SHARDS, device=dev)
+    sharded = system.service(ServingPolicy(engine="sharded")).submit(
+        ss, ts, client_districts=client).distances
+    system.mesh = None
+    loop = system.query_loop(ss, ts)
+    check(np.array_equal(want["float32"], loop)
+          and np.array_equal(want["uint16"], loop)
+          and np.array_equal(sharded, loop),
+          "replicated / sharded engines differ from the scalar loop")
+
+    rows, held, shapes = {}, [], {}
+    reset_launches(kernel)
+    # the path's launches: the checked submits (not the timing loops)
+    path = {k: 0 for k in kernel.LAUNCHES}
+    for dtype in ("float32", "uint16"):
+        svc = system.service(ServingPolicy(engine="scatter_gather",
+                                           label_dtype=dtype))
+        plane = svc.plan(ss, ts).plane
+        check(isinstance(plane, ScatterGatherPlane)
+              and (plane.quant is None) == (dtype == "float32"),
+              f"scatter plane ({dtype}) not selected: "
+              f"{type(plane).__name__}")
+        check(plane.data.btable is None and plane.data.district_table is None,
+              "the coordinator holds a copy of B or of the district tables")
+        before = dict(kernel.LAUNCHES)
+        holder = hold_sharded_calls(kernel, held) if dtype == "float32" \
+            else hold_join_calls(ops, held)
+        with holder:
+            got = svc.submit(ss, ts, client_districts=client)
+        per_batch = {k: kernel.LAUNCHES[k] - before[k] for k in before}
+        for k, v in per_batch.items():
+            path[k] += v
+        held_count = check_sharded_held(torch, held, errs,
+                                        "scatter partial") \
+            if dtype == "float32" else check_join_held(
+                torch, held, errs, "scatter partial (uint16)")
+        owners = len(np.unique(part.assignment[ss]))
+        name = "label_join_sharded" if dtype == "float32" else "label_join"
+        check(per_batch[name] == owners and held_count == owners
+              and sum(per_batch.values()) == owners,
+              f"scatter {dtype}: {per_batch} launches a batch, {owners} "
+              "owning servers")
+        check(np.array_equal(got.distances, loop),
+              f"scatter {dtype} differs from the engines and the loop")
+        check(got.exact.all() and all(r is None for r in
+                                      got.degraded_reason),
+              f"scatter {dtype}: clean answers flagged")
+        spots = spot_check_dijkstra(g, ss, ts, got.distances, dijkstra, 4)
+        views = [v for v in plane._bviews if v is not None]
+        card = tensor_bytes(plane._blocks) + tensor_bytes(views)
+        check(card == plane.size_bytes() and all(
+            x.is_cuda for x in plane._blocks + views),
+            "the plane's tensors are not the card's bytes")
+        exchange = dict(plane.exchange_stats)
+        submit = host_p50_ms(torch, lambda: svc.submit(
+            ss, ts, client_districts=client))
+        split = scatter_host_split(torch, plane, ss, ts)
+        # the service's own step before the plane: the freshness check
+        # over the servers and the router's cache lookup
+        split["plan_ms"] = host_p50_ms(torch, lambda: svc.plan(
+            ss, ts, client))["p50_ms"]
+        rows[dtype] = {"launches_a_batch": per_batch,
+                       "held_against_plain": held_count,
+                       "exchange_stats": exchange,
+                       "server_bytes": plane.server_bytes(),
+                       "card_bytes": card, "submit_host_ms": submit,
+                       "host_split_ms": split,
+                       "dijkstra_spot_pairs": spots}
+        if dtype == "float32":
+            groups, rs, rt = plane._route(ss, ts)
+            d, sel = max(groups, key=lambda gr: len(gr[1]))
+            ids = torch.from_numpy(np.stack(
+                [np.full(len(sel), d), rs[sel], rt[sel]]).astype(
+                    np.int64)).to(dev)
+            shapes["scatter_partial_f32"] = (
+                plane._blocks[d], plane._bviews[d], ids[0].contiguous(), d,
+                ids[1].contiguous(), ids[2].contiguous(), None)
+
+    # faults: link drops (retries, forwarded via the center), an outage
+    # storm (surviving-min reroutes, upper bounds), the center dark
+    plans = {
+        "link_drop": FaultPlan(seed=7, peer_drop_rate=0.3,
+                               peer_timeout_rate=0.2, peer_slow_rate=0.1,
+                               max_retries=2),
+        "outage_storm": district_outage_storm(m, dark_frac=0.25, seed=2),
+        "center_down": FaultPlan(seed=3, peer_drop_rate=0.5,
+                                 server_outage_rate=0.1, center_down=True),
+    }
+    faults = {}
+    for label, plan in plans.items():
+        runs = []
+        for _ in range(2):
+            scrub_border_rows(system)
+            plane = ScatterGatherPlane.from_system(system, faults=plan)
+            before = dict(kernel.LAUNCHES)
+            t0 = time.perf_counter()
+            out = plane.execute(ss, ts)
+            sec = time.perf_counter() - t0
+            counts = {k: kernel.LAUNCHES[k] - before[k] for k in before}
+            runs.append((out.tobytes(), plane.exactness_codes.tobytes(),
+                         tuple(plane.degraded), dict(plane.exchange_stats),
+                         tuple(plane.faults.events)))
+        check(runs[0] == runs[1], f"faults {label}: two replays differ")
+        codes, reasons = plane.exactness_codes, plane.degraded
+        wrong = out != loop
+        check((codes[wrong] == 2).all()
+              and all(reasons[i] is not None for i in np.nonzero(wrong)[0]),
+              f"faults {label}: a wrong answer is not flagged")
+        kinds: dict = {}
+        for r in reasons:
+            if r is not None:
+                kinds[r] = kinds.get(r, 0) + 1
+        check(kinds, f"faults {label}: nothing degraded")
+        faults[label] = {"plan": {k: v for k, v in plan.__dict__.items()
+                                  if v not in (0, 0.0, (), False)},
+                         "reasons": kinds,
+                         "stale_flagged": int((codes == 2).sum()),
+                         "exact_lanes": int((out == loop).sum()),
+                         "exchange_stats": runs[0][3],
+                         "launches": counts, "execute_s": sec,
+                         "replays_byte_for_byte": True}
+    scrub_border_rows(system)
+
+    # the distance batcher at batch 1024: a padded tail never leaks
+    svc = system.service(ServingPolicy(engine="scatter_gather"))
+    batcher = svc.batcher(batch_size=LOAD_BATCH)
+    k = 3 * LOAD_BATCH - 100
+    batcher.submit_pairs(zip(ss[:k].tolist(), ts[:k].tolist()))
+    t0 = time.perf_counter()
+    done = batcher.run()
+    batcher_s = time.perf_counter() - t0
+    check(len(done) == k and all(r.rid >= 0 for r in done)
+          and np.array_equal(np.array([r.distance for r in done],
+                                      np.float32), loop[:k]),
+          "the distance batcher's answers or padding")
+    stats = svc.stats
+    check(stats["rule1"] + stats["rule2"] + stats["rule3"] == k,
+          f"padding reached the counters: {stats}")
+    lat = batcher.latency_stats()
+
+    load = {engine: load_rows(torch, system, engine, ss, ts)
+            for engine in ("replicated", "scatter_gather")}
+
+    launches["label_join_sharded"] += path["label_join_sharded"]
+    launches["label_join"] += path["label_join"]
+    return ({"phase": "scatter_n4096", "n": int(n), "q": int(q),
+             "servers": m, "batch": len(ss),
+             "replicated_submit_host_ms": rep_latency, "rows": rows,
+             "equals": "replicated engine, sharded engine (E = "
+             f"{SCATTER_SHARDS}) and scalar loop, bit for bit",
+             "path_launches": path, "faults": faults,
+             "batcher": {"batch": LOAD_BATCH, "requests": k,
+                         "run_s": batcher_s, "latency_ms": lat},
+             "load": load,
+             "timer": "submit: host clock, device synchronised, 30 submits; "
+             "host split: p50 of 30 warm batches; load: virtual ms of the "
+             "open-loop harness, each batch charged its host clock; "
+             "wall_s: host clock of a run", "ok": True}, shapes)
 
 
 # -- phase 4c: the row-sharded join at the center's size ---------------------
@@ -2671,6 +3117,9 @@ def main() -> int:
     emit(phase_oracle(torch, dev, state, launches))
     sharded, sharded_shapes = phase_sharded(torch, dev, state, launches, errs)
     emit(sharded)
+    scatter, scatter_shapes = phase_scatter(torch, dev, state, launches,
+                                            errs)
+    emit(scatter)
     center, center_shapes, large_state, repair_ctx = phase_center(
         torch, dev, errs)
     emit(center)
@@ -2678,9 +3127,10 @@ def main() -> int:
         torch, dev, center_shapes, repair_ctx["partition"], errs)
     emit(sharded_center)
     sharded_times = phase_sharded_times(
-        torch, {**sharded_shapes, **center_sharded_shapes})
+        torch, {**sharded_shapes, **center_sharded_shapes,
+                **scatter_shapes})
     emit(sharded_times)
-    del sharded_shapes, center_sharded_shapes
+    del sharded_shapes, center_sharded_shapes, scatter_shapes
     cap, cap_states = phase_closure_cap(torch, dev, errs, launches)
     emit(cap)
     shapes = {**state["shapes"], **center_shapes}
@@ -2699,6 +3149,7 @@ def main() -> int:
     emit(phase_updates_large(torch, dev, repair_ctx, errs))
     del repair_ctx
     emit(phase_updates_small(torch, dev, state, errs))
+    emit(phase_latency_sim(torch, dev, state))
     del state
     torch.cuda.empty_cache()
     emit(phase_flash_kernels(torch, dev, errs))

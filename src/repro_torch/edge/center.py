@@ -214,6 +214,23 @@ class ComputingCenter:
                 self.border_labels, b)
         return self._shortcut_cache[district_id]
 
+    def border_rows_for(self, district_id: int
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """``(vertices, rows)`` — the B rows of one district's vertices,
+        pushed to its edge server alongside the shortcuts (host rows).
+        This is the center's only role in the scatter-gather read path:
+        it computes B and distributes each district its slice; the
+        servers then answer rule-3 queries peer-to-peer
+        (``EdgeServer.exchange_border_rows``) without the center ever
+        seeing a query."""
+        assert self.border_labels is not None, "rebuild() first"
+        vertices = np.nonzero(
+            self.partition.assignment == np.int32(district_id))[0] \
+            .astype(np.int64)
+        rows = np.ascontiguousarray(self.border_labels.table[vertices],
+                                    dtype=np.float32)
+        return vertices, rows
+
     def border_table_device(self) -> torch.Tensor:
         """B of the current version, resident on ``device``."""
         assert self.border_labels is not None, "rebuild() first"

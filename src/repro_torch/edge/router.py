@@ -23,8 +23,11 @@ kernels' plain versions.  Traffic updates run the paper's full cycle
 or the delta-scoped one (``apply_traffic_update(incremental=True)``),
 topology updates (closures/openings) the scoped structural one; the
 center repairs B on ``device`` either way.  ``migrate`` installs a new
-district → edge-host placement (``topo.rebalance``).  The scatter-gather
-plane comes with a later slice (ROADMAP Queue 1 item 8).
+district → edge-host placement (``topo.rebalance``).
+``_current_scatter_plane`` snapshots one index version into the
+scatter-gather coordinator plane (``edge.scatter_gather``): the servers'
+own label stores on the system's device, cross-district lanes answered
+edge-side from peer-exchanged border rows.
 """
 from __future__ import annotations
 
@@ -98,6 +101,9 @@ class EdgeSystem:
     # services ask it on every plan)
     _engines: dict = field(default_factory=dict, repr=False)
     _engines_version: tuple | None = field(default=None, repr=False)
+    # (key, ScatterGatherPlane): the scatter plane of one index version,
+    # fault plan, label dtype and placement
+    _scatter: tuple | None = field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -373,6 +379,40 @@ class EdgeSystem:
                     device=self.device)
             self._engines[key] = engine
         return engine
+
+    def _current_scatter_plane(self, faults=None, label_dtype=_SELF):
+        """Scatter-gather coordinator plane for the current index
+        version, or None during a rebuild window (same freshness rule as
+        ``_current_engine``).  Building the plane pushes each server its
+        own district's B rows; peer exchanges then run lazily per batch
+        and persist on the servers across plane rebuilds of the same
+        version.  ``faults`` (an ``edge.faults.FaultPlan``) attaches a
+        deterministic injector; the plan is part of the cache key, so
+        switching plans rebuilds the plane (and its injector epoch).
+        ``label_dtype`` stores the plane's tables as quantized codes
+        exactly like the engines (see ``_resolve_quant``); the placement
+        (``EdgeSystem.placement``) decides which exchanges are
+        co-hosted, and joins the key."""
+        if label_dtype is _SELF:
+            label_dtype = self.label_dtype
+        if any(srv.augmented is None
+               or srv.augmented_version != self.center.version
+               for srv in self.servers):
+            return None
+        if faults is not None and not faults.enabled:
+            faults = None
+        pkey = None if self.placement is None else self.placement.key()
+        key = (self.center.version,
+               tuple(srv.augmented_version for srv in self.servers),
+               faults, label_dtype or "auto", pkey)
+        if self._scatter is None or self._scatter[0] != key:
+            from .scatter_gather import ScatterGatherPlane
+            quant = self._resolve_quant(label_dtype)
+            # drop the stale plane's device tables before building anew
+            self._scatter = None
+            self._scatter = (key, ScatterGatherPlane.from_system(
+                self, faults=faults, quant=quant))
+        return self._scatter[1]
 
     def current_engine(self):
         """Public accessor for the active serving-engine snapshot (None

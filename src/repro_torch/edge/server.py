@@ -7,8 +7,11 @@ same-district queries through the Local Bound certificate (Theorem 3);
 uncertified queries are resolved per the service's rebuild mode.
 
 The indexes are built on the host; their serving layouts live on the
-server's ``device``. The scatter-gather border-row exchange of the JAX
-package comes with the scatter-gather slice.
+server's ``device``. The scatter-gather border-row store (the center's
+push of the district's own B rows, the peer exchange, one previous
+generation for the fault ladder) holds host rows, as the JAX package's
+does; the scatter plane keeps each server's device copy
+(``edge.scatter_gather``).
 """
 from __future__ import annotations
 
@@ -37,6 +40,19 @@ class EdgeServer:
     # read-only L_i⁺ preview per index version (certify_or_wait queries
     # answer from the post-push index without installing it)
     _peek: tuple[int, LocalIndex] | None = field(default=None, repr=False)
+    # scatter-gather border-row store: district → (vertices, B rows at
+    # natural width q), valid for border_rows_version only.  The server's
+    # own slice is pushed by the center; peer slices arrive through
+    # exchange_border_rows.
+    border_rows_version: int = -1
+    _border_rows: dict[int, tuple[np.ndarray, np.ndarray]] = \
+        field(default_factory=dict, repr=False)
+    # one previous generation of border rows, kept for graceful
+    # degradation: when a peer exchange fails AND the center is
+    # unreachable, the scatter plane serves these flagged "stale"
+    _stale_rows: dict[int, tuple[np.ndarray, np.ndarray]] | None = \
+        field(default=None, repr=False)
+    _stale_rows_version: int = -2
 
     @property
     def device(self) -> torch.device:
@@ -99,6 +115,60 @@ class EdgeServer:
         if self._peek is None or self._peek[0] != version:
             self._peek = (version, self._build_augmented(g, shortcut_matrix))
         return self._peek[1]
+
+    # -- scatter-gather border-row exchange ---------------------------------
+
+    def install_border_rows(self, vertices: np.ndarray, rows: np.ndarray,
+                            version: int) -> None:
+        """Center push of this district's own B rows for ``version``;
+        drops every stale slice (own and peer) from older versions from
+        the ACTIVE store, retaining exactly one previous generation for
+        the fault-degradation ladder (``stale_border_rows_of``)."""
+        if version != self.border_rows_version:
+            if self._border_rows:
+                self._stale_rows = self._border_rows
+                self._stale_rows_version = self.border_rows_version
+            self._border_rows = {}
+            self.border_rows_version = version
+        self._border_rows[self.district_id] = (vertices, rows)
+
+    def has_border_rows(self, district_id: int, version: int) -> bool:
+        return (self.border_rows_version == version
+                and district_id in self._border_rows)
+
+    def border_rows_of(self, district_id: int
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """``(vertices, rows)`` held for ``district_id`` (own or
+        previously exchanged)."""
+        return self._border_rows[district_id]
+
+    def stale_border_rows_of(self, district_id: int
+                             ) -> tuple[np.ndarray, np.ndarray] | None:
+        """The previous-generation B rows held for ``district_id``, or
+        None.  The last rung before "unavailable" in the degradation
+        ladder: answers joined from these are flagged ``stale``."""
+        if self._stale_rows is None:
+            return None
+        return self._stale_rows.get(int(district_id))
+
+    def exchange_border_rows(self, peer: "EdgeServer") -> int:
+        """Peer-to-peer pull of ``peer``'s own B rows — the §4.2 rule-3
+        decomposition ``d(s,t) = min_b B[s,b] + B[t,b]`` needs only the
+        target vertex's B row, so once this exchange has run the source
+        server answers the cross-district pair entirely edge-side (one
+        ``peer_edge_ms`` hop instead of two WAN hops through the center).
+        Returns the number of rows transferred; 0 when the peer slice
+        for the current version is already cached."""
+        if peer.border_rows_version != self.border_rows_version:
+            raise ValueError(
+                f"border-row version mismatch: server {self.district_id} "
+                f"at {self.border_rows_version}, peer {peer.district_id} "
+                f"at {peer.border_rows_version}")
+        if peer.district_id in self._border_rows:
+            return 0
+        vertices, rows = peer._border_rows[peer.district_id]
+        self._border_rows[peer.district_id] = (vertices, rows)
+        return len(vertices)
 
     # -- query paths --------------------------------------------------------
 

@@ -20,6 +20,9 @@ path of the port (anchors refer to PAPER.md / the source paper):
   is row-sharded; the touched rows are assembled by a ragged gather
   (plain torch, as the reference's XLA) and the MIN seam, then joined
   like the replicated case.
+* ``join_partial_gathered`` — one edge server's scatter-gather partial:
+  the dense join over rows the server assembled on its device (district
+  block rows, own and peer border rows), float32 answers left there.
 * ``join_quantized`` / ``join_quantized_gathered`` — the same joins over
   uint16/int16 ``core.quantize`` codes: the min runs in raw code units
   with one final ``· scale``, so a lossless spec serves bit-for-bit the
@@ -44,6 +47,7 @@ from .ref import INF_I32, join_sparse_ref, pad_value, storage16
 __all__ = ["INF_I32", "join", "join_with_bound", "join_quantized",
            "join_sparse", "join_gathered", "join_quantized_gathered",
            "join_sparse_gathered", "bound_gathered", "upload",
+           "join_partial_gathered",
            "join_sharded_gathered", "join_sharded_border_gathered",
            "assemble_border_rows"]
 
@@ -129,6 +133,23 @@ def join_quantized_gathered(table, ss: np.ndarray, ts: np.ndarray, *,
     rt = _ids(ts, table.shape[0], table.device)
     return gather_join(table, rs, table, rt,
                        quant=(sentinel, scale)).cpu().numpy()
+
+
+def join_partial_gathered(s_rows: torch.Tensor,
+                          t_rows: torch.Tensor) -> torch.Tensor:
+    """One edge server's scatter-gather partial: the dense 2-hop join
+    over float32 label rows the caller already assembled on one device
+    (district block rows for the server's local lanes, own and peer
+    border rows, +inf-padded to the block's width, for its cross lanes),
+    in one launch of the join kernel. A lane's answer depends only on
+    its own two rows, so it is bit for bit the lane's value in the
+    sharded engine. Returns the float32 ``(Q,)`` answers on the rows'
+    device; +inf for zero-width rows."""
+    s_rows, t_rows = _table(s_rows), _table(t_rows)
+    if s_rows.shape[0] == 0 or s_rows.shape[1] == 0:
+        return torch.full((s_rows.shape[0],), float("inf"),
+                          dtype=torch.float32, device=s_rows.device)
+    return join(s_rows, t_rows)
 
 
 def join_sparse_gathered(hubs, dists, ss: np.ndarray,

@@ -9,13 +9,17 @@ versions behind one interface.  This module is that interface:
   exactness flag (``exact`` | ``certified_stale`` | ``stale``), the
   index version that answered it, and the dispatch latency.
 * ``ServingPolicy`` — one config object for the serving knobs: engine
-  placement (``auto``/``replicated``/``sharded`` + ``shard_border``),
-  label storage dtype, and the rebuild-window mode.
+  placement (``auto``/``replicated``/``sharded`` + ``shard_border``,
+  ``scatter_gather``), micro-batching (a simulator ``BatchPolicy``),
+  fault injection, label storage dtype, the rebuild-window mode and the
+  migration-window discipline.
 * ``QueryPlane`` — the protocol every execution backend implements
   (``execute(ss, ts) -> distances``): the steady-state
-  ``BatchedQueryEngine`` / ``ShardedBatchedEngine`` snapshots, the
-  per-bucket ``BucketedPlane``
-  (rebuild windows), and the per-query ``ScalarLoopPlane``.
+  ``BatchedQueryEngine`` / ``ShardedBatchedEngine`` snapshots and the
+  ``ScatterGatherPlane``, the per-bucket ``BucketedPlane`` (rebuild
+  windows), and the per-query ``ScalarLoopPlane``.
+  ``DistanceBatcher``, the §5 simulator and the load harness all drive
+  this one interface.
 * ``DistanceService`` — plans a batch onto a plane
   (``plan(batch) -> QueryPlan`` holding the chosen plane), executes it,
   and aggregates per-result metadata into service-level counters.
@@ -42,12 +46,9 @@ indexes; the rebuild-window modes are the three readings of the paper's
 update discipline (§5): strict consistency via waiting, Theorem-3
 certification, and bounded staleness.
 
-A port of ``repro.serve.service``: the placement ``scatter_gather``,
-fault plans, the simulator's batching and migration knobs and
-``DistanceService.batcher`` come with their slice (ROADMAP Queue 1
-item 8). The reference's ``use_kernels=False`` host-NumPy
-path has no counterpart: the joins run where the tables live, and
-``device="cpu"`` runs their plain versions.
+A port of ``repro.serve.service``. The reference's ``use_kernels=False``
+host-NumPy path has no counterpart: the joins run where the tables
+live, and ``device="cpu"`` runs their plain versions.
 """
 from __future__ import annotations
 
@@ -60,7 +61,10 @@ import numpy as np
 from ..core.query import Rule, bucket_by_rule, route
 
 if TYPE_CHECKING:                                   # pragma: no cover
+    from ..edge.faults import FaultPlan
     from ..edge.router import EdgeSystem
+    from ..edge.simulator import BatchPolicy
+    from .distance_batcher import DistanceBatcher
 
 INF = np.float32(np.inf)
 
@@ -76,9 +80,12 @@ CERTIFIED_STALE = "certified_stale"
 STALE = "stale"
 _EXACTNESS = (EXACT, CERTIFIED_STALE, STALE)
 
+# -- migration-window disciplines (district repartitioning, topo) -----------
+MIGRATION_DUAL = "dual"
+MIGRATION_HANDOFF = "handoff"
+MIGRATION_MODES = (MIGRATION_DUAL, MIGRATION_HANDOFF)
+
 ENGINE_PLACEMENTS = ("auto", "replicated", "sharded", "scatter_gather")
-# placements of the JAX package whose planes are not ported yet
-_NOT_PORTED = {"scatter_gather": "Queue 1 item 8, scatter-gather"}
 LABEL_DTYPE_CHOICES = ("auto", "float32", "uint16", "int16")
 
 _COUNTER_KEYS = ("rule1", "rule2", "rule3", "lb_certified",
@@ -95,38 +102,54 @@ class ServingPolicy:
 
     ``engine`` picks the steady-state plane placement: ``"auto"``
     (defer to the system's override attributes, then the shard-count
-    heuristic), ``"replicated"`` or ``"sharded"`` (``"scatter_gather"``
-    raises ``NotImplementedError`` until its slice lands).
-    ``shard_border`` picks the border-table placement inside the
-    sharded engine (None = defer to the system override / byte-size
-    heuristic).  ``rebuild`` is the rebuild-window mode (see module
-    docstring).  ``label_dtype`` picks the label-storage
-    dtype: ``"auto"`` (defer to the system attribute, then the
-    byte-size heuristic — quantize to uint16 only when the fit is
-    lossless, so auto never changes an answer), ``"float32"``,
-    ``"uint16"``, or ``"int16"`` (explicit integer dtypes are honored
-    even when the fit is lossy).
+    heuristic), ``"replicated"``, ``"sharded"``, or ``"scatter_gather"``
+    (the coordinator plane of ``edge.scatter_gather`` — cross-district
+    lanes answered edge-side via peer border-row exchange, bit-for-bit
+    with the engines).  ``shard_border`` picks the border-table
+    placement inside the sharded engine (None = defer to the system
+    override / byte-size heuristic).  ``batch`` carries the
+    micro-batching discipline (a simulator ``BatchPolicy``) for
+    ``DistanceService.batcher`` and ``simulate_edge(policy=...)``.
+    ``rebuild`` is the rebuild-window mode (see module docstring).
+    ``faults`` attaches a deterministic ``edge.faults.FaultPlan`` to the
+    scatter-gather plane (degrade-never-error discipline; a disabled
+    plan is normalized to None so it cannot perturb the clean path).
+    ``label_dtype`` picks the label-storage dtype: ``"auto"`` (defer to
+    the system attribute, then the byte-size heuristic — quantize to
+    uint16 only when the fit is lossless, so auto never changes an
+    answer), ``"float32"``, ``"uint16"``, or ``"int16"`` (explicit
+    integer dtypes are honored even when the fit is lossy).
+    ``migration`` is the district-migration window discipline for the
+    §5 simulator: ``"dual"`` (the source host keeps serving the moving
+    district exactly until the routing swap lands — no staleness, the
+    engine-swap semantics of ``EdgeSystem.migrate``) or ``"handoff"``
+    (queries landing inside the declared copy window are flagged stale;
+    zero non-exact answers outside it).
     """
     engine: str = "auto"
     shard_border: bool | None = None
     rebuild: str = INSTALL_NOW
+    batch: "BatchPolicy | None" = None
+    faults: "FaultPlan | None" = None
     label_dtype: str = "auto"
+    migration: str = MIGRATION_DUAL
 
     def __post_init__(self):
         if self.engine not in ENGINE_PLACEMENTS:
             raise ValueError(f"engine must be one of {ENGINE_PLACEMENTS}, "
                              f"got {self.engine!r}")
-        if self.engine in _NOT_PORTED:
-            raise NotImplementedError(
-                f"engine={self.engine!r} is not ported yet (ROADMAP "
-                f"{_NOT_PORTED[self.engine]})")
         if self.rebuild not in REBUILD_MODES:
             raise ValueError(f"rebuild must be one of {REBUILD_MODES}, "
                              f"got {self.rebuild!r}")
+        if self.migration not in MIGRATION_MODES:
+            raise ValueError(f"migration must be one of {MIGRATION_MODES}, "
+                             f"got {self.migration!r}")
         if self.label_dtype not in LABEL_DTYPE_CHOICES:
             raise ValueError(
                 f"label_dtype must be one of {LABEL_DTYPE_CHOICES}, "
                 f"got {self.label_dtype!r}")
+        if self.faults is not None and not self.faults.enabled:
+            object.__setattr__(self, "faults", None)
 
 
 @dataclass(frozen=True)
@@ -148,6 +171,11 @@ class QueryResult:
     index_version: int
     latency_s: float
     waited: bool = False    # deferred to the shortcut push mid-window
+    # why (and how) the answer degraded under injected faults, e.g.
+    # "peer_drop:forwarded_via_center"; None on the clean path.  A set
+    # reason with exactness == "exact" means the fallback route itself
+    # is exact (center forwarding, surviving-min reroute).
+    degraded_reason: str | None = None
 
     @property
     def exact(self) -> bool:
@@ -182,6 +210,7 @@ class ResultBatch:
     _fallback: np.ndarray | None = None  # (B,) bool — plain-L_i Thm-3 path
     _waited: np.ndarray | None = None   # (B,) bool — deferred to the push
     real: np.ndarray | None = None      # (B,) bool — False for padding
+    _degraded: np.ndarray | None = None  # (B,) object — fault reasons
     _ds: np.ndarray | None = None       # (B,) int32 source districts
 
     def __len__(self) -> int:
@@ -227,11 +256,19 @@ class ResultBatch:
             self._waited = np.zeros(len(self.distances), dtype=bool)
         return self._waited
 
+    @property
+    def degraded_reason(self) -> np.ndarray:
+        if self._degraded is None:
+            self._degraded = np.full(len(self.distances), None,
+                                     dtype=object)
+        return self._degraded
+
     def __getitem__(self, i: int) -> QueryResult:
         return QueryResult(float(self.distances[i]), Rule(int(self.rules[i])),
                            _EXACTNESS[int(self.exactness_codes[i])],
                            self.index_version, self.latency_s,
-                           bool(self.waited[i]))
+                           bool(self.waited[i]),
+                           self.degraded_reason[i])
 
     def to_list(self) -> list[QueryResult]:
         return [self[i] for i in range(len(self))]
@@ -265,9 +302,11 @@ class ResultBatch:
 class QueryPlane(Protocol):
     """Execution backend contract: answer a routed batch.
 
-    Implemented by ``BatchedQueryEngine`` and ``ShardedBatchedEngine``
-    (the steady-state device snapshots), ``BucketedPlane`` (rebuild windows), and
-    ``ScalarLoopPlane`` (per-query reference).
+    Implemented by ``BatchedQueryEngine``, ``ShardedBatchedEngine`` and
+    ``ScatterGatherPlane`` (the steady-state device snapshots),
+    ``BucketedPlane`` (rebuild windows), and ``ScalarLoopPlane``
+    (per-query reference).  Anything satisfying it plugs into
+    ``DistanceBatcher``.
     """
 
     def execute(self, ss: np.ndarray, ts: np.ndarray) -> np.ndarray:
@@ -374,18 +413,20 @@ class QueryPlan:
                           dtype=np.float32)
         latency = time.perf_counter() - t0
         # per-batch metadata is plane-published: the BucketedPlane sets
-        # all three window arrays, and the steady-state engine has none
-        # of the attributes (None ⇒ lazily all-exact)
+        # all three window arrays, the scatter plane sets exactness +
+        # degraded reasons after a faulted batch, and the steady-state
+        # engines have none of the attributes (None ⇒ lazily all-exact)
         codes = getattr(self.plane, "exactness_codes", None)
         fallback = getattr(self.plane, "fallback", None)
         waited = getattr(self.plane, "waited", None)
+        degraded = getattr(self.plane, "degraded", None)
         if real is not None:
             real = np.asarray(real, dtype=bool)
         batch = ResultBatch(
             dist, self.service.index_version, latency,
             (self.service.system.partition.assignment, self.ss, self.ts,
              self.client_districts),
-            None, codes, fallback, waited, real)
+            None, codes, fallback, waited, real, degraded)
         self.service._enqueue(batch)
         return batch
 
@@ -457,12 +498,16 @@ class DistanceService:
     def _resolve_engine(self):
         """Steady-state engine snapshot per the policy's placement and
         storage dtype, asked of the router's cache on every call (its
-        key holds the index version and the placement) so that no
-        service keeps a stale engine's device tables alive (only called
-        once ``plan`` verified the window is closed)."""
+        key holds the index version, the placement and, for the scatter
+        plane, the fault plan) so that no service keeps a stale engine's
+        device tables alive (only called once ``plan`` verified the
+        window is closed)."""
         p = self.policy
         dtype = (self.system.label_dtype if p.label_dtype == "auto"
                  else p.label_dtype)
+        if p.engine == "scatter_gather":
+            return self.system._current_scatter_plane(faults=p.faults,
+                                                      label_dtype=dtype)
         prefer = {"auto": self.system.prefer_sharded,
                   "replicated": False, "sharded": True}[p.engine]
         border = (self.system.shard_border if p.shard_border is None
@@ -586,3 +631,14 @@ class DistanceService:
             return cache[key]
 
         return certified
+
+    def batcher(self, batch_size: int | None = None,
+                pad: bool = True) -> "DistanceBatcher":
+        """A ``DistanceBatcher`` front-ending this service; the group
+        size defaults to ``policy.batch.batch_size``.  Padding dummies
+        are masked out of the service counters automatically."""
+        from .distance_batcher import DistanceBatcher
+        if batch_size is None:
+            batch_size = (self.policy.batch.batch_size
+                          if self.policy.batch is not None else 256)
+        return DistanceBatcher(self, batch_size=batch_size, pad=pad)

@@ -775,3 +775,82 @@ def test_repairs_on_card_equal_repairs_on_host(cuda):
         assert card.state.table_device.is_cuda
         np.testing.assert_array_equal(card.state.table_device.cpu().numpy(),
                                       card.state.table)
+
+
+def _scatter_pair(cuda):
+    """One deployed index on the CPU and its copy on the card."""
+    from repro_torch.convert import index_to_numpy, system_from_numpy
+    csr, part = synthetic_continent((2, 2), (8, 8), seed=3)
+    g = csr.to_graph()
+    on_host = EdgeSystem.deploy(g, part, device="cpu")
+    return g, on_host, system_from_numpy(index_to_numpy(on_host),
+                                         device=cuda)
+
+
+def _scatter_spec(system, storage):
+    from repro_torch.core import QuantSpec, fit_label_spec
+    btable = system.center.border_labels.table
+    locals_ = [srv.augmented for srv in system.servers]
+    if storage == "float32":
+        return None
+    if storage == "uint16":
+        return fit_label_spec(btable, locals_, dtype=np.uint16)
+    vmax = float(btable[np.isfinite(btable)].max())
+    return QuantSpec(vmax / 30000.0, np.int16, lossless=False)
+
+
+@pytest.mark.parametrize("storage", ["float32", "uint16", "int16_lossy"])
+def test_card_scatter_plane_equals_host_and_runs_no_plain_join(
+        cuda, monkeypatch, storage):
+    """The scatter plane on the card answers as the same plane on the
+    CPU (float32, uint16 and a lossy int16 spec), with one kernel launch
+    a server a batch and no plain join."""
+    from repro_torch.edge import ScatterGatherPlane
+    g, on_host, on_card = _scatter_pair(cuda)
+    rng = np.random.default_rng(4)
+    ss = rng.integers(0, g.num_vertices, 700)
+    ts = rng.integers(0, g.num_vertices, 700)
+    host_plane = ScatterGatherPlane.from_system(
+        on_host, quant=_scatter_spec(on_host, storage))
+    want = host_plane.execute(ss, ts)
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain join ran for the card's plane")
+
+    monkeypatch.setattr(kernel, "gather_join_ref", no_plain)
+    monkeypatch.setattr(kernel, "sharded_gather_join_ref", no_plain)
+    plane = ScatterGatherPlane.from_system(
+        on_card, quant=_scatter_spec(on_card, storage))
+    name = "label_join_sharded" if storage == "float32" else "label_join"
+    before = kernel.LAUNCHES[name]
+    got = plane.execute(ss, ts)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    owners = len(np.unique(on_card.partition.assignment[ss]))
+    assert kernel.LAUNCHES[name] - before == owners
+    assert all(b.is_cuda for b in plane._blocks)
+    assert all(v.is_cuda for v in plane._bviews if v is not None)
+    assert plane.size_bytes() == host_plane.size_bytes()
+    assert plane.exchange_stats == host_plane.exchange_stats
+
+
+def test_card_faulted_replay_equals_host(cuda):
+    from repro_torch.edge import FaultPlan, ScatterGatherPlane
+    g, on_host, on_card = _scatter_pair(cuda)
+    rng = np.random.default_rng(6)
+    ss = rng.integers(0, g.num_vertices, 500)
+    ts = rng.integers(0, g.num_vertices, 500)
+    plan = FaultPlan(seed=23, peer_drop_rate=0.3, peer_timeout_rate=0.4,
+                     peer_slow_rate=0.2, server_outage_rate=0.2,
+                     max_retries=2)
+    runs = []
+    for system in (on_host, on_card, on_card):
+        for srv in system.servers:
+            own = srv._border_rows.get(srv.district_id)
+            srv._border_rows = {} if own is None else {srv.district_id: own}
+        plane = ScatterGatherPlane.from_system(system, faults=plan)
+        out = plane.execute(ss, ts)
+        runs.append((out.tobytes(), plane.exactness_codes.tobytes(),
+                     tuple(plane.degraded), dict(plane.exchange_stats),
+                     tuple(plane.faults.events)))
+    assert runs[1] == runs[0] and runs[2] == runs[0]

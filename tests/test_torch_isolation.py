@@ -61,11 +61,12 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env=_env(), capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
-    # 71 modules: the serving path, the staged builder, the configs, the
+    # 80 modules: the serving path, the staged builder, the configs, the
     # dense LM (models, train, launch, kernels/flash_attention), the
-    # updates (update/delta, update/scenarios, topo) and Floyd–Warshall
-    # (kernels/sssp_relax/kernel)
-    assert int(out.stdout.split("IMPORTED")[1]) >= 71
+    # updates (update/delta, update/scenarios, topo), Floyd–Warshall
+    # (kernels/sssp_relax/kernel), the oracle API, the sharded layouts,
+    # and the scatter-gather plane, faults, simulator and load harness
+    assert int(out.stdout.split("IMPORTED")[1]) >= 80
 
 
 _IMPORT_NEW = r"""
@@ -81,7 +82,9 @@ print("OK")
 """
 
 # the modules of the updates slice and of the Floyd–Warshall kernel, then
-# (one process for the lot) those of the oracle API and the sharded layouts
+# (one process for the lot) those of the oracle API and the sharded
+# layouts, and (one more) those of the scatter-gather read path, the
+# faults, the simulator and the load harness
 UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.update.incremental", "repro_torch.update",
                   "repro_torch.topo.structural", "repro_torch.topo",
@@ -93,7 +96,11 @@ UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.core.oracle repro_torch.core.query "
                   "repro_torch.core.local_index repro_torch.topo.rebalance "
                   "repro_torch.edge.sharded_oracle repro_torch.edge.engine "
-                  "repro_torch.serve.service"]
+                  "repro_torch.serve.service",
+                  "repro_torch.edge.topology repro_torch.edge.traffic "
+                  "repro_torch.edge.faults repro_torch.edge.scatter_gather "
+                  "repro_torch.edge.simulator repro_torch.serve.loadgen "
+                  "repro_torch.serve.distance_batcher"]
 
 
 @pytest.mark.parametrize("module", UPDATE_MODULES)

@@ -441,8 +441,11 @@ def test_sharded_policy_serves_like_the_reference(deployed, shard_border,
 
 
 def test_scatter_gather_still_raises_naming_item_8():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tserve.ServingPolicy(engine="scatter_gather")
+    # item 8 is ported (tests/test_torch_scatter_gather.py): the
+    # placement builds, and what it still refuses is named
+    assert tserve.ServingPolicy(engine="scatter_gather").faults is None
+    with pytest.raises(ValueError, match="migration"):
+        tserve.ServingPolicy(engine="scatter_gather", migration="swap")
     assert tserve.ServingPolicy(engine="sharded").shard_border is None
 
 

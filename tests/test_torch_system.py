@@ -415,8 +415,12 @@ def test_sharded_placements_serve(deployed):
 
 def test_unported_placements_and_paths_raise(deployed):
     _, (rg, rpart, _), (tg, tpart, _), conv = deployed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.ServingPolicy(engine="scatter_gather")
+    # the scatter-gather placement is ported (tests/test_torch_scatter_
+    # gather.py); an unknown migration discipline is refused
+    assert tserve.ServingPolicy(engine="scatter_gather").engine \
+        == "scatter_gather"
+    with pytest.raises(ValueError, match="migration"):
+        tserve.ServingPolicy(engine="scatter_gather", migration="teleport")
     with pytest.raises(ValueError, match="engine"):
         tserve.ServingPolicy(engine="hybrid")
     with pytest.raises(ValueError, match="rebuild"):
