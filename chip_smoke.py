@@ -10,7 +10,7 @@ rate beside the issue ceiling its instructions allow (phase
 bounds), holds each kernel against its plain PyTorch version on the
 card (``relax`` with and without its occupancy map; the fused closure
 on each side of its cap; the k-major product; the join at every vector
-width), and drives the port's ten paths:
+width), and drives the port's twelve paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -67,7 +67,19 @@ width), and drives the port's ten paths:
   attention kernel (36 layers, bf16, 2 x 4096 tokens) against the dense
   prefill, an f32 4-layer check of flash against dense and of
   ``decode_step`` against the forward pass, and ``BatchedDecoder``
-  answering 8 requests.
+  answering 8 requests;
+* DIMACS ingest at the vertex count of USA-road-d.NY — a synthetic
+  continent (262 144 vertices, 64 districts) written as a gzip ``.gr``
+  file, streamed back through ``load_gr_csr`` (held against the
+  generator's CSR), B built on the card from it (q = 448: stage B's
+  tiled squarings), held against the host hierarchical builder, and
+  65 536 rule-3 queries through the join, against Dijkstra;
+* the dense LM's training path at Qwen3-4B's full width —
+  ``make_train_step`` (float32 params, bf16 compute, per-layer remat,
+  the chunked cross-entropy, in-place AdamW) at full depth on one
+  512-token batch, the loss falling; ``run_training`` at 2 layers with
+  checkpoints, an injected fault (restore and replay) and a resume; and
+  a float32 step on the card against the same step on the host.
 
 It checks answers against the scalar loop, the plain versions, the host
 builders and Dijkstra, the dense attention path, and times every
@@ -3012,6 +3024,514 @@ def phase_flash_times(torch, dev, logs: dict) -> dict:
             "on (B, H, S, hd) views", "rows": [row], "ok": True}
 
 
+# -- phase 8: DIMACS ingest at NY scale ---------------------------------------
+
+# a continent with the vertex count of USA-road-d.NY (264 346; the
+# smallest challenge-9 extract, ingest.DATASETS), written as the gzip
+# .gr file a real extract arrives as, under the git-ignored build/
+NY_SCALE = dict(grid=(8, 8), district=(64, 64), border_links=2, seed=11)
+GR_DIR = ROOT / "build" / "chip_smoke"
+INGEST_QUERIES = 65536
+INGEST_DIJKSTRA = 32
+# the host hierarchical builder takes minutes at this size (its prune is
+# O(n q^2) numpy), so it runs in a worker process beside the later
+# phases and the run waits for it, at most this long, before its end
+HOST_CHECK_TIMEOUT_S = 600
+
+
+def write_gr(csr, path: Path) -> int:
+    """A CSR as a gzip DIMACS ``.gr`` file (1-based ids, both arc
+    directions, integer weights: the challenge-9 form); returns the arc
+    count."""
+    import gzip
+    us = np.repeat(np.arange(csr.num_vertices), np.diff(csr.indptr))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with gzip.open(path, "wt", compresslevel=6) as f:
+        f.write("c synthetic continent at USA-road-d.NY's vertex count\n"
+                f"p sp {csr.num_vertices} {len(us)}\n")
+        np.savetxt(f, np.column_stack(
+            [us + 1, csr.indices + 1, csr.weights.astype(np.int64)]),
+            fmt="a %d %d %d")
+    return len(us)
+
+
+def host_work(kind: str, indptr, indices, weights, assignment,
+              districts: int, out: str) -> None:
+    """(Worker process.) ``kind`` "table": the host hierarchical
+    builder's table of the graph, saved to ``out`` (.npy); "partition":
+    ``bfs_grow_partition`` into ``districts`` (what a real ``.gr`` deploy
+    runs first, since the file carries no partition). Its seconds go to
+    ``out`` + .json."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import (Graph, Partition, bfs_grow_partition,
+                                  build_border_labels_hierarchical)
+    g = Graph(indptr, indices, weights)
+    t0 = time.perf_counter()
+    if kind == "table":
+        np.save(out, build_border_labels_hierarchical(
+            g, Partition(assignment, districts)).table)
+    else:
+        bfs_grow_partition(g, districts, seed=0)
+    seconds = time.perf_counter() - t0
+    Path(out + ".json").write_text(json.dumps({"seconds": seconds}))
+
+
+def phase_ingest(torch, dev, launches: dict, errs: dict,
+                 peak: dict) -> tuple[dict, dict]:
+    """The paper's entry point at NY scale: a .gr file streamed through
+    ``load_gr_csr``, B built on the card from it (q above the fused
+    closure's cap: stage B's tiled squarings), 65 536 rule-3 queries
+    through the gathered join; each kernel's first call held against its
+    plain version, answers against Dijkstra. B is held against the host
+    hierarchical builder by ``finish_ingest_check``, whose worker process
+    this phase starts; returns the phase's line and what that check
+    needs."""
+    import multiprocessing
+
+    from repro_torch.edge import ComputingCenter
+    from repro_torch.ingest import DATASETS, load_gr_csr, synthetic_continent
+    from repro_torch.ingest.dimacs import DEFAULT_CHUNK_ARCS
+    from repro_torch.kernels.label_join import kernel, ref
+    from repro_torch.kernels.minplus import kernel as mp_kernel, ops
+
+    ny = DATASETS["USA-road-d.NY"]
+    t0 = time.perf_counter()
+    csr, part = synthetic_continent(**NY_SCALE)
+    synth_s = time.perf_counter() - t0
+    path = GR_DIR / "continent_ny_scale.gr.gz"
+    t0 = time.perf_counter()
+    arcs = write_gr(csr, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = load_gr_csr(str(path))
+    parse_s = time.perf_counter() - t0
+    for name in ("indptr", "indices", "weights"):
+        check(np.array_equal(getattr(got, name), getattr(csr, name)),
+              f"the .gr file's CSR {name} differs from the generator's")
+    g = got.to_graph()
+    n = g.num_vertices
+    workers = {}
+    for kind in ("table", "partition"):
+        out = GR_DIR / f"host_{kind}.npy"
+        workers[kind] = (multiprocessing.get_context("spawn").Process(
+            target=host_work, daemon=True,
+            args=(kind, g.indptr, g.indices, g.weights, part.assignment,
+                  part.num_districts, str(out))), out)
+        workers[kind][0].start()
+
+    # the main path: the center deployed on the card from the file's graph
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernel, mp_kernel)
+    center = ComputingCenter(g, part, builder="torch", device=dev)
+    seen, held = set(), []
+    with hold_first_calls(mp_kernel, seen, held):
+        build_s = center.rebuild()
+    build_launches = launch_counts(mp_kernel)
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    build_held = check_held(torch, held, errs, "ingest build")
+    state = center.incremental_builder().state
+    steps = dict(center.incremental_builder().timings)
+    q = len(center.border_labels.border_ids)
+    check(q > mp_kernel.CLOSURE_MAX_Q, f"q = {q} is not above the fused "
+          f"closure's cap {mp_kernel.CLOSURE_MAX_Q}")
+    check({"relax", "minplus", "minplus_kmajor"}
+          <= {h[0] for h in build_held},
+          f"no stage-A sweep, tiled squaring or stage-C product held: "
+          f"{build_held}")
+    check(build_launches["relax"] > 0
+          and build_launches["minplus"] == ops.closure_steps(q)
+          and build_launches["minplus_closure"] == 0
+          and build_launches["minplus_kmajor"] == 1,
+          f"the NY-scale build's launches: {build_launches}")
+
+    rng = np.random.default_rng(17)
+    ss = rng.integers(0, n, 2 * INGEST_QUERIES)
+    ts = rng.integers(0, n, 2 * INGEST_QUERIES)
+    cross = np.nonzero(part.assignment[ss] != part.assignment[ts])[0]
+    ss, ts = ss[cross[:INGEST_QUERIES]], ts[cross[:INGEST_QUERIES]]
+    check(len(ss) == INGEST_QUERIES, "too few cross-district pairs")
+    reset_launches(kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers = center.answer_cross_many(ss, ts)
+    first_s = time.perf_counter() - t0
+    join_launches = kernel.LAUNCHES["label_join"]
+    check(join_launches == 1, f"one batch made {join_launches} launches")
+    launches["relax"] += build_launches["relax"]
+    launches["minplus"] += build_launches["minplus"]
+    launches["minplus_kmajor"] += build_launches["minplus_kmajor"]
+    launches["label_join"] += join_launches
+
+    btab = center.border_table_device()
+    rs, rt_ = torch.from_numpy(ss).to(dev), torch.from_numpy(ts).to(dev)
+    plain = ref.gather_join_ref(btab, rs, btab, rt_).cpu().numpy()
+    check(np.array_equal(plain, answers),
+          "NY-scale rule-3 join differs from its plain version")
+    errs["label_join"] = max(errs["label_join"], max_abs_err(
+        torch.from_numpy(answers), torch.from_numpy(plain)))
+    exact = scipy_dijkstra(g, ss[:INGEST_DIJKSTRA])
+    want = exact[np.arange(INGEST_DIJKSTRA), ts[:INGEST_DIJKSTRA]]
+    check(np.array_equal(want.astype(np.float32),
+                         answers[:INGEST_DIJKSTRA]),
+          "NY-scale rule-3 answers differ from Dijkstra")
+    submit_s = [first_s]
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        center.answer_cross_many(ss, ts)
+        submit_s.append(time.perf_counter() - t0)
+    device_bytes = torch.cuda.memory_allocated()
+    join_row = time_shape(torch, kernel, ref, "rule3_f32_ny", btab, ss, ts,
+                          None)
+    _, squaring = closure_input_shape(torch, f"q{q}", state)[
+        f"squaring_q{q}"]
+    squaring_row = time_builder_shape(torch, f"squaring_q{q}", "minplus",
+                                      squaring, peak)
+    out = {"phase": "ingest_dimacs_ny_scale", "n": int(n),
+           "arcs": int(arcs), "ny_vertices": ny.num_vertices,
+           "ny_arcs": ny.num_arcs, "districts": int(part.num_districts),
+           "kmax": state.packed.kmax, "bmax": state.packed.bmax, "q": q,
+           "file_bytes": path.stat().st_size, "synth_s": synth_s,
+           "write_s": write_s, "chunk_arcs": DEFAULT_CHUNK_ARCS,
+           "parse_s": parse_s, "arcs_per_s": arcs / parse_s,
+           "csr_equals_generator": True, "build_s": build_s, "build_steps": steps,
+           "stage_a_pack_s": steps["stage_a_pack_s"],
+           "stage_a_sweeps_s": steps["stage_a_sweeps_s"],
+           "stage_a_sweeps": steps["stage_a_sweeps"],
+           "stage_b_s": steps["stage_b_s"], "stage_c_s": steps["stage_c_s"],
+           "build_launches": build_launches,
+           "build_held_against_plain": build_held,
+           "adjacency_gb": state.packed.adj.nbytes / 1e9,
+           "b_table_mb": center.border_labels.table.nbytes / 1e6,
+           "build_peak_memory_gb": build_peak_gb,
+           "device_bytes_before": base_bytes,
+           "device_bytes_after": device_bytes,
+           "b_vs_host_hierarchical": "phase ingest_host_check",
+           "queries": len(ss),
+           "join_launches": join_launches,
+           "answer_cross_many_s": submit_s,
+           "join_kernel_ms": join_row["kernel_ms"], "join_row": join_row,
+           "tiled_squaring": squaring_row,
+           "dijkstra_spot_pairs": INGEST_DIJKSTRA,
+           "timer": "host clock between synchronisations; kernel rows: "
+           "CUDA-graph replays (as phases times and builder_times)",
+           "ok": True}
+    pending = {"workers": workers, "card_table": center.border_labels.table}
+    del center, state, btab
+    path.unlink()
+    return out, pending
+
+
+def finish_ingest_check(pending: dict) -> dict:
+    """Waits for the host work of the NY-scale graph and holds the
+    card-built B against the host hierarchical builder's, bit for bit."""
+    t0 = time.perf_counter()
+    seconds = {}
+    for kind, (worker, out) in pending["workers"].items():
+        worker.join(timeout=HOST_CHECK_TIMEOUT_S)
+        check(worker.exitcode == 0, f"the host {kind} worker ended with "
+              f"{worker.exitcode} (None: still running after "
+              f"{HOST_CHECK_TIMEOUT_S} s)")
+        stamp = Path(str(out) + ".json")
+        seconds[kind] = json.loads(stamp.read_text())["seconds"]
+        stamp.unlink()
+    waited_s = time.perf_counter() - t0
+    out = pending["workers"]["table"][1]
+    host_b = np.load(out)
+    out.unlink()
+    check(np.array_equal(pending["card_table"], host_b),
+          "card-built B differs from the host hierarchical B at NY scale")
+    return {"phase": "ingest_host_check", "shape": list(host_b.shape),
+            "host_hierarchical_build_s": seconds["table"],
+            "bfs_grow_partition_s": seconds["partition"],
+            "waited_s": waited_s, "b_equals_host_hierarchical": True,
+            "timer": "host clock in two worker processes, which ran beside "
+            "the phases after ingest_dimacs_ny_scale", "ok": True}
+
+
+# -- phase 9: the dense LM's training path at Qwen3-4B's width ----------------
+
+LM_TRAIN = dict(batch=1, tokens=512, steps=5, peak_lr=1e-3)
+LM_TRAIN_LOOP = dict(layers=2, steps=8, every=4, fault=6, resume_to=10)
+LM_TRAIN_TIGHT = dict(layers=2, batch=1, tokens=256)
+# float32 compute on both sides (TF32 off): the loss and the gradient
+# norm differ only in the order of sums; a param after one Adam step is
+# held by its L2 norm (Adam divides each gradient by its own magnitude,
+# so elements whose gradient is near eps amplify that order)
+LM_TRAIN_REL = 1e-4
+
+
+def _rel2(torch, a, b) -> float:
+    a, b = a.double(), b.double().to(a.device)
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def lm_train_tight(torch, dev) -> dict:
+    """One float32 train step at full width and 2 layers on the card and
+    on the host through the port, from the same params and batch."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+    from repro_torch.train.data import DataConfig, synthetic_batch, to_device
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    t = LM_TRAIN_TIGHT
+    cfg = replace(get_config(LM_ARCH), num_layers=t["layers"],
+                  compute_dtype="float32")
+    host = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    card = _copy_tree(host, dev)
+    batch = synthetic_batch(cfg, DataConfig(t["tokens"], t["batch"], seed=2),
+                            0)
+    step = make_train_step(cfg, OptimizerConfig(warmup_steps=1))
+    t0 = time.perf_counter()
+    pc, _, mc = step(card, init_opt_state(card), to_device(batch, dev))
+    sync(torch, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ph, _, mh = step(host, init_opt_state(host), to_device(batch, "cpu"))
+    host_s = time.perf_counter() - t0
+    rels = {k: rel_diff(mc[k].cpu(), mh[k]) for k in ("loss", "grad_norm")}
+    leaves = {}
+    for path, a, b in _paired_leaves(pc, ph):
+        leaves[path] = _rel2(torch, a.cpu(), b)
+    worst = max(list(rels.values()) + list(leaves.values()))
+    check(worst <= LM_TRAIN_REL, f"f32 train step on the card vs the host: "
+          f"{worst} > {LM_TRAIN_REL} ({rels}, {leaves})")
+    return {"layers": t["layers"], "batch": t["batch"],
+            "tokens": t["tokens"], "loss": float(mc["loss"]),
+            "loss_rel": rels["loss"], "grad_norm_rel": rels["grad_norm"],
+            "param_rel2_max": max(leaves.values()),
+            "param_rel2": leaves, "tolerance_rel": LM_TRAIN_REL,
+            "card_step_s": card_s, "host_step_s": host_s,
+            "measure": "loss, grad_norm: max |a-b| / max |b|; params after "
+            "the step: ||a-b||_2 / ||b||_2"}
+
+
+def _copy_tree(tree: dict, dev) -> dict:
+    return {k: _copy_tree(v, dev) if isinstance(v, dict)
+            else v.to(dev, copy=True) for k, v in tree.items()}
+
+
+def _paired_leaves(a: dict, b: dict, path: str = ""):
+    for k, v in a.items():
+        if isinstance(v, dict):
+            yield from _paired_leaves(v, b[k], f"{path}{k}/")
+        else:
+            yield f"{path}{k}", v, b[k]
+
+
+@contextlib.contextmanager
+def optimizer_events(torch, tts):
+    """While active, each ``adamw_update`` the train steps call records
+    a CUDA event before and after it (``events``: one pair a step)."""
+    real = tts.adamw_update
+    events = []
+
+    def timed_update(*args):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = real(*args)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    tts.adamw_update = timed_update
+    try:
+        yield events
+    finally:
+        tts.adamw_update = real
+
+
+def lm_train_loop(torch, dev) -> dict:
+    """``run_training`` at full width and 2 layers: checkpoints every 4
+    steps, a fault injected before step 6 (restore step 4, replay), then
+    a resume from step 8's checkpoint to step 10; the loss of every step
+    the loop runs, checkpoint bytes, save and restore seconds."""
+    import shutil
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import checkpoint as ckpt_mod
+    from repro_torch.models.lm import init_params
+    from repro_torch.train import loop as tloop
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.optimizer import OptimizerConfig
+    lp = LM_TRAIN_LOOP
+    cfg = replace(get_config(LM_ARCH), num_layers=lp["layers"])
+    directory = GR_DIR / "ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    oc = OptimizerConfig(peak_lr=LM_TRAIN["peak_lr"], warmup_steps=1)
+    dcfg = DataConfig(LM_TRAIN["tokens"], LM_TRAIN["batch"], seed=4)
+    losses, saves, snapshots, restores = [], [], [], []
+    real_make, real_save = tloop.make_train_step, ckpt_mod._save_host
+    real_snapshot = ckpt_mod.AsyncCheckpointer.save
+    real_restore = tloop.restore_checkpoint
+
+    def make(*a, **k):
+        step = real_make(*a, **k)
+
+        def recorded(*args):
+            out = step(*args)
+            losses.append(float(out[2]["loss"]))
+            return out
+        return recorded
+
+    def timed(fn, into):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    armed = {"on": True}
+
+    def fault_hook(step):
+        if step == lp["fault"] and armed["on"]:
+            armed["on"] = False
+            raise RuntimeError("injected node failure")
+
+    logs = []
+    tloop.make_train_step = make
+    ckpt_mod._save_host = timed(real_save, saves)
+    ckpt_mod.AsyncCheckpointer.save = timed(real_snapshot, snapshots)
+    tloop.restore_checkpoint = timed(real_restore, restores)
+    try:
+        def init():
+            return init_params(cfg, torch.Generator(device=dev)
+                               .manual_seed(5), dev)
+        t0 = time.perf_counter()
+        first = tloop.run_training(
+            cfg, oc, dcfg, tloop.LoopConfig(
+                total_steps=lp["steps"], checkpoint_every=lp["every"],
+                checkpoint_dir=str(directory), log_every=1), init,
+            fault_hook=fault_hook, log=logs.append, device=dev)
+        first_s = time.perf_counter() - t0
+        del first.params, first.opt_state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        second = tloop.run_training(
+            cfg, oc, dcfg, tloop.LoopConfig(
+                total_steps=lp["resume_to"], checkpoint_every=lp["every"],
+                checkpoint_dir=str(directory), log_every=1), init,
+            fault_hook=fault_hook, log=logs.append, device=dev)
+        second_s = time.perf_counter() - t0
+    finally:
+        tloop.make_train_step = real_make
+        ckpt_mod._save_host = real_save
+        ckpt_mod.AsyncCheckpointer.save = real_snapshot
+        tloop.restore_checkpoint = real_restore
+    step_dir = directory / f"step_{lp['every']}"
+    ckpt_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+    latest = ckpt_mod.latest_step(str(directory))
+    shutil.rmtree(directory)
+    f = lp["fault"]
+    # the loop's step calls: 0 .. f-1, then (after restoring step
+    # `every`) every .. steps-1, then the resume's steps .. resume_to-1
+    replay = losses[f:f + f - lp["every"]]
+    before = losses[lp["every"]:f]
+    check(first.step == lp["steps"] and first.restarts == 1
+          and second.step == lp["resume_to"] and latest == lp["steps"],
+          f"loop steps {first.step}, {second.step}, restarts "
+          f"{first.restarts}, latest checkpoint {latest}")
+    check(any("restoring last checkpoint" in m for m in logs)
+          and f"resumed from checkpoint step {lp['steps']}" in logs,
+          f"the loop's log lacks the restore or the resume: {logs}")
+    check(len(losses) == f + (lp["steps"] - lp["every"])
+          + (lp["resume_to"] - lp["steps"])
+          and all(np.isfinite(losses)), f"loop losses: {losses}")
+    replay_rel = max(abs(a - b) / abs(b) for a, b in zip(replay, before))
+    check(replay[0] == before[0] and replay_rel <= 1e-5,
+          f"the replay after the restore differs: {replay} vs {before}")
+    return {"layers": lp["layers"], "steps": lp["steps"],
+            "checkpoint_every": lp["every"], "fault_at": f,
+            "resume_to": lp["resume_to"], "losses": losses,
+            "replay_rel_max": replay_rel, "restarts": first.restarts,
+            "checkpoint_bytes": ckpt_bytes, "snapshot_s": snapshots,
+            "save_s": saves, "restore_s": restores,
+            "first_run_s": first_s, "resume_run_s": second_s,
+            "timer": "host clock; snapshot_s: AsyncCheckpointer.save (the "
+            "copy to the host, on the step's path), save_s: the writer "
+            "thread's npz files, hash and rename, restore_s: "
+            "restore_checkpoint (hash check, read, upload)"}
+
+
+def phase_lm_train(torch, dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.data import DataConfig, synthetic_batch, to_device
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+
+    tight = lm_train_tight(torch, dev)
+    torch.cuda.empty_cache()
+    loop = lm_train_loop(torch, dev)
+    torch.cuda.empty_cache()
+
+    tr = LM_TRAIN
+    cfg = get_config(LM_ARCH)
+    check(cfg.remat and cfg.param_dtype == "float32"
+          and cfg.compute_dtype == "bfloat16"
+          and cfg.attention_impl == "dense", f"train config: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(6),
+                         dev)
+    opt = init_opt_state(params)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    batch = to_device(synthetic_batch(
+        cfg, DataConfig(tr["tokens"], tr["batch"], seed=0), 0), dev)
+    step = tts.make_train_step(cfg, OptimizerConfig(
+        peak_lr=tr["peak_lr"], warmup_steps=1))
+    losses, step_s, fwd_bwd_ms, opt_ms = [], [], [], []
+    with optimizer_events(torch, tts) as events:
+        for _ in range(tr["steps"]):
+            start = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            begin, end = events[-1]
+            fwd_bwd_ms.append(start.elapsed_time(begin))
+            opt_ms.append(begin.elapsed_time(end))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"train losses: {losses}")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0,
+          f"first loss {losses[0]} is not near ln(V) = "
+          f"{np.log(cfg.vocab_size)}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    warm = step_s[1:]
+    tokens = tr["batch"] * tr["tokens"]
+    return {"phase": "lm_train_qwen3_4b", "arch": LM_ARCH,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "params": cfg.param_count(),
+            "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "batch": tr["batch"], "tokens": tr["tokens"],
+            "peak_lr": tr["peak_lr"], "losses": losses,
+            "ln_vocab": float(np.log(cfg.vocab_size)), "init_s": init_s,
+            "state_gb": state_gb, "step_s": step_s,
+            "ms_per_step": 1e3 * float(np.median(warm)),
+            "fwd_bwd_ms": fwd_bwd_ms, "optimizer_ms": opt_ms,
+            "tokens_per_s": tokens / float(np.median(warm)),
+            "max_memory_allocated_gb": peak_gb,
+            "timer": "step_s: host clock between synchronisations (the "
+            "first step pays cuBLAS set-up); fwd_bwd_ms / optimizer_ms: "
+            "CUDA events around the step and around adamw_update",
+            "tight_f32": tight, "loop": loop, "ok": True}
+
+
 # each kernel at the shape its path's main run gives it (phase 3 for the
 # distance kernels, phase 4b's build above the fused closure's cap for
 # the tiled min-plus kernel, phase 7's prefill for flash attention, one
@@ -3152,11 +3672,17 @@ def main() -> int:
     emit(phase_latency_sim(torch, dev, state))
     del state
     torch.cuda.empty_cache()
+    ingest, ingest_pending = phase_ingest(torch, dev, launches, errs, peak)
+    emit(ingest)
+    torch.cuda.empty_cache()
     emit(phase_flash_kernels(torch, dev, errs))
     emit(phase_lm(torch, dev, launches))
     torch.cuda.empty_cache()
     flash_times = phase_flash_times(torch, dev, logs)
     emit(flash_times)
+    torch.cuda.empty_cache()
+    emit(phase_lm_train(torch, dev))
+    emit(finish_ingest_check(ingest_pending))
     emit(kernels_line(times["rows"] + sharded_times["rows"]
                       + builder_times["rows"] + flash_times["rows"]
                       + fw["rows"], launches, errs))

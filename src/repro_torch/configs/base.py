@@ -6,11 +6,11 @@ SSM / hybrid / VLM / audio). Exact published configs live in the sibling
 ``<arch>.py`` modules; each also exposes a ``smoke()`` reduction used by
 the CPU tests (same code path, tiny dims).
 
-The port runs the dense family's serving path (``models/lm.py``:
-``forward`` and ``decode_step``). That path ignores ``remat``,
-``remat_group``, ``scan_layers``, ``onehot_embed`` and ``ce_chunk``,
-which steer training and XLA lowering; they are kept so that one config
-means the same in both packages.
+The port runs the dense family's serving and training paths
+(``models/lm.py``: ``forward``, ``loss_fn`` and ``decode_step``). They
+honour ``remat``, ``remat_group``, ``onehot_embed`` and ``ce_chunk``;
+``scan_layers``, which steers XLA lowering, is kept so that one config
+means the same in both packages (the port loops over layers in Python).
 """
 from __future__ import annotations
 

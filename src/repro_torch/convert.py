@@ -15,7 +15,10 @@ the cache that delta-scoped repairs warm-start from.
 
 ``lm_params_from_numpy`` carries an LM's params across: the JAX
 package's ``init_params`` tree as numpy arrays becomes the port's params
-on a torch device, so both packages compute with the same weights.
+on a torch device, so both packages compute with the same weights;
+``lm_params_to_numpy`` goes back. ``opt_state_from_numpy`` /
+``opt_state_to_numpy`` do the same for the optimizer state (``m``,
+``v``, ``step``), so training can continue in either package.
 """
 from __future__ import annotations
 
@@ -149,3 +152,34 @@ def lm_params_from_numpy(tree: dict, *,
     return {k: lm_params_from_numpy(v, device=device)
             if isinstance(v, dict) else _tensor_from_numpy(v, device)
             for k, v in tree.items()}
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's LM params (or any nested dict of tensors) as numpy
+    arrays on the host, keys and layout unchanged; bfloat16 tensors as
+    ``ml_dtypes.bfloat16`` arrays (the dtype JAX takes), through their
+    16-bit patterns."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes             # the JAX package's numpy bf16
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    return {k: lm_params_to_numpy(v) if isinstance(v, dict) else host(v)
+            for k, v in params.items()}
+
+
+def opt_state_from_numpy(state: dict, *,
+                         device: torch.device | str | None = None) -> dict:
+    """The port's optimizer state holding exactly the arrays of
+    ``state`` (the JAX package's ``init_opt_state`` / ``adamw_update``
+    state as numpy arrays: ``m`` and ``v`` trees and the int32 ``step``)
+    on ``device``."""
+    return lm_params_from_numpy(state, device=device)
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The port's optimizer state as numpy arrays (``step`` a 0-dim
+    int32 array), for the JAX package's ``adamw_update``."""
+    return lm_params_to_numpy(state)

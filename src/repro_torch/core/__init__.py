@@ -8,8 +8,9 @@ its serving layouts on a torch device, and ``torch_builder`` (the
 counterpart of ``repro.core.jax_builder``) builds B on a torch device
 with the min-plus kernels."""
 from .graph import (Graph, from_edges, grid_road_network,
-                    random_geometric_network, dijkstra, perturb_weights,
-                    bidirectional_dijkstra, all_pairs_dijkstra, is_connected)
+                    random_geometric_network, load_dimacs_gr, dijkstra,
+                    perturb_weights, bidirectional_dijkstra,
+                    all_pairs_dijkstra, is_connected)
 from .labels import SparseLabels, BorderLabels, pack_sparse
 from .ordering import degree_order, rank_of
 from .partition import Partition, bfs_grow_partition, grid_partition, \

@@ -7,12 +7,11 @@ unreachability. Vertex ids are dense ``int32`` in ``[0, n)``.
 
 Includes synthetic generators that mimic road-network structure (sparse,
 near-planar, low-degree) so the paper's experiments (Table 2 / Fig. 5
-scale sweeps) can run offline.
+scale sweeps) can run offline, plus a DIMACS ``.gr`` parser for the real
+challenge-9 datasets when present.
 
 Host NumPy, a copy of ``repro.core.graph`` kept in this package so the
-PyTorch port imports nothing of the JAX package. The DIMACS ``.gr``
-loader is not carried over yet (it needs the streaming reader of
-``ingest.dimacs``).
+PyTorch port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -358,3 +357,14 @@ def is_connected(g: Graph) -> bool:
                 seen[u] = True
                 stack.append(int(u))
     return bool(seen.all())
+
+
+def load_dimacs_gr(path: str) -> Graph:
+    """Parse a DIMACS challenge-9 ``.gr`` file (``a u v w`` arcs,
+    1-based).  Delegates to the streaming ``repro_torch.ingest.dimacs``
+    reader — the one parser in the port — which tolerates ``c``/``p``
+    lines anywhere, collapses duplicate arcs to the min weight, and
+    raises ``DimacsFormatError`` (with the line number) on 0-based or
+    out-of-range vertex ids."""
+    from ..ingest.dimacs import load_gr_graph   # deferred: ingest
+    return load_gr_graph(path)                  # imports core.graph

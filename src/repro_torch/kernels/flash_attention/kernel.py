@@ -122,7 +122,14 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention of q over k/v per head, K/V head h // (H/KV);
-    causal: key j attends for query i when j <= i."""
+    causal: key j attends for query i when j <= i. It has no backward
+    (nor has the JAX package's Pallas kernel): under autograd, with an
+    input that requires grad, it raises instead of returning attention
+    that carries no gradient."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward; train with "
+            "attention_impl='dense' (as the JAX package does)")
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)

@@ -1,1 +1,2 @@
-"""Command-line launchers of the port (``launch.serve``)."""
+"""Command-line launchers of the port (``launch.serve``,
+``launch.train``)."""

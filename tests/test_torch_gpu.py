@@ -854,3 +854,102 @@ def test_card_faulted_replay_equals_host(cuda):
                      tuple(plane.degraded), dict(plane.exchange_stats),
                      tuple(plane.faults.events)))
     assert runs[1] == runs[0] and runs[2] == runs[0]
+
+
+# -- training and ingest (slice 10) -------------------------------------------
+
+def test_card_train_step_equals_the_cpu_step(cuda):
+    """One float32 train step of a 2-layer smoke model on the card and
+    on the CPU from the same params (TF32 off): the loss within rel 1e-5,
+    every updated param within rel 1e-4 of its L2 norm (Adam divides by
+    each gradient's own magnitude, so near-zero gradients amplify the
+    kernels' other summation order), and the state stays on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.train.data import DataConfig, synthetic_batch, to_device
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config("qwen3_4b").reduced(num_layers=2,
+                                               compute_dtype="float32",
+                                               ce_chunk=16)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        host = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = tree_map(lambda t: t.to(cuda), host)
+        batch = synthetic_batch(cfg, DataConfig(32, 4, seed=1), 0)
+        step = make_train_step(cfg, OptimizerConfig(warmup_steps=1))
+        ph, _, mh = step(host, init_opt_state(host), to_device(batch, "cpu"))
+        pc, sc, mc = step(card, init_opt_state(card), to_device(batch, cuda))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(float(mc["loss"]) - float(mh["loss"])) \
+        <= 1e-5 * abs(float(mh["loss"]))
+    for a, b in zip(tree_leaves(pc), tree_leaves(ph)):
+        assert a.is_cuda
+        a, b = a.cpu().double(), b.double()
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-4
+    assert all(t.is_cuda for t in tree_leaves(sc["m"]))
+
+
+def test_card_loss_falls_in_bf16(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.train.data import DataConfig, synthetic_batch, to_device
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_smoke_config("qwen3_4b").reduced(num_layers=2)
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            cuda)
+    opt = init_opt_state(params)
+    batch = to_device(synthetic_batch(cfg, DataConfig(32, 4, seed=1), 0),
+                      cuda)
+    step = make_train_step(cfg, OptimizerConfig(peak_lr=5e-3,
+                                                warmup_steps=2))
+    losses = []
+    for _ in range(10):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0] - 0.5, losses
+
+
+def test_card_builds_a_center_from_a_gr_file(cuda, tmp_path):
+    """A synthetic continent written as a gzip ``.gr`` file, streamed
+    back through ``load_gr_csr`` and deployed on the card: the CSR equals
+    the generator's, B the host hierarchical builder's, and the rule-3
+    answers Dijkstra's."""
+    import gzip
+    from repro_torch.core import build_border_labels_hierarchical, dijkstra
+    from repro_torch.edge import ComputingCenter
+    from repro_torch.ingest import load_gr_csr
+    from repro_torch.kernels.minplus import kernel as mp_kernel
+    csr, part = synthetic_continent(grid=(3, 3), district=(12, 12),
+                                    border_links=2, seed=5)
+    us = np.repeat(np.arange(csr.num_vertices), np.diff(csr.indptr))
+    path = tmp_path / "c.gr.gz"
+    with gzip.open(path, "wt") as f:
+        f.write(f"p sp {csr.num_vertices} {len(us)}\n")
+        np.savetxt(f, np.column_stack([us + 1, csr.indices + 1,
+                                       csr.weights.astype(np.int64)]),
+                   fmt="a %d %d %d")
+    got = load_gr_csr(str(path), chunk_arcs=1000)
+    for name in ("indptr", "indices", "weights"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(csr, name))
+    g = got.to_graph()
+    before = dict(mp_kernel.LAUNCHES)
+    center = ComputingCenter(g, part, builder="torch", device=cuda)
+    center.rebuild()
+    assert mp_kernel.LAUNCHES["relax"] > before["relax"]
+    np.testing.assert_array_equal(center.border_labels.table,
+                                  build_border_labels_hierarchical(
+                                      g, part).table)
+    rng = np.random.default_rng(2)
+    ss = rng.integers(0, g.num_vertices, 400)
+    ts = rng.integers(0, g.num_vertices, 400)
+    cross = part.assignment[ss] != part.assignment[ts]
+    ss, ts = ss[cross], ts[cross]
+    ans = center.answer_cross_many(ss, ts)
+    for i in range(8):
+        assert ans[i] == np.float32(dijkstra(g, int(ss[i]))[ts[i]])

@@ -61,12 +61,15 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env=_env(), capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
-    # 80 modules: the serving path, the staged builder, the configs, the
+    # 90 modules: the serving path, the staged builder, the configs, the
     # dense LM (models, train, launch, kernels/flash_attention), the
     # updates (update/delta, update/scenarios, topo), Floyd–Warshall
     # (kernels/sssp_relax/kernel), the oracle API, the sharded layouts,
-    # and the scatter-gather plane, faults, simulator and load harness
-    assert int(out.stdout.split("IMPORTED")[1]) >= 80
+    # the scatter-gather plane, faults, simulator and load harness, the
+    # DIMACS ingest (ingest/dimacs, ingest/datasets) and the training
+    # path (train/optimizer, train/data, train/loop, distributed,
+    # launch/train, tree)
+    assert int(out.stdout.split("IMPORTED")[1]) >= 90
 
 
 _IMPORT_NEW = r"""
@@ -83,8 +86,9 @@ print("OK")
 
 # the modules of the updates slice and of the Floyd–Warshall kernel, then
 # (one process for the lot) those of the oracle API and the sharded
-# layouts, and (one more) those of the scatter-gather read path, the
-# faults, the simulator and the load harness
+# layouts, (one more) those of the scatter-gather read path, the
+# faults, the simulator and the load harness, and (two more) those of
+# the DIMACS ingest and of the training path
 UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.update.incremental", "repro_torch.update",
                   "repro_torch.topo.structural", "repro_torch.topo",
@@ -100,7 +104,14 @@ UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.edge.topology repro_torch.edge.traffic "
                   "repro_torch.edge.faults repro_torch.edge.scatter_gather "
                   "repro_torch.edge.simulator repro_torch.serve.loadgen "
-                  "repro_torch.serve.distance_batcher"]
+                  "repro_torch.serve.distance_batcher",
+                  "repro_torch.ingest.dimacs repro_torch.ingest.datasets "
+                  "repro_torch.core.graph",
+                  "repro_torch.train.optimizer repro_torch.train.data "
+                  "repro_torch.train.loop repro_torch.train.train_step "
+                  "repro_torch.distributed.checkpoint "
+                  "repro_torch.distributed.compression "
+                  "repro_torch.launch.train repro_torch.tree"]
 
 
 @pytest.mark.parametrize("module", UPDATE_MODULES)
@@ -146,6 +157,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedBatchedEngine(np.zeros((16, 0), np.float32), [],
                              part.assignment)
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    _require_cpu_only_host()
+    from repro_torch.distributed.checkpoint import (restore_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.train.optimizer import OptimizerConfig
+    cfg = get_smoke_config("qwen3_4b")
+    save_checkpoint(str(tmp_path), 1, {"t": torch.zeros(3)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore_checkpoint(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training(cfg, OptimizerConfig(), DataConfig(8, 1),
+                     LoopConfig(checkpoint_dir=str(tmp_path / "x")),
+                     lambda: {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "qwen3_4b", "--smoke", "--ckpt",
+                           str(tmp_path / "y")])
 
 
 class _CudaLooking(torch.Tensor):
