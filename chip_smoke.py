@@ -10,7 +10,7 @@ rate beside the issue ceiling its instructions allow (phase
 bounds), holds each kernel against its plain PyTorch version on the
 card (``relax`` with and without its occupancy map; the fused closure
 on each side of its cap; the k-major product; the join at every vector
-width), and drives the port's twelve paths:
+width), and drives the port's fifteen paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -79,7 +79,23 @@ width), and drives the port's twelve paths:
   the chunked cross-entropy, in-place AdamW) at full depth on one
   512-token batch, the loss falling; ``run_training`` at 2 layers with
   checkpoints, an injected fault (restore and replay) and a resume; and
-  a float32 step on the card against the same step on the host.
+  a float32 step on the card against the same step on the host;
+* the MoE family at OLMoE-1B-7B's published config, full depth and
+  width (bf16 weights, random from a seed) — a flash prefill of
+  2 x 4096 tokens (16 flash launches), its capacity drops at cf 1.25,
+  two prefills equal bit for bit, the dense prefill as the yardstick
+  (compared where both routed a token alike), ``BatchedDecoder`` at
+  batch 4 on 8 requests, a profile of one MoE layer by stage; a float32
+  check at 2 layers on the card against the host, and 3 train steps at
+  2 layers;
+* MLA and shared experts at DeepSeek-V2's published width, cut to 3
+  layers (one dense, two MoE) — a prefill of 1 x 2048 (capacity 96),
+  one MoE layer's profile, decode steps at batch 4 from the MLA cache;
+* the frontends — InternVL2-26B at full depth, a flash prefill of 256
+  patches + 1792 text tokens (48 flash launches) against the dense
+  prefill; HuBERT-XLarge at full depth, a non-causal forward over 4096
+  frames with dense attention (the bf16 flash kernel refuses its head
+  dim 80).
 
 It checks answers against the scalar loop, the plain versions, the host
 builders and Dijkstra, the dense attention path, and times every
@@ -2604,7 +2620,8 @@ def phase_times(torch, state: dict, shapes: dict) -> dict:
 # package's tests/test_flash_attention.py in float32, its bf16 case, an
 # unaligned Qwen-shaped case (in both types), a non-causal one, bf16 at
 # every other head dim the tensor-core kernel takes (192: Nemotron-4-340B)
-# and at ragged S != T, then the LM path's shape
+# and at ragged S != T, then the LM paths' shapes (Qwen3-4B, OLMoE-1B-7B,
+# InternVL2-26B's prefills)
 FLASH_SHAPES = [(1, 16, 16, 4, 4, 32, True, "float32"),
                 (2, 32, 32, 4, 2, 32, True, "float32"),
                 (1, 64, 64, 8, 2, 16, False, "float32"),
@@ -2619,7 +2636,9 @@ FLASH_SHAPES = [(1, 16, 16, 4, 4, 32, True, "float32"),
                 (2, 500, 500, 16, 4, 192, True, "bfloat16"),
                 (1, 300, 1000, 32, 8, 128, True, "bfloat16"),
                 (1, 1000, 300, 32, 8, 128, False, "bfloat16"),
-                (2, 4096, 4096, 32, 8, 128, True, "bfloat16")]
+                (2, 4096, 4096, 32, 8, 128, True, "bfloat16"),
+                (2, 4096, 4096, 16, 16, 128, True, "bfloat16"),
+                (1, 2048, 2048, 48, 8, 128, True, "bfloat16")]
 # (B, S, H, KV, hd): q, k, v as the head-split views of one fused (B, S,
 # H + 2 KV, hd) projection, strided in the sequence and head axes
 FLASH_STRIDED = [(2, 1000, 32, 8, 128)]
@@ -2794,7 +2813,6 @@ def phase_lm(torch, dev, launches: dict) -> dict:
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.models.lm import (cast_params, decode_step, init_cache,
                                        init_params)
-    from repro_torch.serve import BatchedDecoder, Request
     from repro_torch.train.train_step import make_prefill_step
 
     tight = lm_tight_check(torch, dev)
@@ -2808,8 +2826,7 @@ def phase_lm(torch, dev, launches: dict) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    weight_gb = sum(t.numel() * t.element_size() for t in
-                    _leaves(params)) / 1e9
+    w_gb = weight_gb(params)
     b, s = LM_PREFILL
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                      generator=gen, device=dev)}
@@ -2835,8 +2852,50 @@ def phase_lm(torch, dev, launches: dict) -> dict:
           "decode_step launched the flash kernel")
     check(bool(torch.isfinite(step_logits).all()), "decode logits")
 
-    # the server: 8 requests in two lockstep groups of 4
-    rng = np.random.default_rng(13)
+    server = serve_requests(torch, cfg, params, dev, seed=13)
+    decode_profile = profile_decode(torch, params, cfg, dev)
+
+    # timed prefills: flash (each +36 launches), then the dense yardstick
+    before = fa.LAUNCHES["flash_attention"]
+    _, flash_s = timed(torch, lambda: prefill(params, batch), 2)
+    check(fa.LAUNCHES["flash_attention"] - before == 2 * cfg.num_layers,
+          "a timed flash prefill did not launch once per layer")
+    dense_prefill = make_prefill_step(cfg)
+    dense_logits, dense_s = timed(
+        torch, lambda: dense_prefill(params, batch), 3)
+    bf16_rel = rel_diff(logits, dense_logits)
+    check(bool(torch.isfinite(dense_logits).all()), "dense prefill logits")
+    check(bf16_rel <= LM_BF16_REL,
+          f"bf16 flash prefill vs dense: {bf16_rel} > {LM_BF16_REL}")
+    del params, cache
+    return {"phase": "lm_qwen3_4b", "arch": LM_ARCH,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "weights_gb_bf16": w_gb,
+            "init_s": init_s, "tight_f32": tight,
+            "prefill": {"batch": b, "tokens": b * s,
+                        "flash_first_s": first[0], "flash_s": flash_s,
+                        "flash_tokens_per_s": b * s / min(flash_s),
+                        "dense_s": dense_s[1:],
+                        "dense_tokens_per_s": b * s / min(dense_s[1:]),
+                        "flash_vs_dense_rel_bf16": bf16_rel,
+                        "tolerance_rel_bf16": LM_BF16_REL,
+                        "peak_memory_gb_flash": peak_gb,
+                        "flash_launches": launches["flash_attention"],
+                        "timer": "host clock between synchronisations"},
+            "server": server, "decode_profile": decode_profile,
+            "decode_launches_flash": 0, "ok": True}
+
+
+def serve_requests(torch, cfg, params, dev, seed: int) -> dict:
+    """``BatchedDecoder`` answering ``LM_SERVER``'s requests (random
+    prompts from ``seed``, two lockstep groups at its batch): every
+    request completes within its token budget, and decode launches no
+    flash kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.serve import BatchedDecoder, Request
+    rng = np.random.default_rng(seed)
     dec = BatchedDecoder(cfg, params, batch_size=LM_SERVER["batch"],
                          max_len=LM_SERVER["max_len"], device=dev)
     steps = [0]
@@ -2866,47 +2925,13 @@ def phase_lm(torch, dev, launches: dict) -> dict:
               and all(0 <= x < cfg.vocab_size for x in r.tokens)
               for r in done), "a request missed its token budget")
     lat_ms = [r.latency_s * 1e3 for r in done]
-    decode_profile = profile_decode(torch, params, cfg, dev)
-
-    # timed prefills: flash (each +36 launches), then the dense yardstick
-    before = fa.LAUNCHES["flash_attention"]
-    _, flash_s = timed(torch, lambda: prefill(params, batch), 2)
-    check(fa.LAUNCHES["flash_attention"] - before == 2 * cfg.num_layers,
-          "a timed flash prefill did not launch once per layer")
-    dense_prefill = make_prefill_step(cfg)
-    dense_logits, dense_s = timed(
-        torch, lambda: dense_prefill(params, batch), 3)
-    bf16_rel = rel_diff(logits, dense_logits)
-    check(bool(torch.isfinite(dense_logits).all()), "dense prefill logits")
-    check(bf16_rel <= LM_BF16_REL,
-          f"bf16 flash prefill vs dense: {bf16_rel} > {LM_BF16_REL}")
-    del params, dec, cache
-    return {"phase": "lm_qwen3_4b", "arch": LM_ARCH,
-            "layers": cfg.num_layers, "d_model": cfg.d_model,
-            "heads": [cfg.num_heads, cfg.num_kv_heads],
-            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-            "vocab": cfg.vocab_size, "weights_gb_bf16": weight_gb,
-            "init_s": init_s, "tight_f32": tight,
-            "prefill": {"batch": b, "tokens": b * s,
-                        "flash_first_s": first[0], "flash_s": flash_s,
-                        "flash_tokens_per_s": b * s / min(flash_s),
-                        "dense_s": dense_s[1:],
-                        "dense_tokens_per_s": b * s / min(dense_s[1:]),
-                        "flash_vs_dense_rel_bf16": bf16_rel,
-                        "tolerance_rel_bf16": LM_BF16_REL,
-                        "peak_memory_gb_flash": peak_gb,
-                        "flash_launches": launches["flash_attention"],
-                        "timer": "host clock between synchronisations"},
-            "server": {**LM_SERVER, "completed": len(done),
-                       "decode_steps": steps[0],
-                       "ms_per_decode_step": server_s * 1e3 / steps[0],
-                       "server_s": server_s,
-                       "latency_ms_p50": float(np.percentile(lat_ms, 50)),
-                       "latency_ms_max": float(max(lat_ms)),
-                       "timer": "host clock; a step includes its argmax "
-                       "and the copy of the tokens to the host"},
-            "decode_profile": decode_profile,
-            "decode_launches_flash": 0, "ok": True}
+    return {**LM_SERVER, "completed": len(done), "decode_steps": steps[0],
+            "ms_per_decode_step": server_s * 1e3 / steps[0],
+            "server_s": server_s,
+            "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+            "latency_ms_max": float(max(lat_ms)),
+            "timer": "host clock; a step includes its argmax and the copy "
+            "of the tokens to the host"}
 
 
 def profile_decode(torch, params, cfg, dev, steps: int = 3) -> dict:
@@ -2930,8 +2955,11 @@ def profile_decode(torch, params, cfg, dev, steps: int = 3) -> dict:
             decode_step(params, cfg, cache, tok, i + 1)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
+    # a record_function range (the MoE stages) also shows on the device
+    # timeline as a span around its kernels: not a kernel of its own
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and e.key not in MOE_STAGES]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return {"steps": steps, "kernels_per_step":
@@ -2970,46 +2998,56 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
+# (row name, (B, S, H, KV, hd)): the prefill shapes of the LM paths,
+# causal, bf16; the first is the kernels line's
+FLASH_TIMED = [("flash_b2_s4096", (2, 4096, 32, 8, 128)),
+               ("flash_olmoe_b2_s4096", (2, 4096, 16, 16, 128)),
+               ("flash_internvl2_b1_s2048", (1, 2048, 48, 8, 128))]
+
+
 def phase_flash_times(torch, dev, logs: dict) -> dict:
-    """The flash kernel at the LM path's shape, its plain version and
-    the library yardstick (SDPA; timed here only, never called by the
-    port), with inputs read from HBM; the registers and spills of both
-    flash kernels from this run's build log."""
+    """The flash kernel at the LM paths' prefill shapes, its plain
+    version and the library yardstick (SDPA; timed here only, never
+    called by the port), with inputs read from HBM; the registers and
+    spills of both flash kernels from this run's build log."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel, ops, ref
-    b, s, h, kv, hd = LM_PREFILL[0], LM_PREFILL[1], 32, 8, 128
-    q, k, v = flash_inputs(torch, dev, b, s, s, h, kv, hd, "bfloat16", 99)
-    nbytes = ops.hbm_bytes_per_call(q.shape, k.shape, 2)
-    flops = 2 * b * h * s * s * hd          # causal: half of 4·B·H·S·T·hd
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_BF16_TENSOR_FLOPS_PER_S * 1e3
-    in_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
-    cold, from_hbm = cold_inputs((q, k, v), in_bytes)
-    before = dict(kernel.LAUNCHES)
-    kernel_ms = device_ms(torch, kernel.flash_attention, cold, 4, 3)
-    kernel.LAUNCHES.update(before)      # timing launches are not the path's
-    plain_ms = device_ms(torch, ref.attention_ref, cold, 2, 2)
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)
 
-    library_ms = device_ms(torch, sdpa, cold, 4, 3)
-    copies = len(cold)
-    del cold
-    bound_ms = max(bytes_ms, ops_ms)
-    row = {"shape": "flash_b2_s4096", "kernel": "flash_attention",
-           "dims": [b, s, s, h, kv, hd], "dtype": "bfloat16",
-           "causal": True, "bytes": nbytes, "flops": flops,
-           "copies": copies, "inputs_from_hbm": from_hbm,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bytes_ms": bytes_ms,
-           "ops_ms": ops_ms, "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "share_of_bound": bound_ms / kernel_ms,
-           "kernel_tflops": flops / kernel_ms / 1e9}
+    rows = []
+    for i, (name, (b, s, h, kv, hd)) in enumerate(FLASH_TIMED):
+        q, k, v = flash_inputs(torch, dev, b, s, s, h, kv, hd, "bfloat16",
+                               99 + i)
+        nbytes = ops.hbm_bytes_per_call(q.shape, k.shape, 2)
+        flops = 2 * b * h * s * s * hd      # causal: half of 4·B·H·S·T·hd
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_BF16_TENSOR_FLOPS_PER_S * 1e3
+        in_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
+        cold, from_hbm = cold_inputs((q, k, v), in_bytes)
+        before = dict(kernel.LAUNCHES)
+        kernel_ms = device_ms(torch, kernel.flash_attention, cold, 4, 3)
+        kernel.LAUNCHES.update(before)  # timing launches are not the path's
+        plain_ms = device_ms(torch, ref.attention_ref, cold, 2, 2)
+        library_ms = device_ms(torch, sdpa, cold, 4, 3)
+        copies = len(cold)
+        del cold, q, k, v
+        bound_ms = max(bytes_ms, ops_ms)
+        rows.append({"shape": name, "kernel": "flash_attention",
+                     "dims": [b, s, s, h, kv, hd], "dtype": "bfloat16",
+                     "causal": True, "bytes": nbytes, "flops": flops,
+                     "copies": copies, "inputs_from_hbm": from_hbm,
+                     "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bytes_ms": bytes_ms,
+                     "ops_ms": ops_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations",
+                     "share_of_bound": bound_ms / kernel_ms,
+                     "kernel_tflops": flops / kernel_ms / 1e9})
     registers = {}
     for src in kernel.SOURCES:
         if src in logs:
@@ -3021,7 +3059,7 @@ def phase_flash_times(torch, dev, logs: dict) -> dict:
             "3.35 TB/s, 2·B·H·S·T·hd at the 989 TFLOP/s bf16 dense "
             "tensor-core peak)", "library": "torch.nn.functional."
             "scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
-            "on (B, H, S, hd) views", "rows": [row], "ok": True}
+            "on (B, H, S, hd) views", "rows": rows, "ok": True}
 
 
 # -- phase 8: DIMACS ingest at NY scale ---------------------------------------
@@ -3532,6 +3570,560 @@ def phase_lm_train(torch, dev) -> dict:
             "tight_f32": tight, "loop": loop, "ok": True}
 
 
+# -- phase 10: the MoE family, MLA and the frontends (slice 11) ---------------
+
+OLMOE_ARCH = "olmoe_1b_7b"
+OLMOE_PREFILL = (2, 4096)               # batch, tokens per sequence
+OLMOE_TIGHT = dict(layers=2, batch=1, tokens=128)
+OLMOE_TRAIN = dict(layers=2, batch=1, tokens=512, steps=3, peak_lr=1e-3)
+DEEPSEEK_ARCH = "deepseek_v2_236b"
+# first_k_dense 1 + 2 MoE layers: the published widths, 9.33 B parameters
+# (18.7 GB in bf16); the full 60 layers would need ~472 GB
+DEEPSEEK_LAYERS = 3
+DEEPSEEK_PREFILL = (1, 2048)
+DEEPSEEK_DECODE = dict(batch=4, max_len=64, steps=8)
+VLM_ARCH = "internvl2_26b"
+VLM_PREFILL = (1, 1792)                 # batch, text tokens (+ 256 patches)
+AUDIO_ARCH = "hubert_xlarge"
+AUDIO_FRAMES = (1, 4096)
+# the record_function ranges of models/moe.py, one a stage of a layer
+MOE_STAGES = ("moe/router", "moe/dispatch", "moe/experts", "moe/combine",
+              "moe/shared")
+
+
+@contextlib.contextmanager
+def routing_recorder(torch):
+    """While active, every MoE dispatch records its routing: per call (a
+    layer), each token's expert ids in ascending order (T, k) and
+    whether each of those assignments was kept (T, k), on the device."""
+    from repro_torch.models import moe
+    real = moe.dispatch_plan
+    calls = []
+
+    def recorded(expert_ids, e, cap):
+        order, keep, slot = real(expert_ids, e, cap)
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        ids, at = torch.sort(expert_ids, dim=1)
+        calls.append({"ids": ids, "cap": cap,
+                      "kept": kept.view(expert_ids.shape).gather(1, at)})
+        return order, keep, slot
+
+    moe.dispatch_plan = recorded
+    try:
+        yield calls
+    finally:
+        moe.dispatch_plan = real
+
+
+def routing_agreement(a: list, b: list) -> tuple:
+    """(tokens whose expert ids and kept flags agree in every recorded
+    layer (T,) bool, assignments whose expert ids differ, summed over
+    layers). Near-ties of the float32 router probabilities can route a
+    token differently on two paths; that is rounding, and the values of
+    such a token are not compared."""
+    check(len(a) == len(b), f"{len(a)} against {len(b)} MoE layers")
+    agree, differ = None, 0
+    for x, y in zip(a, b):
+        ids, kept = (y[k].to(x[k].device) for k in ("ids", "kept"))
+        same = (x["ids"] == ids) & (x["kept"] == kept)
+        differ += int((x["ids"] != ids).sum())
+        row = same.all(dim=1)
+        agree = row if agree is None else agree & row
+    return agree, differ
+
+
+def drop_shares(calls: list) -> list:
+    """Per layer, the share of (token, expert) assignments dropped."""
+    return [1.0 - float(c["kept"].float().mean()) for c in calls]
+
+
+def weight_gb(params: dict) -> float:
+    return sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+
+
+def moe_layer_profile(torch, params, cfg, x, reps: int = 3) -> dict:
+    """One MoE layer (layer 0 of ``layers``, cast to the compute dtype)
+    on the hidden states ``x`` under ``torch.profiler``: the device time
+    of the kernels launched inside each stage's range (router, sort and
+    dispatch, the experts' batched matmuls, combine, shared experts), a
+    call; and the layer's device time with CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.lm import _layer
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.tree import tree_map
+    cd = dtype_of(cfg.compute_dtype)
+    p = tree_map(lambda a: a.to(cd), _layer(params["layers"], 0)["moe"])
+    moe_apply(p, cfg, x)
+    layer_ms = event_ms(torch, lambda: moe_apply(p, cfg, x), reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            moe_apply(p, cfg, x)
+        torch.cuda.synchronize()
+    stages = {name: 0.0 for name in MOE_STAGES if name != "moe/shared"
+              or "shared" in p}
+    kernels_us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in stages:
+            stages[e.name] += e.device_time_total / 1e3 / reps
+        elif e.device_type == DeviceType.CUDA and e.name not in MOE_STAGES:
+            # (a range's span on the device timeline is not a kernel)
+            kernels_us += e.device_time_total
+    device_ms = kernels_us / 1e3 / reps
+    check(device_ms > 0, "the profiler saw no device time")
+    return {"tokens": x.shape[0] * x.shape[1], "layer_ms_events": layer_ms,
+            "device_ms_profiled": device_ms, "stage_device_ms": stages,
+            "stage_share": {k: v / device_ms for k, v in stages.items()},
+            "timer": "torch.profiler: device time of the kernels launched "
+            "inside each record_function range, a call; layer_ms_events: "
+            "CUDA events around the call"}
+
+
+def olmoe_tight(torch, dev) -> tuple[dict, dict, object]:
+    """OLMoE at full width and 2 layers in float32 (TF32 off), on the
+    card and on the host from the same params: the routing of both
+    (assignments whose ids differ are counted), then the logits at every
+    position before the first token routed differently in any layer
+    (the attention is causal, and capacity goes to tokens in order, so
+    those positions see the same routing) within LM_TIGHT_REL. Returns
+    the check, the card's params and the config."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import forward, init_params, lm_head_weight
+    t = OLMOE_TIGHT
+    cfg = replace(get_config(OLMOE_ARCH), num_layers=t["layers"],
+                  compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(21),
+                         dev)
+    host = _copy_tree(params, "cpu")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    tok = torch.randint(0, cfg.vocab_size, (t["batch"], t["tokens"]),
+                        generator=gen, device=dev)
+    with routing_recorder(torch) as on_card:
+        card = forward(params, cfg, {"tokens": tok}) \
+            @ lm_head_weight(params, cfg)
+        sync(torch, dev)
+    t0 = time.perf_counter()
+    with routing_recorder(torch) as on_host:
+        want = forward(host, cfg, {"tokens": tok.cpu()}) \
+            @ lm_head_weight(host, cfg)
+    host_s = time.perf_counter() - t0
+    agree, differ = routing_agreement(on_host, on_card)
+    n = t["batch"] * t["tokens"]
+    first = n if bool(agree.all()) else int((~agree).nonzero()[0, 0])
+    check(t["batch"] == 1 and first > 0, f"no position before the first "
+          f"routing difference ({differ} assignments differ)")
+    rel = rel_diff(card[0, :first].cpu(), want[0, :first])
+    check(rel <= LM_TIGHT_REL, f"f32 OLMoE on the card vs the host: "
+          f"{rel} > {LM_TIGHT_REL}")
+    return ({"layers": t["layers"], "batch": t["batch"],
+             "tokens": t["tokens"], "assignments": n * cfg.experts_per_token
+             * t["layers"], "assignments_routed_differently": differ,
+             "positions_compared": first, "logits_rel": rel,
+             "tolerance_rel": LM_TIGHT_REL, "host_forward_s": host_s,
+             "drop_share_card": drop_shares(on_card),
+             "measure": "max |a-b| / max |b| over the logits of the "
+             "positions before the first token routed differently"},
+            params, cfg)
+
+
+def olmoe_train(torch, dev, params, cfg) -> dict:
+    """3 train steps at full width, 2 layers, float32 params and bf16
+    compute, on one 512-token batch: the losses fall, the MoE auxiliary
+    term is reported a step."""
+    from dataclasses import replace
+
+    from repro_torch.models import lm
+    from repro_torch.train.data import DataConfig, synthetic_batch, to_device
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    tr = OLMOE_TRAIN
+    cfg = replace(cfg, compute_dtype="bfloat16")
+    check(cfg.param_dtype == "float32" and cfg.remat
+          and cfg.moe_capacity_factor == 1.25, f"train config: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    opt = init_opt_state(params)
+    sync(torch, dev)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    batch = to_device(synthetic_batch(
+        cfg, DataConfig(tr["tokens"], tr["batch"], seed=7), 0), dev)
+    step = make_train_step(cfg, OptimizerConfig(peak_lr=tr["peak_lr"],
+                                                warmup_steps=1))
+    aux, real = [], lm.aux_load_balance_loss
+
+    def recorded(*a):
+        out = real(*a)
+        aux.append(out.detach())
+        return out
+
+    losses, step_s = [], []
+    lm.aux_load_balance_loss = recorded
+    try:
+        for _ in range(tr["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        lm.aux_load_balance_loss = real
+    aux = [float(a) for a in aux]
+    check(all(np.isfinite(losses + aux)), f"losses {losses}, aux {aux}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    n_params = sum(t.numel() for t in _leaves(params))
+    return {"layers": cfg.num_layers, "params": n_params,
+            "state_gb": state_gb, "batch": tr["batch"],
+            "tokens": tr["tokens"], "losses": losses, "aux": aux,
+            "aux_coef": lm.MOE_AUX_COEF, "step_s": step_s,
+            "tokens_per_s": tr["batch"] * tr["tokens"] / min(step_s[1:]),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9, "timer": "host clock between synchronisations"}
+
+
+def phase_lm_olmoe(torch, dev, launches: dict) -> dict:
+    """OLMoE-1B-7B at its published config, full depth and width, bf16
+    weights: a flash prefill of 2 x 4096 tokens (its launches read), the
+    capacity drops at cf 1.25, two prefills equal bit for bit, the
+    dense prefill as the yardstick, BatchedDecoder at batch 4, and a
+    profile of one MoE layer; before it, the f32 card-vs-host check and
+    3 train steps at 2 layers."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.lm import (_embed_inputs, cast_params, forward,
+                                       init_params, lm_head_weight)
+    from repro_torch.models.moe import capacity
+    from repro_torch.train.train_step import make_prefill_step
+
+    tight, small, small_cfg = olmoe_tight(torch, dev)
+    train = olmoe_train(torch, dev, small, small_cfg)
+    del small
+    torch.cuda.empty_cache()
+
+    cfg = replace(get_config(OLMOE_ARCH), param_dtype="bfloat16")
+    check((cfg.num_layers, cfg.d_model, cfg.num_experts,
+           cfg.experts_per_token, cfg.moe_d_ff, cfg.vocab_size)
+          == (16, 2048, 64, 8, 1024, 50304), f"not the published config: "
+          f"{cfg}")
+    flash = replace(cfg, attention_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    w_gb, n_params = weight_gb(params), sum(t.numel()
+                                            for t in _leaves(params))
+    b, s = OLMOE_PREFILL
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev)}
+    prefill = make_prefill_step(flash)
+    cap = capacity(cfg.moe_capacity_factor, b * s, cfg.experts_per_token,
+                   cfg.num_experts)
+
+    # the main path: one flash prefill, its launches read
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    with routing_recorder(torch) as first_routing:
+        logits, first_s = timed(torch, lambda: prefill(params, batch), 1)
+    launches["flash_attention_olmoe"] = fa.LAUNCHES["flash_attention"]
+    check(launches["flash_attention_olmoe"] == cfg.num_layers,
+          f"OLMoE flash prefill launched {fa.LAUNCHES['flash_attention']} "
+          f"times, not {cfg.num_layers}")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "OLMoE prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(first_routing) == cfg.num_layers
+          and all(c["cap"] == cap for c in first_routing),
+          f"capacity {[c['cap'] for c in first_routing]}, not {cap}")
+    drops = drop_shares(first_routing)
+    again = prefill(params, batch)
+    check(torch.equal(again, logits), "two OLMoE prefills differ")
+    before = fa.LAUNCHES["flash_attention"]
+    _, flash_s = timed(torch, lambda: prefill(params, batch), 2)
+    check(fa.LAUNCHES["flash_attention"] - before == 2 * cfg.num_layers,
+          "a timed OLMoE prefill did not launch once per layer")
+    dense_prefill = make_prefill_step(cfg)
+    dense_logits, dense_s = timed(
+        torch, lambda: dense_prefill(params, batch), 2)
+    check(bool(torch.isfinite(dense_logits).all()), "dense prefill logits")
+
+    # the yardstick: every position's logits, flash against dense, where
+    # the two paths routed the token alike in every layer
+    head = lm_head_weight(cast_params(params, cfg), cfg)
+    with routing_recorder(torch) as r_flash:
+        h_flash = forward(params, flash, batch).reshape(b * s, -1)
+    with routing_recorder(torch) as r_dense:
+        h_dense = forward(params, cfg, batch).reshape(b * s, -1)
+    agree, differ = routing_agreement(r_flash, r_dense)
+    rows = agree.nonzero()[:, 0]
+    check(rows.numel() > 0, "no token routed alike by flash and dense")
+    bf16_rel = max(rel_diff(h_flash[rows[i:i + 1024]] @ head,
+                            h_dense[rows[i:i + 1024]] @ head)
+                   for i in range(0, rows.numel(), 1024))
+    check(bf16_rel <= LM_BF16_REL,
+          f"bf16 OLMoE flash prefill vs dense: {bf16_rel} > {LM_BF16_REL}")
+    del h_flash, h_dense, r_flash, r_dense
+
+    server = serve_requests(torch, cfg, params, dev, seed=17)
+    decode_profile = profile_decode(torch, params, cfg, dev)
+    expert_bytes = sum(params["layers"]["moe"][w].numel() * 2
+                       for w in ("wi", "wg", "wo"))
+    x = _embed_inputs(params, cfg, batch)
+    layer = moe_layer_profile(torch, params, cfg, x)
+    del params, x
+    torch.cuda.empty_cache()
+    return {"phase": "lm_olmoe_1b_7b", "arch": OLMOE_ARCH,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "experts": [cfg.num_experts, cfg.experts_per_token],
+            "moe_d_ff": cfg.moe_d_ff, "vocab": cfg.vocab_size,
+            "params_in_tree": n_params, "param_count": cfg.param_count(),
+            "weights_gb_bf16": w_gb, "init_s": init_s, "tight_f32": tight,
+            "train_2_layers": train,
+            "prefill": {"batch": b, "tokens": b * s, "capacity": cap,
+                        "capacity_factor": cfg.moe_capacity_factor,
+                        "drop_share_by_layer": drops,
+                        "flash_first_s": first_s[0], "flash_s": flash_s,
+                        "flash_tokens_per_s": b * s / min(flash_s),
+                        "dense_s": dense_s,
+                        "dense_tokens_per_s": b * s / min(dense_s),
+                        "two_prefills_bit_equal": True,
+                        "flash_vs_dense_rel_bf16": bf16_rel,
+                        "tokens_compared": int(rows.numel()),
+                        "assignments_routed_differently": differ,
+                        "tolerance_rel_bf16": LM_BF16_REL,
+                        "peak_memory_gb_flash": peak_gb,
+                        "flash_launches": launches["flash_attention_olmoe"],
+                        "timer": "host clock between synchronisations"},
+            "server": server, "decode_profile": decode_profile,
+            "decode_expert_bytes": expert_bytes,
+            "decode_bytes_bound_ms": expert_bytes / PEAK_BYTES_PER_S * 1e3,
+            "moe_layer_profile": layer, "decode_launches_flash": 0,
+            "ok": True}
+
+
+def phase_lm_deepseek(torch, dev) -> dict:
+    """DeepSeek-V2 at its published width (d 5120, 128 heads, MLA, 160
+    routed + 2 shared experts top-6) cut to 3 layers (first_k_dense 1 +
+    2 MoE), bf16 weights: a prefill of 1 x 2048 (cap 96 at cf 1.25),
+    two prefills equal bit for bit, a profile of one MoE layer, and
+    decode steps at batch 4 from the MLA cache."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import (_embed_inputs, decode_step,
+                                       init_cache, init_params)
+    from repro_torch.models.moe import capacity
+    from repro_torch.train.train_step import make_prefill_step
+
+    full = get_config(DEEPSEEK_ARCH)
+    check((full.d_model, full.num_heads, full.kv_lora_rank,
+           full.q_lora_rank, full.num_experts, full.num_shared_experts,
+           full.experts_per_token, full.moe_d_ff, full.first_k_dense)
+          == (5120, 128, 512, 1536, 160, 2, 6, 1536, 1),
+          f"not the published config: {full}")
+    cfg = replace(full, num_layers=DEEPSEEK_LAYERS, param_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    w_gb, n_params = weight_gb(params), sum(t.numel()
+                                            for t in _leaves(params))
+    b, s = DEEPSEEK_PREFILL
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev)}
+    prefill = make_prefill_step(cfg)
+    cap = capacity(cfg.moe_capacity_factor, b * s, cfg.experts_per_token,
+                   cfg.num_experts)
+    torch.cuda.reset_peak_memory_stats()
+    with routing_recorder(torch) as routing:
+        logits, first_s = timed(torch, lambda: prefill(params, batch), 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "DeepSeek prefill logits")
+    check(len(routing) == cfg.num_layers - cfg.first_k_dense
+          and all(c["cap"] == cap for c in routing),
+          f"capacity {[c['cap'] for c in routing]}, not {cap}")
+    again, prefill_s = timed(torch, lambda: prefill(params, batch), 2)
+    check(torch.equal(again, logits), "two DeepSeek prefills differ")
+    layer = moe_layer_profile(torch, params, cfg,
+                              _embed_inputs(params, cfg, batch))
+
+    d = DEEPSEEK_DECODE
+    cache = init_cache(cfg, d["batch"], d["max_len"], dev)
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    per_token_values = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    gqa_values = 2 * cfg.num_heads * cfg.qk_nope_head_dim
+    tok = torch.randint(0, cfg.vocab_size, (d["batch"], d["steps"]),
+                        generator=gen, device=dev)
+    step_s = []
+    for i in range(d["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = decode_step(params, cfg, cache, tok[:, i:i + 1], i)
+        check(bool(torch.isfinite(out).all()), f"decode step {i} logits")
+        step_s.append(time.perf_counter() - t0)
+    written = bool(cache["layers"]["latent"][:, :, :d["steps"]].any()) \
+        and not bool(cache["layers"]["latent"][:, :, d["steps"]:].any())
+    check(written, "the MLA cache was not written at exactly the decoded "
+          "positions")
+    routed_bytes = sum(params["layers"]["moe"][w].numel() * 2
+                       for w in ("wi", "wg", "wo"))
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"phase": "lm_deepseek_v2_width", "arch": DEEPSEEK_ARCH,
+            "layers": cfg.num_layers, "published_layers": full.num_layers,
+            "first_k_dense": cfg.first_k_dense, "d_model": cfg.d_model,
+            "heads": cfg.num_heads,
+            "mla": [cfg.kv_lora_rank, cfg.q_lora_rank,
+                    cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                    cfg.v_head_dim],
+            "experts": [cfg.num_experts, cfg.num_shared_experts,
+                        cfg.experts_per_token], "moe_d_ff": cfg.moe_d_ff,
+            "params_in_tree": n_params, "param_count": cfg.param_count(),
+            "weights_gb_bf16": w_gb, "init_s": init_s,
+            "prefill": {"batch": b, "tokens": b * s, "capacity": cap,
+                        "drop_share_by_layer": drop_shares(routing),
+                        "first_s": first_s[0], "s": prefill_s,
+                        "tokens_per_s": b * s / min(prefill_s),
+                        "two_prefills_bit_equal": True,
+                        "peak_memory_gb": peak_gb,
+                        "timer": "host clock between synchronisations"},
+            "moe_layer_profile": layer,
+            "decode": {**d, "step_s": step_s,
+                       "ms_per_step": 1e3 * float(np.median(step_s[1:])),
+                       "cache_bytes": cache_bytes,
+                       "cache_values_per_token_layer": per_token_values,
+                       "gqa_values_per_token_layer_same_heads": gqa_values,
+                       "routed_expert_bytes": routed_bytes,
+                       "bytes_bound_ms_routed_experts":
+                       routed_bytes / PEAK_BYTES_PER_S * 1e3,
+                       "timer": "host clock between synchronisations"},
+            "ok": True}
+
+
+def phase_lm_frontends(torch, dev, launches: dict) -> dict:
+    """InternVL2-26B at full depth (bf16): a flash prefill of 256
+    patches + 1792 text tokens (its launches read) against the dense
+    prefill; HuBERT-XLarge at full depth: forward over 1 x 4096 frames,
+    non-causal, dense attention (the bf16 flash kernel takes no hd 80:
+    its refusal is checked)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.lm import forward, init_params
+    from repro_torch.train.train_step import make_prefill_step
+
+    cfg = replace(get_config(VLM_ARCH), param_dtype="bfloat16")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.num_patches, cfg.frontend) == (48, 6144, 48, 8, 256, "patch"),
+          f"not the published config: {cfg}")
+    flash = replace(cfg, attention_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    w_gb = weight_gb(params)
+    b, s = VLM_PREFILL
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev),
+             "patches": torch.randn((b, cfg.num_patches, cfg.d_model),
+                                    generator=gen, device=dev)}
+    prefill = make_prefill_step(flash)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    logits, first_s = timed(torch, lambda: prefill(params, batch), 1)
+    launches["flash_attention_internvl2"] = fa.LAUNCHES["flash_attention"]
+    check(launches["flash_attention_internvl2"] == cfg.num_layers,
+          f"InternVL2 flash prefill launched "
+          f"{fa.LAUNCHES['flash_attention']} times, not {cfg.num_layers}")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "InternVL2 logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, flash_s = timed(torch, lambda: prefill(params, batch), 2)
+    dense_logits, dense_s = timed(
+        torch, lambda: make_prefill_step(cfg)(params, batch), 2)
+    vlm_rel = rel_diff(logits, dense_logits)
+    check(vlm_rel <= LM_BF16_REL,
+          f"bf16 InternVL2 flash prefill vs dense: {vlm_rel} > "
+          f"{LM_BF16_REL}")
+    positions = b * (cfg.num_patches + s)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    audio = replace(get_config(AUDIO_ARCH), param_dtype="bfloat16")
+    check((audio.num_layers, audio.d_model, audio.resolved_head_dim,
+           audio.causal, audio.frontend, audio.attention_impl)
+          == (48, 1280, 80, False, "frame", "dense"),
+          f"not the published config: {audio}")
+    params = init_params(audio, gen, dev)
+    ab, af = AUDIO_FRAMES
+    frames = {"frames": torch.randn((ab, af, audio.d_model), generator=gen,
+                                    device=dev)}
+    torch.cuda.reset_peak_memory_stats()
+    hidden, audio_s = timed(torch, lambda: forward(params, audio, frames), 3)
+    audio_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(hidden.shape) == (ab, af, audio.d_model)
+          and bool(torch.isfinite(hidden).all()), "HuBERT hidden states")
+    # the bf16 flash kernel takes no hd 80: a flash forward must raise
+    # ValueError before any launch (ROADMAP: later kernel work)
+    before = dict(fa.LAUNCHES)
+    refusal = None
+    try:
+        forward(params, replace(audio, attention_impl="flash"),
+                {"frames": frames["frames"][:, :64]})
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "head dim 80" in refusal
+          and fa.LAUNCHES == before,
+          f"the bf16 flash kernel did not refuse HuBERT's head dim 80: "
+          f"{refusal}")
+    audio_params = sum(t.numel() for t in _leaves(params))
+    del params, hidden, frames
+    torch.cuda.empty_cache()
+    return {"phase": "lm_frontends",
+            "internvl2": {"arch": VLM_ARCH, "layers": cfg.num_layers,
+                          "d_model": cfg.d_model,
+                          "heads": [cfg.num_heads, cfg.num_kv_heads],
+                          "head_dim": cfg.resolved_head_dim,
+                          "param_count": cfg.param_count(),
+                          "weights_gb_bf16": w_gb, "init_s": init_s,
+                          "batch": b, "patches": cfg.num_patches,
+                          "text_tokens": s, "positions": positions,
+                          "flash_first_s": first_s[0], "flash_s": flash_s,
+                          "flash_tokens_per_s": positions / min(flash_s),
+                          "dense_s": dense_s,
+                          "dense_tokens_per_s": positions / min(dense_s),
+                          "flash_vs_dense_rel_bf16": vlm_rel,
+                          "tolerance_rel_bf16": LM_BF16_REL,
+                          "flash_launches":
+                          launches["flash_attention_internvl2"],
+                          "peak_memory_gb_flash": peak_gb},
+            "hubert": {"arch": AUDIO_ARCH, "layers": audio.num_layers,
+                       "d_model": audio.d_model,
+                       "head_dim": audio.resolved_head_dim,
+                       "causal": audio.causal, "params": audio_params,
+                       "batch": ab, "frames": af, "forward_s": audio_s,
+                       "frames_per_s": ab * af / min(audio_s[1:]),
+                       "peak_memory_gb": audio_peak,
+                       "flash_refusal": refusal},
+            "timer": "host clock between synchronisations", "ok": True}
+
+
 # each kernel at the shape its path's main run gives it (phase 3 for the
 # distance kernels, phase 4b's build above the fused closure's cap for
 # the tiled min-plus kernel, phase 7's prefill for flash attention, one
@@ -3574,11 +4166,21 @@ KERNEL_EXTRAS = ("dense_bytes_ms", "dense_ms", "mapped_ms", "occupancy_kept",
                  "one_squaring_ms", "generic_ms", "generic_with_copy_ms")
 
 
+# the launches of a kernel on each of its paths' main runs, where it has
+# more than one path (the kernels line's ``launches`` is the first)
+KERNEL_PATHS = {"flash_attention": {
+    "lm_qwen3_4b": "flash_attention",
+    "lm_olmoe_1b_7b": "flash_attention_olmoe",
+    "lm_frontends_internvl2": "flash_attention_internvl2"}}
+
+
 def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
     by_shape = {r["shape"]: r for r in rows}
     out = []
     for name, (shape, source, replaces) in KERNELS.items():
         r = by_shape[shape]
+        paths = {path: launches[key]
+                 for path, key in KERNEL_PATHS.get(name, {}).items()}
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/" + source,
                     "replaces": replaces, "launches": launches[name],
@@ -3588,6 +4190,7 @@ def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
                     "library_ms": r["library_ms"], "shape": r["shape"],
                     "inputs_from_hbm": r.get("rows_from_hbm",
                                              r.get("inputs_from_hbm")),
+                    **({"launches_by_path": paths} if paths else {}),
                     **{k: r[k] for k in KERNEL_EXTRAS if k in r}})
     return {"kernels": out}
 
@@ -3682,6 +4285,10 @@ def main() -> int:
     emit(flash_times)
     torch.cuda.empty_cache()
     emit(phase_lm_train(torch, dev))
+    torch.cuda.empty_cache()
+    emit(phase_lm_olmoe(torch, dev, launches))
+    emit(phase_lm_deepseek(torch, dev))
+    emit(phase_lm_frontends(torch, dev, launches))
     emit(finish_ingest_check(ingest_pending))
     emit(kernels_line(times["rows"] + sharded_times["rows"]
                       + builder_times["rows"] + flash_times["rows"]

@@ -6,8 +6,9 @@ SSM / hybrid / VLM / audio). Exact published configs live in the sibling
 ``<arch>.py`` modules; each also exposes a ``smoke()`` reduction used by
 the CPU tests (same code path, tiny dims).
 
-The port runs the dense family's serving and training paths
-(``models/lm.py``: ``forward``, ``loss_fn`` and ``decode_step``). They
+The port runs the serving and training paths (``models/lm.py``:
+``forward``, ``loss_fn`` and ``decode_step``) of the dense, moe, vlm and
+audio families, GQA or MLA (ssm and hybrid are not ported yet). They
 honour ``remat``, ``remat_group``, ``onehot_embed`` and ``ce_chunk``;
 ``scan_layers``, which steers XLA lowering, is kept so that one config
 means the same in both packages (the port loops over layers in Python).

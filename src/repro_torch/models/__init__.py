@@ -1,5 +1,7 @@
-"""Language-model layers of the port: the dense family's serving path
-(``lm.forward`` for prefill, ``lm.decode_step`` for decode) on GQA
-attention, with prefill attention through the flash-attention kernel
-when ``attention_impl="flash"``, and its training loss (``lm.loss_fn``,
-the chunked cross-entropy of ``layers``)."""
+"""Language-model layers of the port: the attention families' serving
+path (``lm.forward`` for prefill, ``lm.decode_step`` for decode) on GQA
+or MLA attention (``attention``), dense MLPs or the Mixture-of-Experts
+layer (``moe``), with prefill GQA attention through the flash-attention
+kernel when ``attention_impl="flash"``, and their training loss
+(``lm.loss_fn``, the chunked cross-entropy of ``layers`` plus the MoE
+load-balance term)."""

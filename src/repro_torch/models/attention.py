@@ -1,13 +1,12 @@
-"""GQA attention (RoPE, optional qk-norm): init, full-sequence apply
-(prefill) and decode apply (one new token against a fixed-size cache
-written at ``pos``).
+"""GQA attention (RoPE, optional qk-norm) and MLA (DeepSeek-V2): init,
+full-sequence apply (prefill) and decode apply (one new token against a
+fixed-size cache written at ``pos``).
 
-The port of the GQA half of the JAX package's ``models/attention.py``.
-Caches are dicts of tensors. Differences, all deliberate: no
-tensor-parallel pins (the identity outside a mesh); ``gqa_decode``
-writes the new key and value into the cache in place; MLA and the
-``"stub"`` roofline probe raise ``NotImplementedError`` (ROADMAP queue 1
-item 10).
+The port of the JAX package's ``models/attention.py``. Caches are dicts
+of tensors. Differences, all deliberate: no tensor-parallel pins (the
+identity outside a mesh); ``gqa_decode`` and ``mla_decode`` write the
+new token's entries into the cache in place; the ``"stub"`` roofline
+probe raises ``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ import math
 import torch
 
 from ..configs.base import ArchConfig
-from .layers import apply_rope, dense_init, head_rms_norm
+from .layers import apply_rope, dense_init, head_rms_norm, rms_norm
 
 NEG_INF = -1e30
 
@@ -133,3 +132,104 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     mask = causal_mask(1, t, offset=pos, device=x.device)  # (1,1,1,T)
     out = _sdpa(q, k, v, mask)
     return out.reshape(b, 1, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+             device: torch.device, lead: tuple[int, ...] = ()) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+
+    def w(a, b):
+        return dense_init(gen, a, b, dtype, device, lead)
+
+    def ones(n):
+        return torch.ones((*lead, n), dtype=torch.float32, device=device)
+
+    return {"wq_a": w(d, qr),                     # down
+            "q_a_norm": ones(qr),
+            "wq_b": w(qr, h * (dn + dr)),         # up
+            "wkv_a": w(d, r + dr),                # latent + k_rope
+            "kv_a_norm": ones(r),
+            "wk_b": w(r, h * dn),
+            "wv_b": w(r, h * dv),
+            "wo": w(h * dv, d)}
+
+
+def _mla_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    b, s, _ = x.shape
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps) @ p["wq_b"]
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]                                   # (B,S,r+dr)
+    latent = rms_norm(kv[..., :r], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., r:][:, :, None, :], positions,
+                        cfg.rope_theta)                   # (B,S,1,dr)
+    return q_nope, q_rope, latent, k_rope
+
+
+def _mla_attend(p: dict, cfg: ArchConfig, q_nope, q_rope, latent, k_rope,
+                mask: torch.Tensor | None) -> torch.Tensor:
+    """Dense attention over the latent: the keys' no-RoPE part and the
+    values are expanded from it per head. The two score products are
+    summed in the inputs' dtype and widened to float32 after, as in the
+    reference."""
+    b, s, h, dn = q_nope.shape
+    t = latent.shape[1]
+    dv = cfg.v_head_dim
+    k_nope = (latent @ p["wk_b"]).reshape(b, t, h, dn)
+    v = (latent @ p["wv_b"]).reshape(b, t, h, dv)
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+              + torch.einsum("bshd,btxd->bhst", q_rope, k_rope)).float()
+    scores = scores / math.sqrt(dn + cfg.qk_rope_head_dim)
+    if mask is not None:
+        scores = scores + mask
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhst,bthd->bshd", w, v)
+    return out.reshape(b, s, h * dv) @ p["wo"]
+
+
+def mla_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
+              positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, cfg, x, positions)
+    s = x.shape[1]
+    mask = causal_mask(s, s, device=x.device) if causal else None
+    return _mla_attend(p, cfg, q_nope, q_rope, latent, k_rope, mask)
+
+
+def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device: torch.device,
+                   lead: tuple[int, ...] = ()) -> dict:
+    """MLA caches the compressed latent (+ rope key) — the published
+    memory win: r + dr values per token instead of 2·H·hd."""
+    return {"latent": torch.zeros((*lead, batch, max_len, cfg.kv_lora_rank),
+                                  dtype=dtype, device=device),
+            "k_rope": torch.zeros((*lead, batch, max_len, 1,
+                                   cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+               pos: int) -> tuple[torch.Tensor, dict]:
+    """x: (B, 1, D); cache latent (B, T, r), k_rope (B, T, 1, dr); pos:
+    the write slot. Writes the new latent and rope key into ``cache`` at
+    ``pos`` (in place) and attends to cache entries < pos+1. Returns
+    (y, cache)."""
+    b = x.shape[0]
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, latent_new, k_rope_new = _mla_qkv(p, cfg, x, posb)
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    latent[:, pos] = latent_new[:, 0].to(latent.dtype)
+    k_rope[:, pos] = k_rope_new[:, 0].to(k_rope.dtype)
+    t = latent.shape[1]
+    mask = causal_mask(1, t, offset=pos, device=x.device)  # (1,1,1,T)
+    y = _mla_attend(p, cfg, q_nope, q_rope, latent, k_rope, mask)
+    return y, cache

@@ -1,25 +1,33 @@
-"""LM assembly for the dense family: init / forward / loss / decode.
+"""LM assembly: init / forward / loss / decode for the attention families.
 
-The port of the dense-family half of the JAX package's ``models/lm.py``.
+The port of the JAX package's ``models/lm.py`` for the ``dense``,
+``moe``, ``vlm`` and ``audio`` families, with GQA or MLA attention.
 Params are a dict with the JAX package's keys; layer weights are
-stacked along a leading ``L`` axis and layer ``i`` is ``t[i]`` (a view).
-``forward`` and ``loss_fn`` also take ``params["layers"]`` as a list of
-per-layer dicts (``split_layers``), which is how the train step gives
-autograd one leaf per layer. ``lax.scan`` and ``fori_loop`` over the
-layers become Python loops; each layer's weights are cast to the compute
-dtype inside the layer. While autograd records, ``cfg.remat`` puts each
-layer under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
-per layer; ``remat_group`` its two-level form), so a layer's activations
-and bf16 weights are recomputed in the backward; under ``torch.no_grad``
-(serving) nothing is checkpointed. The attention inside ``forward`` is
-``cfg.attention_impl``: ``"flash"`` runs the flash-attention kernel
-(``kernels/flash_attention``; it has no backward and raises under
-autograd), ``"dense"`` the materialised softmax. ``decode_step`` always
-attends densely over its cache, as the JAX package's does.
+stacked along a leading ``L`` axis and layer ``i`` is ``t[i]`` (a view);
+a ``moe`` config with ``first_k_dense`` has a second stack,
+``dense_layers``, that runs first. ``forward`` and ``loss_fn`` also take
+either stack as a list of per-layer dicts (``split_layers``), which is
+how the train step gives autograd one leaf per layer. ``lax.scan`` and
+``fori_loop`` over the layers become Python loops; each layer's weights
+are cast to the compute dtype inside the layer. While autograd records,
+``cfg.remat`` puts each layer under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` per layer; ``remat_group`` its two-level
+form), so a layer's activations and bf16 weights are recomputed in the
+backward; under ``torch.no_grad`` (serving) nothing is checkpointed. The
+GQA attention inside ``forward`` is ``cfg.attention_impl``: ``"flash"``
+runs the flash-attention kernel (``kernels/flash_attention``; it has no
+backward and raises under autograd), ``"dense"`` the materialised
+softmax; MLA always attends densely over its latent, as the reference's
+does. ``decode_step`` always attends densely over its cache, and runs
+MoE layers dropless (capacity factor E), as the JAX package's does.
 
-The other families — ``moe``, ``ssm``, ``hybrid``, ``vlm``, ``audio`` —
-and MLA attention raise ``NotImplementedError`` (ROADMAP queue 1 item
-10).
+Inputs by frontend: ``"none"`` embeds ``batch["tokens"]``; ``"patch"``
+(vlm) puts ``batch["patches"]`` (B, P, d) before the embedded tokens and
+``loss_fn`` scores the text positions only; ``"frame"`` (audio) takes
+``batch["frames"]`` (B, S, d) as the hidden states.
+
+The ``ssm`` and ``hybrid`` families raise ``NotImplementedError``
+(ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -31,23 +39,24 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
-from .attention import gqa_apply, gqa_decode, gqa_init, gqa_init_cache
+from .attention import (gqa_apply, gqa_decode, gqa_init, gqa_init_cache,
+                        mla_apply, mla_decode, mla_init, mla_init_cache)
 from .layers import (chunked_softmax_xent, dense_init, dtype_of, embed_init,
                      mlp_apply, mlp_init, onehot_embed_lookup, rms_norm)
+from .moe import aux_load_balance_loss, moe_apply, moe_init
 
 Params = dict
 MOE_AUX_COEF = 0.01
+# the layer stacks, in the order forward and decode_step run them
+STACKS = ("dense_layers", "layers")
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP queue 1 item 10); the port runs the dense family")
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue 1 "
-            "item 10); the port runs GQA")
+            "(ROADMAP queue 1 item 10); the port runs the dense, moe, vlm "
+            "and audio families")
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -56,28 +65,55 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _depth(stack: dict | list) -> int:
+    if isinstance(stack, list):
+        return len(stack)
+    return stack["attn_norm"].shape[0]
+
+
 def split_layers(params: Params) -> Params:
-    """``params`` with ``"layers"`` as a list of per-layer dicts (views of
-    the stacked tensors; the other entries as they are)."""
-    layers = params["layers"]
-    if isinstance(layers, list):
-        return params
-    return {**params, "layers": [_layer(layers, i) for i in
-                                 range(layers["attn_norm"].shape[0])]}
+    """``params`` with each layer stack (``layers``, ``dense_layers``) as
+    a list of per-layer dicts (views of the stacked tensors; the other
+    entries as they are)."""
+    return {k: [_layer(v, i) for i in range(_depth(v))]
+            if k in STACKS and isinstance(v, dict) else v
+            for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
+def _attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+               device: torch.device, lead: tuple[int, ...]) -> dict:
+    if cfg.use_mla:
+        return mla_init(gen, cfg, dtype, device, lead)
+    return gqa_init(gen, cfg, dtype, device, lead)
+
+
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+                device: torch.device, n: int, moe_layer: bool) -> Params:
+    """A stack of ``n`` attention blocks, each with an MoE FFN or an MLP."""
+    ones = torch.ones((n, cfg.d_model), dtype=torch.float32, device=device)
+    p = {"attn_norm": ones, "mlp_norm": ones.clone(),
+         "attn": _attn_init(gen, cfg, dtype, device, (n,))}
+    if moe_layer:
+        p["moe"] = moe_init(gen, cfg, dtype, device, (n,))
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
+                            device, lead=(n,))
+    return p
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator,
                 device: torch.device | str | None = None) -> Params:
-    """Random params in ``cfg.param_dtype`` on ``device`` (``None``: the
-    card), drawn from ``gen``, which must live on that device."""
-    _require_dense(cfg)
+    """Random params in ``cfg.param_dtype`` (the MoE router in float32)
+    on ``device`` (``None``: the card), drawn from ``gen``, which must
+    live on that device."""
+    _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
-    d, L = cfg.d_model, cfg.num_layers
+    d = cfg.d_model
     params: Params = {
         "embed": embed_init(gen, cfg.vocab_size, d, dtype, device),
         "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
@@ -85,21 +121,24 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, cfg.vocab_size, dtype,
                                        device)
-    ones = torch.ones((L, d), dtype=torch.float32, device=device)
-    params["layers"] = {
-        "attn_norm": ones, "mlp_norm": ones.clone(),
-        "attn": gqa_init(gen, cfg, dtype, device, lead=(L,)),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, dtype, device,
-                        lead=(L,)),
-    }
+    moe = cfg.family == "moe"
+    if moe and cfg.first_k_dense:
+        params["dense_layers"] = _layer_init(gen, cfg, dtype, device,
+                                             cfg.first_k_dense, False)
+        params["layers"] = _layer_init(
+            gen, cfg, dtype, device, cfg.num_layers - cfg.first_k_dense,
+            True)
+    else:
+        params["layers"] = _layer_init(gen, cfg, dtype, device,
+                                       cfg.num_layers, moe)
     return params
 
 
 def cast_params(params: Params, cfg: ArchConfig) -> Params:
     """Cast matmul weights to compute dtype (norm vectors stay f32; as in
     the JAX package, "matmul weight" means ndim >= 2, so the stacked
-    per-layer norms are cast too). Tensors already in that dtype are
-    returned as they are, not copied."""
+    per-layer norms and the stacked MoE router are cast too). Tensors
+    already in that dtype are returned as they are, not copied."""
     cd = dtype_of(cfg.compute_dtype)
     return tree_map(lambda a: a.to(cd) if a.dim() >= 2 else a, params)
 
@@ -110,33 +149,49 @@ def cast_params(params: Params, cfg: ArchConfig) -> Params:
 
 def _dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
+    """Pre-norm attention (GQA or MLA), then the MoE FFN where the layer
+    has one, else the MLP."""
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    x = x + gqa_apply(p["attn"], cfg, h, positions, causal=cfg.causal)
+    attend = mla_apply if cfg.use_mla else gqa_apply
+    x = x + attend(p["attn"], cfg, h, positions, causal=cfg.causal)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if "moe" in p:
+        return x + moe_apply(p["moe"], cfg, h)
     return x + mlp_apply(p["mlp"], h, cfg.mlp_type)
 
 
 def _embed_inputs(params: Params, cfg: ArchConfig,
                   batch: dict) -> torch.Tensor:
-    """The token path in compute dtype: an embedding gather, or with
-    ``cfg.onehot_embed`` the chunked one-hot matmul (the same values)."""
+    """The hidden states that enter the first layer, in compute dtype:
+    the frames (``frame``), or the token path (an embedding gather, or
+    with ``cfg.onehot_embed`` the chunked one-hot matmul: the same
+    values) with the patches before it (``patch``)."""
     cd = dtype_of(cfg.compute_dtype)
+    if cfg.frontend == "frame":
+        return batch["frames"].to(cd)
     embed = params["embed"].to(cd)
     if cfg.onehot_embed:
-        return onehot_embed_lookup(embed, batch["tokens"], cfg.ce_chunk, cd)
-    return embed[batch["tokens"].long()]
+        x = onehot_embed_lookup(embed, batch["tokens"], cfg.ce_chunk, cd)
+    else:
+        x = embed[batch["tokens"].long()]
+    if cfg.frontend == "patch" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(cd), x], dim=1)
+    return x
 
 
 def forward(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """batch["tokens"]: (B, S) integer. Returns the final hidden states
-    (B, S, D) in compute dtype."""
-    _require_dense(cfg)
+    """batch["tokens"]: (B, S) integer (``batch["frames"]`` for the
+    ``frame`` frontend; ``batch["patches"]`` before the tokens for
+    ``patch``). Returns the final hidden states (B, S', D) in compute
+    dtype; S' includes the patches."""
+    _require_ported(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    layers = split_layers(params)["layers"]
+    split = split_layers(params)
+    layers = [p for name in STACKS for p in split.get(name, [])]
     # every stacked layer leaf has ndim >= 2, so cast_params casts them
     # all; here one layer at a time, inside the checkpointed region
 
@@ -153,15 +208,20 @@ def forward(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
                 else layer(x, p)
         return x
 
-    g = cfg.remat_group
-    if remat and g > 1 and len(layers) % g == 0:
-        # two-level checkpointing: only group boundaries are kept; a
-        # group's layers are recomputed, each checkpointed again, during
-        # that group's backward
-        for k in range(0, len(layers), g):
-            x = checkpoint(run, x, layers[k:k + g], use_reentrant=False)
-    else:
-        x = run(x, layers)
+    def run_stack(x, stack):
+        g = cfg.remat_group
+        if remat and g > 1 and len(stack) % g == 0:
+            # two-level checkpointing: only group boundaries are kept; a
+            # group's layers are recomputed, each checkpointed again,
+            # during that group's backward
+            for k in range(0, len(stack), g):
+                x = checkpoint(run, x, stack[k:k + g], use_reentrant=False)
+            return x
+        return run(x, stack)
+
+    for name in STACKS:
+        if name in split:
+            x = run_stack(x, split[name])
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -171,15 +231,31 @@ def lm_head_weight(params: Params, cfg: ArchConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
+def _first_moe_params(params: Params) -> dict:
+    """The MoE params of the first layer of ``layers``, as they are (the
+    router uncast)."""
+    layers = params["layers"]
+    if isinstance(layers, list):
+        return layers[0]["moe"]
+    return _layer(layers["moe"], 0)
+
+
 def loss_fn(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (B, S): the forward pass, then the chunked
+    """Mean next-token cross-entropy against ``batch["labels"]`` (B, S)
+    over the text positions: the forward pass, then the chunked
     cross-entropy over ``cfg.ce_chunk``-token blocks with the head in
-    compute dtype. Differentiable (``loss.backward()``); the dense family
-    only (the MoE auxiliary loss, ``MOE_AUX_COEF``, waits for MoE)."""
+    compute dtype; for the ``moe`` family plus ``MOE_AUX_COEF`` times
+    the load-balance loss of the first MoE layer's router (uncast) on
+    the final hidden states. Differentiable (``loss.backward()``)."""
     x = forward(params, cfg, batch)
+    if cfg.frontend == "patch" and "patches" in batch:
+        x = x[:, batch["patches"].shape[1]:]     # score text positions only
     w = lm_head_weight(params, cfg).to(dtype_of(cfg.compute_dtype))
-    return chunked_softmax_xent(x, w, batch["labels"], cfg.ce_chunk)
+    loss = chunked_softmax_xent(x, w, batch["labels"], cfg.ce_chunk)
+    if cfg.family == "moe":
+        aux = aux_load_balance_loss(_first_moe_params(params), cfg, x)
+        loss = loss + MOE_AUX_COEF * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +264,22 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device | str | None = None) -> Any:
-    """Zeroed KV cache in compute dtype: {"layers": {"k", "v"}}, each
-    (L, B, max_len, KV, hd)."""
-    _require_dense(cfg)
-    return {"layers": gqa_init_cache(cfg, batch, max_len,
-                                     dtype_of(cfg.compute_dtype),
-                                     resolve_device(device),
-                                     lead=(cfg.num_layers,))}
+    """Zeroed cache in compute dtype, one entry a layer stack: GQA
+    {"k", "v"}, each (L, B, max_len, KV, hd), or with MLA {"latent"
+    (L, B, max_len, r), "k_rope" (L, B, max_len, 1, dr)}; a ``moe``
+    config with ``first_k_dense`` has ``dense_layers`` beside
+    ``layers``."""
+    _require_ported(cfg)
+    device = resolve_device(device)
+    cd = dtype_of(cfg.compute_dtype)
+    make = mla_init_cache if cfg.use_mla else gqa_init_cache
+    dense = cfg.first_k_dense if cfg.family == "moe" else 0
+    out = {"layers": make(cfg, batch, max_len, cd, device,
+                          lead=(cfg.num_layers - dense,))}
+    if dense:
+        out["dense_layers"] = make(cfg, batch, max_len, cd, device,
+                                   lead=(dense,))
+    return out
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Any,
@@ -203,22 +288,31 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Any,
     """One serving step: tokens (B,1) integer, pos the write slot.
     Returns (logits (B,1,V) float32, cache).
 
-    Each layer writes its new key and value into ``cache`` in place (a
+    Each layer writes its new cache entries into ``cache`` in place (a
     view of the stacked tensors), so the returned cache is the one
     passed in; it holds the values the JAX package's returned cache
     holds."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     params = cast_params(params, cfg)
     pos = int(pos)
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
-    layers, caches = params["layers"], cache["layers"]
-    for i in range(layers["attn_norm"].shape[0]):
-        pl = _layer(layers, i)
-        h = rms_norm(x, pl["attn_norm"], cfg.norm_eps)
-        a, _ = gqa_decode(pl["attn"], cfg, h, _layer(caches, i), pos)
-        x = x + a
-        h = rms_norm(x, pl["mlp_norm"], cfg.norm_eps)
-        x = x + mlp_apply(pl["mlp"], h, cfg.mlp_type)
+    attend = mla_decode if cfg.use_mla else gqa_decode
+    for name in STACKS:
+        if name not in params:
+            continue
+        layers, caches = params[name], cache[name]
+        for i in range(_depth(layers)):
+            pl = _layer(layers, i)
+            h = rms_norm(x, pl["attn_norm"], cfg.norm_eps)
+            a, _ = attend(pl["attn"], cfg, h, _layer(caches, i), pos)
+            x = x + a
+            h = rms_norm(x, pl["mlp_norm"], cfg.norm_eps)
+            if "moe" in pl:
+                # decode batches are tiny: dropless capacity
+                x = x + moe_apply(pl["moe"], cfg, h,
+                                  capacity_factor=float(cfg.num_experts))
+            else:
+                x = x + mlp_apply(pl["mlp"], h, cfg.mlp_type)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ lm_head_weight(params, cfg)).float()
     return logits, cache

@@ -17,7 +17,7 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ArchConfig
-from ..models.lm import (_layer, cast_params, decode_step, forward,
+from ..models.lm import (STACKS, _layer, cast_params, decode_step, forward,
                          lm_head_weight, loss_fn)
 from ..tree import tree_leaves, tree_map
 from .optimizer import OptimizerConfig, adamw_update
@@ -26,10 +26,11 @@ from .optimizer import OptimizerConfig, adamw_update
 def _grad_leaves(params: dict, grads: dict) -> dict:
     """Leaves for autograd that alias ``params``, each with ``.grad`` set
     to its slot in ``grads`` (same shapes and dtypes), so that the
-    backward accumulates into ``grads`` in place. Stacked layer tensors
-    become one leaf per layer (``params["layers"]`` a list, as
-    ``forward`` takes it): a backward through slices of one stacked leaf
-    would allocate a full-size gradient for every layer."""
+    backward accumulates into ``grads`` in place. Each stacked layer
+    tree (``layers``, and ``dense_layers`` where the config has one)
+    becomes one leaf per layer (a list, as ``forward`` takes it): a
+    backward through slices of one stacked leaf would allocate a
+    full-size gradient for every layer."""
     def leaf(p, g):
         t = p.detach().requires_grad_()
         t.grad = g
@@ -39,11 +40,14 @@ def _grad_leaves(params: dict, grads: dict) -> dict:
         return {k: tree(p[k], g[k]) if isinstance(p[k], dict)
                 else leaf(p[k], g[k]) for k in p}
 
-    out = {k: tree(params[k], grads[k]) if isinstance(params[k], dict)
-           else leaf(params[k], grads[k]) for k in params if k != "layers"}
-    layers, glayers = params["layers"], grads["layers"]
-    out["layers"] = [tree(_layer(layers, i), _layer(glayers, i))
-                     for i in range(layers["attn_norm"].shape[0])]
+    out = {}
+    for k, p in params.items():
+        if k in STACKS:
+            out[k] = [tree(_layer(p, i), _layer(grads[k], i))
+                      for i in range(p["attn_norm"].shape[0])]
+        else:
+            out[k] = tree(p, grads[k]) if isinstance(p, dict) \
+                else leaf(p, grads[k])
     return out
 
 

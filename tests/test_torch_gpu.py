@@ -496,7 +496,7 @@ def test_card_builder_equals_the_host_reference(cuda):
 
 # flash attention: (B, S, T, H, KV, hd, causal, dtype) — the JAX
 # package's test cases in float32, its bf16 case, then Qwen3-4B's head
-# layout at ragged lengths
+# layout at ragged lengths, then OLMoE's and InternVL2's
 FLASH_CASES = [(1, 16, 16, 4, 4, 32, True, torch.float32),
                (2, 32, 32, 4, 2, 32, True, torch.float32),
                (1, 64, 64, 8, 2, 16, False, torch.float32),
@@ -509,7 +509,11 @@ FLASH_CASES = [(1, 16, 16, 4, 4, 32, True, torch.float32),
                (1, 200, 200, 8, 2, 192, True, torch.bfloat16),
                (1, 100, 130, 32, 8, 128, True, torch.bfloat16),
                (2, 130, 100, 8, 8, 64, False, torch.bfloat16),
-               (1, 50, 50, 4, 4, 16, True, torch.bfloat16)]
+               (1, 50, 50, 4, 4, 16, True, torch.bfloat16),
+               # OLMoE-1B-7B (MHA 16/16) and InternVL2-26B (GQA 48/8)
+               (2, 300, 300, 16, 16, 128, True, torch.bfloat16),
+               (1, 260, 260, 48, 8, 128, True, torch.bfloat16),
+               (1, 100, 100, 48, 8, 128, True, torch.float32)]
 
 
 def _bf16_bound_ratio(got, q, k, v, causal: bool) -> float:
@@ -953,3 +957,162 @@ def test_card_builds_a_center_from_a_gr_file(cuda, tmp_path):
     ans = center.answer_cross_many(ss, ts)
     for i in range(8):
         assert ans[i] == np.float32(dijkstra(g, int(ss[i]))[ts[i]])
+
+
+# -- MoE and MLA (slice 11) ------------------------------------------------------
+
+def _moe_case(dev, cf, skew, seed=0, e=16, k=4):
+    """A MoE layer at smoke width (E 16, top-4) in float32 on ``dev``
+    (router skewed to expert 0 by ``skew``), and its input."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    cfg = get_smoke_config("olmoe_1b_7b").reduced(
+        num_experts=e, experts_per_token=k, moe_capacity_factor=cf,
+        compute_dtype="float32")
+    gen = torch.Generator().manual_seed(seed)
+    p = moe.moe_init(gen, cfg, torch.float32, torch.device("cpu"))
+    p["router"][:, 0] += skew / cfg.d_model ** 0.5
+    x = torch.randn((4, 64, cfg.d_model), generator=gen) + (0.5 if skew
+                                                            else 0.0)
+    return cfg, {k_: v.to(dev) for k_, v in p.items()}, x.to(dev)
+
+
+def _topk_gap(cfg, p, x) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th router
+    logit (the softmax keeps their order): routing can differ between
+    two devices only where the devices' float32 logits differ by more
+    than that."""
+    tokens = x.reshape(-1, cfg.d_model).cpu()
+    logits = tokens @ p["router"].cpu()
+    top = torch.topk(logits, cfg.experts_per_token + 1, dim=-1).values
+    return float((top[:, -2] - top[:, -1]).min())
+
+
+@pytest.mark.parametrize("cf,skew", [(16.0, 0.0), (1.25, 0.0), (1.25, 4.0)])
+def test_moe_apply_on_card_equals_the_cpu(cuda, cf, skew):
+    """float32 (TF32 off): the same routing as integers (ids, sort,
+    kept slots; drops happen under the skew) and the output within
+    1e-5. The test first checks that every top-k boundary gap of the
+    logits exceeds 1e-5, above the devices' float32 differences (at
+    most ≈ 1e-6 on these logits of order 1: 128-term sums at 2^-24
+    relative a term), so that routing must agree."""
+    from repro_torch.models import moe
+    cfg, pc, xc = _moe_case(cuda, cf, skew)
+    ph = {k: v.cpu() for k, v in pc.items()}
+    xh = xc.cpu()
+    assert _topk_gap(cfg, ph, xh) > 1e-5
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = moe.moe_apply(pc, cfg, xc)
+        gates, ids = moe.route(pc["router"], xc.reshape(-1, cfg.d_model),
+                               cfg.experts_per_token)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = moe.moe_apply(ph, cfg, xh)
+    wg, wi = moe.route(ph["router"], xh.reshape(-1, cfg.d_model),
+                       cfg.experts_per_token)
+    assert torch.equal(ids.cpu(), wi)
+    assert float((gates.cpu() - wg).abs().max()) <= 1e-6
+    t = xh.shape[0] * xh.shape[1]
+    cap = moe.capacity(cf, t, cfg.experts_per_token, cfg.num_experts)
+    plan = moe.dispatch_plan(ids, cfg.num_experts, cap)
+    for a, b in zip(plan, moe.dispatch_plan(wi, cfg.num_experts, cap)):
+        assert torch.equal(a.cpu(), b)
+    dropped = bool((~plan[1]).any())
+    if skew:
+        assert dropped
+    if cf == cfg.num_experts:
+        assert not dropped
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def test_moe_apply_twice_on_card_gives_the_same_bits(cuda):
+    """The combine sums each token's contributions in one fixed order,
+    so two runs (capacity drops included, bf16) are equal bit for bit."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_case(cuda, 1.25, 4.0, seed=1, e=64, k=8)
+    p = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    x = x.to(torch.bfloat16).repeat(1, 8, 1)
+    a = moe.moe_apply(p, cfg, x)
+    b = moe.moe_apply(p, cfg, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_mla_decode_on_card_equals_the_cpu(cuda):
+    """DeepSeek-V2's smoke widths, float32, six decode steps from a cache
+    of random values: each output and the written slots within 1e-4 of
+    the CPU's, every other slot unchanged bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention
+    cfg = get_smoke_config("deepseek_v2_236b")
+    gen = torch.Generator().manual_seed(2)
+    ph = attention.mla_init(gen, cfg, torch.float32, torch.device("cpu"))
+    pc = {k: v.to(cuda) for k, v in ph.items()}
+    b, t = 3, 16
+    ch = {"latent": torch.randn((b, t, cfg.kv_lora_rank), generator=gen),
+          "k_rope": torch.randn((b, t, 1, cfg.qk_rope_head_dim),
+                                generator=gen)}
+    cc = {k: v.to(cuda) for k, v in ch.items()}
+    start = {k: v.clone() for k, v in ch.items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        positions = [0, 1, 2, 7, 3, 15]
+        for pos in positions:
+            x = torch.randn((b, 1, cfg.d_model), generator=gen)
+            yh, _ = attention.mla_decode(ph, cfg, x, ch, pos)
+            yc, _ = attention.mla_decode(pc, cfg, x.to(cuda), cc, pos)
+            assert float((yc.cpu() - yh).abs().max()) <= 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k in ("latent", "k_rope"):
+        got = cc[k].cpu()
+        assert float((got[:, positions] - ch[k][:, positions]).abs()
+                     .max()) <= 1e-4
+        rest = [j for j in range(t) if j not in positions]
+        assert torch.equal(got[:, rest], start[k][:, rest])
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b",
+                                  "internvl2_26b"])
+def test_family_prefill_and_decode_on_card(cuda, arch):
+    """The smoke configs on the card in float32: the flash prefill (GQA
+    layers launch the kernel once each; MLA attends densely) agrees with
+    the dense prefill and decode never launches flash; decode agrees
+    with the forward pass at every position."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import make_prefill_step
+    cfg = get_smoke_config(arch).reduced(compute_dtype="float32")
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = lm.init_params(cfg, gen, cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
+                        device=cuda)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = fa.LAUNCHES["flash_attention"]
+        got = make_prefill_step(flash)(params, {"tokens": tok})
+        torch.cuda.synchronize()
+        launched = fa.LAUNCHES["flash_attention"] - before
+        want = make_prefill_step(cfg)(params, {"tokens": tok})
+        full = lm.forward(params, cfg, {"tokens": tok}) \
+            @ lm.lm_head_weight(params, cfg)
+        cache = lm.init_cache(cfg, 2, 24, cuda)
+        before = fa.LAUNCHES["flash_attention"]
+        for i in range(24):
+            logits, cache = lm.decode_step(params, cfg, cache,
+                                           tok[:, i:i + 1], i)
+            assert float((logits[:, 0] - full[:, i]).abs().max()
+                         / full[:, i].abs().max()) <= 1e-4
+        assert fa.LAUNCHES["flash_attention"] == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert launched == (0 if cfg.use_mla else cfg.num_layers)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

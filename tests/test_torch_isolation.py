@@ -61,15 +61,15 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env=_env(), capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
-    # 90 modules: the serving path, the staged builder, the configs, the
+    # 91 modules: the serving path, the staged builder, the configs, the
     # dense LM (models, train, launch, kernels/flash_attention), the
     # updates (update/delta, update/scenarios, topo), Floyd–Warshall
     # (kernels/sssp_relax/kernel), the oracle API, the sharded layouts,
     # the scatter-gather plane, faults, simulator and load harness, the
     # DIMACS ingest (ingest/dimacs, ingest/datasets) and the training
     # path (train/optimizer, train/data, train/loop, distributed,
-    # launch/train, tree)
-    assert int(out.stdout.split("IMPORTED")[1]) >= 90
+    # launch/train, tree) and the MoE layer (models/moe)
+    assert int(out.stdout.split("IMPORTED")[1]) >= 91
 
 
 _IMPORT_NEW = r"""
@@ -87,8 +87,9 @@ print("OK")
 # the modules of the updates slice and of the Floyd–Warshall kernel, then
 # (one process for the lot) those of the oracle API and the sharded
 # layouts, (one more) those of the scatter-gather read path, the
-# faults, the simulator and the load harness, and (two more) those of
-# the DIMACS ingest and of the training path
+# faults, the simulator and the load harness, (two more) those of the
+# DIMACS ingest and of the training path, and (one more) the MoE and
+# MLA modules
 UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.update.incremental", "repro_torch.update",
                   "repro_torch.topo.structural", "repro_torch.topo",
@@ -111,7 +112,9 @@ UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.train.loop repro_torch.train.train_step "
                   "repro_torch.distributed.checkpoint "
                   "repro_torch.distributed.compression "
-                  "repro_torch.launch.train repro_torch.tree"]
+                  "repro_torch.launch.train repro_torch.tree",
+                  "repro_torch.models.moe repro_torch.models.attention "
+                  "repro_torch.models.lm"]
 
 
 @pytest.mark.parametrize("module", UPDATE_MODULES)
@@ -143,13 +146,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         IncrementalBuilder()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ComputingCenter(g, part, builder="torch")
-    cfg = get_smoke_config("qwen3_4b")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        lm.init_params(cfg, torch.Generator())
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        lm.init_cache(cfg, 1, 8)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        BatchedDecoder(cfg, {})
+    for arch in ("qwen3_4b", "olmoe_1b_7b", "deepseek_v2_236b",
+                 "internvl2_26b", "hubert_xlarge"):
+        cfg = get_smoke_config(arch)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init_params(cfg, torch.Generator())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init_cache(cfg, 1, 8)
+        if cfg.supports_decode():         # HuBERT is encoder-only
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                BatchedDecoder(cfg, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DistanceOracle.build(g, part)
     with pytest.raises(RuntimeError, match="no CUDA device"):

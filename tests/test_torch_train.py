@@ -37,6 +37,7 @@ from repro.distributed import checkpoint as rckpt
 from repro.distributed import compression as rcomp
 from repro.models import layers as rlayers
 from repro.models import lm as rlm
+from repro.models import moe as rmoe
 from repro.train import data as rdata
 from repro.train import loop as rloop
 from repro.train import optimizer as ropt
@@ -48,6 +49,7 @@ from repro_torch.distributed import compression as tcomp
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.models import moe as tmoe
 from repro_torch.train import data as tdata
 from repro_torch.train import loop as tloop
 from repro_torch.train import optimizer as topt
@@ -256,10 +258,157 @@ def test_flash_attention_under_autograd_raises_in_both_packages():
 
 
 def test_other_families_raise_naming_item_10():
-    ct = get_smoke_config("olmoe_1b_7b")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlm.loss_fn({}, ct, {})
+    for arch in ("mamba2_1_3b", "zamba2_1_2b"):
+        ct = get_smoke_config(arch)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tlm.loss_fn({}, ct, {})
     assert tlm.MOE_AUX_COEF == rlm.MOE_AUX_COEF
+
+
+# -- the other attention families: moe, MLA, vlm, audio ----------------------
+
+# the smoke configs (OLMoE at its published capacity factor 1.25, so
+# that training runs the capacity path) and a dense config with MLA
+FAMILIES = [("olmoe_cf125", "olmoe_1b_7b", {"moe_capacity_factor": 1.25}),
+            ("deepseek", "deepseek_v2_236b", {}),
+            ("internvl2", "internvl2_26b", {}),
+            ("hubert", "hubert_xlarge", {}),
+            ("dense_mla", "deepseek_v2_236b", {"family": "dense"})]
+
+
+def _family(arch, overrides, **kw):
+    kw = {**SMALL, "compute_dtype": "float32", **overrides, **kw}
+    cj = rbase.get_smoke_config(arch).reduced(**kw)
+    ct = get_smoke_config(arch).reduced(**kw)
+    pj, pt = _params(cj)
+    bj, bt = _batches(cj)
+    return cj, ct, pj, pt, bj, bt
+
+
+@pytest.mark.parametrize("name,arch,overrides", FAMILIES)
+def test_family_loss_and_every_gradient_match_the_reference(name, arch,
+                                                            overrides):
+    """``loss_fn`` (the patch positions sliced off, the MoE auxiliary
+    term on the uncast router) within 1e-5 and every gradient leaf,
+    ``dense_layers`` included, within 1e-4, through stacked leaves and
+    through the train step's per-layer leaves."""
+    cj, ct, pj, pt, bj, bt = _family(arch, overrides)
+    want, wgrads = jax.value_and_grad(lambda p: rlm.loss_fn(p, cj, bj))(pj)
+    leaves = tree_map(lambda a: a.clone().requires_grad_(), pt)
+    got = tlm.loss_fn(leaves, ct, bt)
+    got.backward()
+    assert rel(got, want) <= 1e-5
+    # a leaf the loss never reads (the frame frontend's embedding) gets
+    # no .grad from autograd, and zeros from jax.grad
+    _assert_trees_close(tree_map(lambda a: torch.zeros_like(a)
+                                 if a.grad is None else a.grad, leaves),
+                        wgrads, 1e-4)
+    loss, grads = tts.value_and_grad(pt, ct, bt)
+    assert float(loss) == float(got.detach())
+    _assert_trees_close(grads, wgrads, 1e-4)
+    assert ("dense_layers" in grads) == (name == "deepseek")
+
+
+@pytest.mark.parametrize("name,arch,overrides", FAMILIES)
+def test_family_train_step_matches_the_reference(name, arch, overrides):
+    cj, ct, pj, pt, bj, bt = _family(arch, overrides)
+    sj, st = _opt(pj)
+    oc = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    pj, sj, mj = jax.jit(rts.make_train_step(
+        cj, ropt.OptimizerConfig(**oc)))(pj, sj, bj)
+    pt, st, mt = tts.make_train_step(ct, topt.OptimizerConfig(**oc))(
+        pt, st, bt)
+    for key in ("loss", "grad_norm", "lr"):
+        assert rel(mt[key], mj[key]) <= 1e-4, key
+    _assert_trees_close(pt, pj, 1e-4, rel2)
+    _assert_trees_close(st["m"], sj["m"], 1e-4)
+
+
+def test_moe_aux_term_is_the_reference_router_loss():
+    """The MoE loss is the cross-entropy plus MOE_AUX_COEF times the
+    first MoE layer's load-balance loss on the final hidden states; the
+    router it reads is the float32 one, uncast, in bf16 compute too."""
+    cj, ct, pj, pt, bj, bt = _family("olmoe_1b_7b", {},
+                                     compute_dtype="bfloat16")
+    assert pt["layers"]["moe"]["router"].dtype == torch.float32
+    x = tlm.forward(pt, ct, bt)
+    first = tlm._first_moe_params(pt)
+    assert first["router"].data_ptr() == \
+        pt["layers"]["moe"]["router"].data_ptr()
+    assert first["router"].dtype == torch.float32
+    aux = tmoe.aux_load_balance_loss(first, ct, x)
+    xent = tlayers.chunked_softmax_xent(
+        x, tlm.lm_head_weight(pt, ct).to(torch.bfloat16), bt["labels"],
+        ct.ce_chunk)
+    assert float(tlm.loss_fn(pt, ct, bt)) == float(
+        xent + tlm.MOE_AUX_COEF * aux)
+    want = rmoe.aux_load_balance_loss(
+        rlm._first_moe_params(pj), cj, rlm.forward(pj, cj, bj))
+    assert abs(float(aux) - float(want)) <= 1e-2 * float(want)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_both_layer_stacks_checkpoint_and_alias_their_gradients(
+        monkeypatch, remat):
+    """DeepSeek-V2's smoke config (one dense layer, then MoE layers):
+    with ``remat`` each layer of both stacks runs under one checkpoint
+    (none without it), and the train step's per-layer leaves alias the
+    params with ``.grad`` a view of one stacked gradient buffer a
+    stack; the gradients are the same either way."""
+    cj, ct, pj, pt, bj, bt = _family("deepseek_v2_236b", {}, num_layers=3,
+                                     remat=remat)
+    assert ct.first_k_dense == 1
+    calls = []
+    real = tlm.checkpoint
+
+    def counted(fn, *args, **kw):
+        calls.append(fn)
+        return real(fn, *args, **kw)
+
+    monkeypatch.setattr(tlm, "checkpoint", counted)
+    grads = tree_map(torch.zeros_like, pt)
+    leaves = tts._grad_leaves(pt, grads)
+    for stack in ("dense_layers", "layers"):
+        assert isinstance(leaves[stack], list)
+        for i, layer in enumerate(leaves[stack]):
+            for path, want, got in _pairs(tlm._layer(pt[stack], i), layer):
+                assert got.data_ptr() == want.data_ptr(), path
+                g = grads[stack]
+                for key in path.split("/"):
+                    g = g[key]
+                assert got.grad._base is g, path          # one buffer
+                assert got.grad.data_ptr() == g[i].data_ptr(), path
+    with torch.enable_grad():
+        tlm.loss_fn(leaves, ct, bt).backward()
+    assert len(calls) == (ct.num_layers if remat else 0)
+    _, wgrads = jax.value_and_grad(lambda p: rlm.loss_fn(p, cj, bj))(pj)
+    _assert_trees_close(grads, wgrads, 1e-4)
+    assert bool(grads["dense_layers"]["mlp"]["wi"].abs().sum() > 0)
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_moe_and_mla_trees_cross_unchanged(param_dtype):
+    """``convert`` carries DeepSeek-V2's tree (a float32 router, stacked
+    (L, E, d, f) experts, ``shared``, ``dense_layers``, MLA) both ways,
+    bit for bit."""
+    cj = rbase.get_smoke_config("deepseek_v2_236b").reduced(
+        param_dtype=param_dtype, num_layers=3)
+    pj = jax.tree.map(np.asarray, rlm.init_params(cj, jax.random.PRNGKey(2)))
+    pt = convert.lm_params_from_numpy(pj, device="cpu")
+    moe_p = pt["layers"]["moe"]
+    assert moe_p["router"].dtype == torch.float32
+    assert tuple(moe_p["wi"].shape) == (2, cj.num_experts, cj.d_model,
+                                        cj.moe_d_ff)
+    assert "shared" in moe_p and "latent" not in pt["layers"]["attn"]
+    assert tuple(pt["dense_layers"]["attn"]["wkv_a"].shape) == (
+        1, cj.d_model, cj.kv_lora_rank + cj.qk_rope_head_dim)
+    back = convert.lm_params_to_numpy(pt)
+    n = 0
+    for path, want, got in _pairs(pj, back):
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), \
+            path
+        n += 1
+    assert n == len(jax.tree.leaves(pj))
 
 
 def test_eval_step_equals_loss_fn():
@@ -648,14 +797,15 @@ def test_loop_with_fault_and_resume_matches_the_reference(tmp_path):
         np.testing.assert_array_equal(got, want, err_msg=path)
 
 
-def test_launcher_runs_on_the_cpu(tmp_path, capsys):
-    tlaunch.main(["--arch", "qwen3_4b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["qwen3_4b", "olmoe_1b_7b"])
+def test_launcher_runs_on_the_cpu(tmp_path, capsys, arch):
+    tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
                   "--steps", "3", "--seq", "16", "--batch", "2",
                   "--ckpt", str(tmp_path), "--ckpt-every", "2"])
     out = capsys.readouterr().out
     assert "finished at step 3; loss" in out
     assert tckpt.latest_step(str(tmp_path)) == 2
-    tlaunch.main(["--arch", "qwen3_4b", "--smoke", "--device", "cpu",
+    tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
                   "--steps", "2", "--seq", "16", "--batch", "2",
                   "--ckpt", str(tmp_path)])
     assert "nothing left to run" in capsys.readouterr().out
