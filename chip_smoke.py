@@ -10,7 +10,7 @@ rate beside the issue ceiling its instructions allow (phase
 bounds), holds each kernel against its plain PyTorch version on the
 card (``relax`` with and without its occupancy map; the fused closure
 on each side of its cap; the k-major product; the join at every vector
-width), and drives the port's fifteen paths:
+width), and drives the port's seventeen paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -95,7 +95,21 @@ width), and drives the port's fifteen paths:
   patches + 1792 text tokens (48 flash launches) against the dense
   prefill; HuBERT-XLarge at full depth, a non-causal forward over 4096
   frames with dense attention (the bf16 flash kernel refuses its head
-  dim 80).
+  dim 80);
+* the SSM family at Mamba2-1.3B's published config, full depth and
+  width (bf16 weights, random from a seed) — a prefill of 2 x 4096
+  tokens through the chunked SSD (torch ops; no kernel of the port),
+  two prefills compared bit for bit, one mixer profiled by stage,
+  ``BatchedDecoder`` at batch 4 on 8 requests and a decode profile; a
+  float32 check at 2 layers on the card against the host (two chunks
+  and the one-chunk fallback; decode against the forward pass), and 3
+  train steps at full depth;
+* the hybrid family at Zamba2-1.2B's published config, full depth and
+  width — a flash prefill of 2 x 4096 tokens (6 flash launches, one a
+  shared-block application) against the dense prefill,
+  ``BatchedDecoder`` at batch 4 and a decode profile; a float32 check
+  at 6 layers (one shared application) on the card against the host,
+  and 3 train steps at full depth.
 
 It checks answers against the scalar loop, the plain versions, the host
 builders and Dijkstra, the dense attention path, and times every
@@ -2621,7 +2635,7 @@ def phase_times(torch, state: dict, shapes: dict) -> dict:
 # unaligned Qwen-shaped case (in both types), a non-causal one, bf16 at
 # every other head dim the tensor-core kernel takes (192: Nemotron-4-340B)
 # and at ragged S != T, then the LM paths' shapes (Qwen3-4B, OLMoE-1B-7B,
-# InternVL2-26B's prefills)
+# InternVL2-26B's prefills, Zamba2-1.2B's shared block)
 FLASH_SHAPES = [(1, 16, 16, 4, 4, 32, True, "float32"),
                 (2, 32, 32, 4, 2, 32, True, "float32"),
                 (1, 64, 64, 8, 2, 16, False, "float32"),
@@ -2638,7 +2652,8 @@ FLASH_SHAPES = [(1, 16, 16, 4, 4, 32, True, "float32"),
                 (1, 1000, 300, 32, 8, 128, False, "bfloat16"),
                 (2, 4096, 4096, 32, 8, 128, True, "bfloat16"),
                 (2, 4096, 4096, 16, 16, 128, True, "bfloat16"),
-                (1, 2048, 2048, 48, 8, 128, True, "bfloat16")]
+                (1, 2048, 2048, 48, 8, 128, True, "bfloat16"),
+                (2, 4096, 4096, 32, 32, 128, True, "bfloat16")]
 # (B, S, H, KV, hd): q, k, v as the head-split views of one fused (B, S,
 # H + 2 KV, hd) projection, strided in the sequence and head axes
 FLASH_STRIDED = [(2, 1000, 32, 8, 128)]
@@ -3002,7 +3017,8 @@ def ptxas_usage(log: str) -> dict:
 # causal, bf16; the first is the kernels line's
 FLASH_TIMED = [("flash_b2_s4096", (2, 4096, 32, 8, 128)),
                ("flash_olmoe_b2_s4096", (2, 4096, 16, 16, 128)),
-               ("flash_internvl2_b1_s2048", (1, 2048, 48, 8, 128))]
+               ("flash_internvl2_b1_s2048", (1, 2048, 48, 8, 128)),
+               ("flash_zamba2_b2_s4096", (2, 4096, 32, 32, 128))]
 
 
 def phase_flash_times(torch, dev, logs: dict) -> dict:
@@ -3496,33 +3512,30 @@ def lm_train_loop(torch, dev) -> dict:
             "restore_checkpoint (hash check, read, upload)"}
 
 
-def phase_lm_train(torch, dev) -> dict:
+def train_full_depth(torch, dev, arch: str, tr: dict, seed: int) -> dict:
+    """``tr["steps"]`` train steps at full depth and width (float32
+    params, bf16 compute, per-layer remat, dense attention) on one batch
+    drawn from ``seed``: the first loss is near ln V and the loss falls;
+    step, forward + backward and AdamW times, peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import init_params
     from repro_torch.train import train_step as tts
     from repro_torch.train.data import DataConfig, synthetic_batch, to_device
     from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
-
-    tight = lm_train_tight(torch, dev)
-    torch.cuda.empty_cache()
-    loop = lm_train_loop(torch, dev)
-    torch.cuda.empty_cache()
-
-    tr = LM_TRAIN
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     check(cfg.remat and cfg.param_dtype == "float32"
           and cfg.compute_dtype == "bfloat16"
           and cfg.attention_impl == "dense", f"train config: {cfg}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(6),
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
     opt = init_opt_state(params)
     sync(torch, dev)
     init_s = time.perf_counter() - t0
     state_gb = torch.cuda.memory_allocated() / 1e9
     batch = to_device(synthetic_batch(
-        cfg, DataConfig(tr["tokens"], tr["batch"], seed=0), 0), dev)
+        cfg, DataConfig(tr["tokens"], tr["batch"], seed=seed), 0), dev)
     step = tts.make_train_step(cfg, OptimizerConfig(
         peak_lr=tr["peak_lr"], warmup_steps=1))
     losses, step_s, fwd_bwd_ms, opt_ms = [], [], [], []
@@ -3540,34 +3553,47 @@ def phase_lm_train(torch, dev) -> dict:
             fwd_bwd_ms.append(start.elapsed_time(begin))
             opt_ms.append(begin.elapsed_time(end))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(all(np.isfinite(losses)), f"train losses: {losses}")
-    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0,
-          f"first loss {losses[0]} is not near ln(V) = "
-          f"{np.log(cfg.vocab_size)}")
-    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    n_params = sum(t.numel() for t in _leaves(params))
     del params, opt, batch
     torch.cuda.empty_cache()
-    warm = step_s[1:]
-    tokens = tr["batch"] * tr["tokens"]
+    ln_v = float(np.log(cfg.vocab_size))
+    check(all(np.isfinite(losses)), f"{arch} train losses: {losses}")
+    check(abs(losses[0] - ln_v) <= 1.0,
+          f"{arch}: first loss {losses[0]} is not near ln(V) = {ln_v}")
+    check(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses}")
+    warm = float(np.median(step_s[1:]))
+    return {"layers": cfg.num_layers, "params_in_tree": n_params,
+            "init_s": init_s, "state_gb": state_gb, "batch": tr["batch"],
+            "tokens": tr["tokens"], "peak_lr": tr["peak_lr"],
+            "losses": losses, "ln_vocab": ln_v, "step_s": step_s,
+            "ms_per_step": 1e3 * warm, "fwd_bwd_ms": fwd_bwd_ms,
+            "optimizer_ms": opt_ms,
+            "tokens_per_s": tr["batch"] * tr["tokens"] / warm,
+            "max_memory_allocated_gb": peak_gb,
+            "timer": "step_s: host clock between synchronisations (the "
+            "first step pays cuBLAS set-up; ms_per_step and tokens_per_s "
+            "take the median of the others); fwd_bwd_ms / optimizer_ms: "
+            "CUDA events around the step and around adamw_update"}
+
+
+def phase_lm_train(torch, dev) -> dict:
+    from repro_torch.configs import get_config
+
+    tight = lm_train_tight(torch, dev)
+    torch.cuda.empty_cache()
+    loop = lm_train_loop(torch, dev)
+    torch.cuda.empty_cache()
+
+    cfg = get_config(LM_ARCH)
+    train = train_full_depth(torch, dev, LM_ARCH, LM_TRAIN, seed=6)
     return {"phase": "lm_train_qwen3_4b", "arch": LM_ARCH,
-            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "d_model": cfg.d_model,
             "heads": [cfg.num_heads, cfg.num_kv_heads],
             "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
             "vocab": cfg.vocab_size, "params": cfg.param_count(),
             "param_dtype": cfg.param_dtype,
             "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
-            "batch": tr["batch"], "tokens": tr["tokens"],
-            "peak_lr": tr["peak_lr"], "losses": losses,
-            "ln_vocab": float(np.log(cfg.vocab_size)), "init_s": init_s,
-            "state_gb": state_gb, "step_s": step_s,
-            "ms_per_step": 1e3 * float(np.median(warm)),
-            "fwd_bwd_ms": fwd_bwd_ms, "optimizer_ms": opt_ms,
-            "tokens_per_s": tokens / float(np.median(warm)),
-            "max_memory_allocated_gb": peak_gb,
-            "timer": "step_s: host clock between synchronisations (the "
-            "first step pays cuBLAS set-up); fwd_bwd_ms / optimizer_ms: "
-            "CUDA events around the step and around adamw_update",
-            "tight_f32": tight, "loop": loop, "ok": True}
+            **train, "tight_f32": tight, "loop": loop, "ok": True}
 
 
 # -- phase 10: the MoE family, MLA and the frontends (slice 11) ---------------
@@ -3642,15 +3668,45 @@ def weight_gb(params: dict) -> float:
     return sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
 
 
+def stage_profile(torch, fn, stages: tuple, reps: int = 3) -> dict:
+    """``fn()`` ``reps`` times under ``torch.profiler``: the device time
+    of the kernels launched inside each ``record_function`` range of
+    ``stages``, a call, and of all kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in stages}
+    kernels_us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in out:
+            out[e.name] += e.device_time_total / 1e3 / reps
+        elif e.device_type == DeviceType.CUDA and e.name not in stages:
+            # (a range's span on the device timeline is not a kernel)
+            kernels_us += e.device_time_total
+    device_ms = kernels_us / 1e3 / reps
+    check(device_ms > 0, "the profiler saw no device time")
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in stages),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    return {"device_ms_profiled": device_ms, "stage_device_ms": out,
+            "stage_share": {k: v / device_ms for k, v in out.items()},
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               / reps for e in top}}
+
+
 def moe_layer_profile(torch, params, cfg, x, reps: int = 3) -> dict:
     """One MoE layer (layer 0 of ``layers``, cast to the compute dtype)
     on the hidden states ``x`` under ``torch.profiler``: the device time
     of the kernels launched inside each stage's range (router, sort and
     dispatch, the experts' batched matmuls, combine, shared experts), a
     call; and the layer's device time with CUDA events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.lm import _layer
     from repro_torch.models.moe import moe_apply
@@ -3659,26 +3715,11 @@ def moe_layer_profile(torch, params, cfg, x, reps: int = 3) -> dict:
     p = tree_map(lambda a: a.to(cd), _layer(params["layers"], 0)["moe"])
     moe_apply(p, cfg, x)
     layer_ms = event_ms(torch, lambda: moe_apply(p, cfg, x), reps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            moe_apply(p, cfg, x)
-        torch.cuda.synchronize()
-    stages = {name: 0.0 for name in MOE_STAGES if name != "moe/shared"
-              or "shared" in p}
-    kernels_us = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in stages:
-            stages[e.name] += e.device_time_total / 1e3 / reps
-        elif e.device_type == DeviceType.CUDA and e.name not in MOE_STAGES:
-            # (a range's span on the device timeline is not a kernel)
-            kernels_us += e.device_time_total
-    device_ms = kernels_us / 1e3 / reps
-    check(device_ms > 0, "the profiler saw no device time")
+    stages = tuple(name for name in MOE_STAGES
+                   if name != "moe/shared" or "shared" in p)
     return {"tokens": x.shape[0] * x.shape[1], "layer_ms_events": layer_ms,
-            "device_ms_profiled": device_ms, "stage_device_ms": stages,
-            "stage_share": {k: v / device_ms for k, v in stages.items()},
+            **stage_profile(torch, lambda: moe_apply(p, cfg, x), stages,
+                            reps),
             "timer": "torch.profiler: device time of the kernels launched "
             "inside each record_function range, a call; layer_ms_events: "
             "CUDA events around the call"}
@@ -4124,6 +4165,287 @@ def phase_lm_frontends(torch, dev, launches: dict) -> dict:
             "timer": "host clock between synchronisations", "ok": True}
 
 
+# -- phase 11: Mamba2 / SSD and the Zamba2 hybrid (slice 12) ------------------
+
+MAMBA_ARCH = "mamba2_1_3b"
+ZAMBA_ARCH = "zamba2_1_2b"
+# a multiple of ssm_chunk 128: a (T, T) single-chunk fallback at 4096
+# would hold 4.3 GB per sequence for each f32 (Q, Q, H) tensor
+SSM_PREFILL = (2, 4096)                 # batch, tokens per sequence
+# float32 at full width, card against host: two chunks of 128, and 200
+# tokens (200 % 128 != 0: one chunk of 200)
+SSM_TIGHT = dict(batch=1, tokens=(256, 200))
+MAMBA_TIGHT_LAYERS = 2
+ZAMBA_TIGHT_LAYERS = 6                  # one shared application (layer 5)
+SSM_TRAIN = dict(batch=1, tokens=512, steps=3, peak_lr=1e-3)
+# the record_function ranges of models/mamba2.py's mamba2_apply
+MAMBA2_STAGES = ("mamba2/in_proj", "mamba2/conv", "mamba2/ssd",
+                 "mamba2/out")
+
+
+def ssm_tight(torch, dev, arch: str, layers: int) -> dict:
+    """Full width, ``layers`` layers, float32 (TF32 off): the logits of
+    the forward pass on the card against the host at every position, at
+    two chunks and at the one-chunk fallback (the hybrid's shared block
+    through the f32 flash kernel on the card, dense attention on the
+    host); then ``decode_step`` on the card, fed the same tokens one at
+    a time, against the card's forward pass at every position."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.lm import (decode_step, forward, init_cache,
+                                       init_params, lm_head_weight)
+    cfg = replace(get_config(arch), num_layers=layers,
+                  compute_dtype="float32")
+    card_cfg = replace(cfg, attention_impl="flash") \
+        if cfg.family == "hybrid" else cfg
+    gen = torch.Generator(device=dev).manual_seed(51)
+    params = init_params(cfg, gen, dev)
+    host = _copy_tree(params, "cpu")
+    out = {"layers": layers, "batch": SSM_TIGHT["batch"],
+           "attention_on_card": card_cfg.attention_impl,
+           "tolerance_rel": LM_TIGHT_REL}
+    full = tok = None
+    for t in SSM_TIGHT["tokens"]:
+        tok = torch.randint(0, cfg.vocab_size, (SSM_TIGHT["batch"], t),
+                            generator=gen, device=dev)
+        before = fa.LAUNCHES["flash_attention"]
+        full = forward(params, card_cfg, {"tokens": tok}) \
+            @ lm_head_weight(params, cfg)
+        sync(torch, dev)
+        flash = fa.LAUNCHES["flash_attention"] - before
+        t0 = time.perf_counter()
+        want = forward(host, cfg, {"tokens": tok.cpu()}) \
+            @ lm_head_weight(host, cfg)
+        host_s = time.perf_counter() - t0
+        rel = rel_diff(full.cpu(), want)
+        check(rel <= LM_TIGHT_REL, f"f32 {arch} at T={t} on the card vs "
+              f"the host: {rel} > {LM_TIGHT_REL}")
+        out[f"tokens_{t}"] = {"chunks": t // cfg.ssm_chunk
+                              if t % cfg.ssm_chunk == 0 else 1,
+                              "logits_rel": rel, "host_forward_s": host_s,
+                              "flash_launches": flash}
+    t = SSM_TIGHT["tokens"][-1]
+    cache = init_cache(cfg, SSM_TIGHT["batch"], t, dev)
+    rels = torch.empty(t, dtype=torch.float64, device=dev)
+    for i in range(t):
+        logits, cache = decode_step(params, cfg, cache, tok[:, i:i + 1], i)
+        d = (logits[:, 0] - full[:, i]).double()
+        rels[i] = d.abs().max() / full[:, i].double().abs().max()
+    decode_rel = float(rels.max())
+    check(decode_rel <= LM_TIGHT_REL,
+          f"f32 {arch} decode vs forward: {decode_rel} > {LM_TIGHT_REL}")
+    out["decode_vs_forward_rel_max"] = decode_rel
+    out["decode_tokens"] = t
+    out["measure"] = "max |a-b| / max |b| over the logits"
+    return out
+
+
+def mamba2_layer_profile(torch, params, cfg, x) -> dict:
+    """One Mamba2 mixer (layer 0, cast to the compute dtype) on the
+    hidden states ``x``: its device time by stage (``torch.profiler``)
+    and its time with CUDA events."""
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.lm import _layer
+    from repro_torch.models.mamba2 import mamba2_apply
+    from repro_torch.tree import tree_map
+    cd = dtype_of(cfg.compute_dtype)
+    p = tree_map(lambda a: a.to(cd), _layer(params["layers"], 0)["mixer"])
+    layer_ms = event_ms(torch, lambda: mamba2_apply(p, cfg, x), 3)
+    prof = stage_profile(torch, lambda: mamba2_apply(p, cfg, x),
+                         MAMBA2_STAGES)
+    b, t, _ = x.shape
+    h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    q = cfg.ssm_chunk if t % cfg.ssm_chunk == 0 else t
+    # the SSD's four products: C·B (Q·Q·N), W·X (Q·Q·P), the chunk
+    # states (Q·N·P) and C·S (Q·N·P), a (chunk, head)
+    ssd_flops = 2 * b * t * h * (q * n + q * pd + 2 * n * pd)
+    return {"tokens": b * t, "layer_ms_events": layer_ms, **prof,
+            "ssd_flops": ssd_flops,
+            "ssd_ops_bound_ms_f32": ssd_flops / PEAK_F32_OPS_PER_S * 1e3,
+            "timer": "torch.profiler: device time of the kernels launched "
+            "inside each record_function range, a call; layer_ms_events: "
+            "CUDA events around the call"}
+
+
+def ssm_prefill(torch, dev, cfg, seed: int):
+    """bf16 weights at full depth and width, random from ``seed``, and
+    a prefill batch of ``SSM_PREFILL``: (params, batch, init seconds,
+    weights GB)."""
+    from repro_torch.models.lm import init_params
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    b, s = SSM_PREFILL
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev)}
+    return params, batch, init_s, weight_gb(params)
+
+
+def phase_lm_mamba2(torch, dev) -> dict:
+    """Mamba2-1.3B at its published config, full depth and width, bf16
+    weights: a prefill of 2 x 4096 tokens (no kernel of the port: the
+    SSD is torch ops), two prefills compared bit for bit, one mixer
+    profiled by stage, BatchedDecoder at batch 4 and a decode profile;
+    before it the f32 card-vs-host check at 2 layers; after it 3 train
+    steps at full depth."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.lm import _embed_inputs
+    from repro_torch.train.train_step import make_prefill_step
+
+    tight = ssm_tight(torch, dev, MAMBA_ARCH, MAMBA_TIGHT_LAYERS)
+    torch.cuda.empty_cache()
+    cfg = replace(get_config(MAMBA_ARCH), param_dtype="bfloat16")
+    check((cfg.family, cfg.num_layers, cfg.d_model, cfg.ssm_heads,
+           cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
+           cfg.tie_embeddings, cfg.vocab_size)
+          == ("ssm", 48, 2048, 64, 64, 128, 128, True, 50280),
+          f"not the published config: {cfg}")
+    params, batch, init_s, w_gb = ssm_prefill(torch, dev, cfg, 53)
+    b, s = SSM_PREFILL
+    prefill = make_prefill_step(cfg)
+
+    # the main path: one prefill (it launches no kernel of the port)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    logits, first_s = timed(torch, lambda: prefill(params, batch), 1)
+    check(fa.LAUNCHES["flash_attention"] == 0,
+          "the Mamba2 prefill launched the flash kernel")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "Mamba2 prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    again, prefill_s = timed(torch, lambda: prefill(params, batch), 3)
+    bit_equal = bool(torch.equal(again, logits))
+    repeat_diff = float((again - logits).abs().max())
+    layer = mamba2_layer_profile(torch, params, cfg,
+                                 _embed_inputs(params, cfg, batch))
+    server = serve_requests(torch, cfg, params, dev, seed=19)
+    decode_profile = profile_decode(torch, params, cfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params, batch, logits, again
+    torch.cuda.empty_cache()
+    train = train_full_depth(torch, dev, MAMBA_ARCH, SSM_TRAIN, seed=55)
+    return {"phase": "lm_mamba2_1_3b", "arch": MAMBA_ARCH,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "ssm_heads": cfg.ssm_heads, "ssm_head_dim": cfg.ssm_head_dim,
+            "ssm_state": cfg.ssm_state, "ssm_chunk": cfg.ssm_chunk,
+            "vocab": cfg.vocab_size, "params_in_tree": n_params,
+            "param_count": cfg.param_count(), "weights_gb_bf16": w_gb,
+            "init_s": init_s, "tight_f32": tight,
+            "prefill": {"batch": b, "tokens": b * s, "first_s": first_s[0],
+                        "s": prefill_s,
+                        "tokens_per_s": b * s / min(prefill_s),
+                        "two_prefills_bit_equal": bit_equal,
+                        "two_prefills_max_abs_diff": repeat_diff,
+                        "peak_memory_gb": peak_gb,
+                        "timer": "host clock between synchronisations"},
+            "mixer_profile": layer, "server": server,
+            "decode_profile": decode_profile, "train_full_depth": train,
+            "ok": True}
+
+
+def phase_lm_zamba2(torch, dev, launches: dict) -> dict:
+    """Zamba2-1.2B at its published config, full depth and width, bf16
+    weights: a flash prefill of 2 x 4096 tokens (its launches read: one
+    a shared application, 6), the dense prefill as the yardstick,
+    BatchedDecoder at batch 4 and a decode profile; before it the f32
+    card-vs-host check at 6 layers (one shared application); after it
+    3 train steps at full depth."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.lm import (_embed_inputs, _shared_block,
+                                       cast_params)
+    from repro_torch.train.train_step import make_prefill_step
+
+    tight = ssm_tight(torch, dev, ZAMBA_ARCH, ZAMBA_TIGHT_LAYERS)
+    torch.cuda.empty_cache()
+    cfg = replace(get_config(ZAMBA_ARCH), param_dtype="bfloat16")
+    check((cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads,
+           cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff,
+           cfg.shared_attn_every, cfg.ssm_state, cfg.vocab_size)
+          == ("hybrid", 38, 2048, 32, 32, 128, 8192, 6, 64, 32000),
+          f"not the published config: {cfg}")
+    apps = cfg.num_layers // cfg.shared_attn_every
+    flash = replace(cfg, attention_impl="flash")
+    params, batch, init_s, w_gb = ssm_prefill(torch, dev, cfg, 57)
+    b, s = SSM_PREFILL
+    prefill = make_prefill_step(flash)
+
+    # the main path: one flash prefill, its launches read
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    logits, first_s = timed(torch, lambda: prefill(params, batch), 1)
+    launches["flash_attention_zamba2"] = fa.LAUNCHES["flash_attention"]
+    check(launches["flash_attention_zamba2"] == apps,
+          f"Zamba2 flash prefill launched {fa.LAUNCHES['flash_attention']} "
+          f"times, not {apps}")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "Zamba2 prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    again, flash_s = timed(torch, lambda: prefill(params, batch), 2)
+    bit_equal = bool(torch.equal(again, logits))
+    dense_logits, dense_s = timed(
+        torch, lambda: make_prefill_step(cfg)(params, batch), 2)
+    check(bool(torch.isfinite(dense_logits).all()), "dense prefill logits")
+    bf16_rel = rel_diff(logits, dense_logits)
+    max_abs = float((logits - dense_logits).abs().max())
+    check(bf16_rel <= LM_BF16_REL,
+          f"bf16 Zamba2 flash prefill vs dense: {bf16_rel} > {LM_BF16_REL}")
+    x = _embed_inputs(params, cfg, batch)
+    layer = mamba2_layer_profile(torch, params, cfg, x)
+    shared = cast_params(params["shared"], cfg)
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    before = dict(fa.LAUNCHES)
+    shared_ms = event_ms(
+        torch, lambda: _shared_block(shared, flash, x, x, positions), 3)
+    fa.LAUNCHES.update(before)      # timing launches are not the path's
+    del x, shared
+    before = fa.LAUNCHES["flash_attention"]
+    server = serve_requests(torch, cfg, params, dev, seed=23)
+    decode_profile = profile_decode(torch, params, cfg, dev)
+    check(fa.LAUNCHES["flash_attention"] == before,
+          "Zamba2 decode launched the flash kernel")
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params, batch, logits, again, dense_logits
+    torch.cuda.empty_cache()
+    train = train_full_depth(torch, dev, ZAMBA_ARCH, SSM_TRAIN, seed=59)
+    return {"phase": "lm_zamba2_1_2b", "arch": ZAMBA_ARCH,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "shared_attn_every": cfg.shared_attn_every,
+            "shared_applications": apps,
+            "shared_heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "ssm_state": cfg.ssm_state, "vocab": cfg.vocab_size,
+            "params_in_tree": n_params, "param_count": cfg.param_count(),
+            "weights_gb_bf16": w_gb, "init_s": init_s, "tight_f32": tight,
+            "prefill": {"batch": b, "tokens": b * s,
+                        "flash_first_s": first_s[0], "flash_s": flash_s,
+                        "flash_tokens_per_s": b * s / min(flash_s),
+                        "dense_s": dense_s,
+                        "dense_tokens_per_s": b * s / min(dense_s),
+                        "two_prefills_bit_equal": bit_equal,
+                        "flash_vs_dense_rel_bf16": bf16_rel,
+                        "flash_vs_dense_max_abs_bf16": max_abs,
+                        "tolerance_rel_bf16": LM_BF16_REL,
+                        "peak_memory_gb_flash": peak_gb,
+                        "flash_launches": launches["flash_attention_zamba2"],
+                        "timer": "host clock between synchronisations"},
+            "mixer_profile": layer,
+            "shared_block_ms_events": shared_ms,
+            "server": server, "decode_profile": decode_profile,
+            "decode_launches_flash": 0, "train_full_depth": train,
+            "ok": True}
+
+
 # each kernel at the shape its path's main run gives it (phase 3 for the
 # distance kernels, phase 4b's build above the fused closure's cap for
 # the tiled min-plus kernel, phase 7's prefill for flash attention, one
@@ -4171,7 +4493,8 @@ KERNEL_EXTRAS = ("dense_bytes_ms", "dense_ms", "mapped_ms", "occupancy_kept",
 KERNEL_PATHS = {"flash_attention": {
     "lm_qwen3_4b": "flash_attention",
     "lm_olmoe_1b_7b": "flash_attention_olmoe",
-    "lm_frontends_internvl2": "flash_attention_internvl2"}}
+    "lm_frontends_internvl2": "flash_attention_internvl2",
+    "lm_zamba2_1_2b": "flash_attention_zamba2"}}
 
 
 def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
@@ -4289,6 +4612,8 @@ def main() -> int:
     emit(phase_lm_olmoe(torch, dev, launches))
     emit(phase_lm_deepseek(torch, dev))
     emit(phase_lm_frontends(torch, dev, launches))
+    emit(phase_lm_mamba2(torch, dev))
+    emit(phase_lm_zamba2(torch, dev, launches))
     emit(finish_ingest_check(ingest_pending))
     emit(kernels_line(times["rows"] + sharded_times["rows"]
                       + builder_times["rows"] + flash_times["rows"]

@@ -7,8 +7,8 @@ SSM / hybrid / VLM / audio). Exact published configs live in the sibling
 the CPU tests (same code path, tiny dims).
 
 The port runs the serving and training paths (``models/lm.py``:
-``forward``, ``loss_fn`` and ``decode_step``) of the dense, moe, vlm and
-audio families, GQA or MLA (ssm and hybrid are not ported yet). They
+``forward``, ``loss_fn`` and ``decode_step``) of every family: dense,
+moe, vlm and audio (GQA or MLA), ssm and hybrid. They
 honour ``remat``, ``remat_group``, ``onehot_embed`` and ``ce_chunk``;
 ``scan_layers``, which steers XLA lowering, is kept so that one config
 means the same in both packages (the port loops over layers in Python).

@@ -21,8 +21,11 @@ NEG_INF = -1e30
 
 
 def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
-             device: torch.device, lead: tuple[int, ...] = ()) -> dict:
-    d = cfg.d_model
+             device: torch.device, lead: tuple[int, ...] = (),
+             d_in: int | None = None, d_out: int | None = None) -> dict:
+    """``d_in`` / ``d_out``: the widths read and written (default
+    ``d_model``; Zamba2's shared block attends at 2 · d_model)."""
+    d = d_in or cfg.d_model
     hd = cfg.resolved_head_dim
 
     def w(a, b):
@@ -31,7 +34,7 @@ def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
     p = {"wq": w(d, cfg.num_heads * hd),
          "wk": w(d, cfg.num_kv_heads * hd),
          "wv": w(d, cfg.num_kv_heads * hd),
-         "wo": w(cfg.num_heads * hd, d)}
+         "wo": w(cfg.num_heads * hd, d_out or cfg.d_model)}
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((*lead, hd), dtype=torch.float32,
                                  device=device)
@@ -102,7 +105,10 @@ def gqa_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 def gqa_init_cache(cfg: ArchConfig, batch: int, max_len: int,
                    dtype: torch.dtype, device: torch.device,
-                   lead: tuple[int, ...] = ()) -> dict:
+                   lead: tuple[int, ...] = (),
+                   d_in: int | None = None) -> dict:
+    """``d_in`` is ignored, as in the reference: the cache holds keys
+    and values by head, whatever width they were projected from."""
     hd = cfg.resolved_head_dim
     shape = (*lead, batch, max_len, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -1,33 +1,41 @@
-"""LM assembly: init / forward / loss / decode for the attention families.
+"""LM assembly: init / forward / loss / decode for every family.
 
-The port of the JAX package's ``models/lm.py`` for the ``dense``,
-``moe``, ``vlm`` and ``audio`` families, with GQA or MLA attention.
-Params are a dict with the JAX package's keys; layer weights are
-stacked along a leading ``L`` axis and layer ``i`` is ``t[i]`` (a view);
-a ``moe`` config with ``first_k_dense`` has a second stack,
-``dense_layers``, that runs first. ``forward`` and ``loss_fn`` also take
-either stack as a list of per-layer dicts (``split_layers``), which is
-how the train step gives autograd one leaf per layer. ``lax.scan`` and
-``fori_loop`` over the layers become Python loops; each layer's weights
-are cast to the compute dtype inside the layer. While autograd records,
-``cfg.remat`` puts each layer under ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint`` per layer; ``remat_group`` its two-level
-form), so a layer's activations and bf16 weights are recomputed in the
-backward; under ``torch.no_grad`` (serving) nothing is checkpointed. The
-GQA attention inside ``forward`` is ``cfg.attention_impl``: ``"flash"``
-runs the flash-attention kernel (``kernels/flash_attention``; it has no
-backward and raises under autograd), ``"dense"`` the materialised
-softmax; MLA always attends densely over its latent, as the reference's
-does. ``decode_step`` always attends densely over its cache, and runs
-MoE layers dropless (capacity factor E), as the JAX package's does.
+The port of the JAX package's ``models/lm.py``: the ``dense``, ``moe``,
+``vlm`` and ``audio`` families (pre-norm attention, GQA or MLA, with an
+MLP or an MoE FFN), ``ssm`` (Mamba2 SSD blocks only) and ``hybrid``
+(Zamba2: a Mamba2 backbone and one *shared* attention + MLP block
+applied after every ``shared_attn_every``-th layer on [hidden ;
+embedded input], 2 · d_model wide). Params are a dict with the JAX
+package's keys; layer weights are stacked along a leading ``L`` axis
+and layer ``i`` is ``t[i]`` (a view); a ``moe`` config with
+``first_k_dense`` has a second stack, ``dense_layers``, that runs first,
+and a ``hybrid`` config has the unstacked ``shared`` block. ``forward``
+and ``loss_fn`` also take either stack as a list of per-layer dicts
+(``split_layers``), which is how the train step gives autograd one leaf
+per layer. ``lax.scan`` and ``fori_loop`` over the layers become Python
+loops; each layer's weights are cast to the compute dtype inside the
+layer (every stacked leaf has ndim >= 2, so the JAX package's
+``cast_params`` casts them all, the stacked 1-D SSM vectors too), the
+shared block once by ``cast_params``' ndim rule (its norms stay
+float32). While autograd records, ``cfg.remat`` puts each layer, with
+the shared application that follows it, under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` per
+layer; ``remat_group`` its two-level form), so a layer's activations
+and bf16 weights are recomputed in the backward; under
+``torch.no_grad`` (serving) nothing is checkpointed. The GQA attention
+inside ``forward`` (the shared block's too, which always attends
+causally) is ``cfg.attention_impl``: ``"flash"`` runs the
+flash-attention kernel (``kernels/flash_attention``; it has no backward
+and raises under autograd), ``"dense"`` the materialised softmax; MLA
+always attends densely over its latent, as the reference's does.
+``decode_step`` always attends densely over its cache, runs MoE layers
+dropless (capacity factor E), as the JAX package's does, and steps each
+Mamba2 layer's state and conv windows in place.
 
 Inputs by frontend: ``"none"`` embeds ``batch["tokens"]``; ``"patch"``
 (vlm) puts ``batch["patches"]`` (B, P, d) before the embedded tokens and
 ``loss_fn`` scores the text positions only; ``"frame"`` (audio) takes
 ``batch["frames"]`` (B, S, d) as the hidden states.
-
-The ``ssm`` and ``hybrid`` families raise ``NotImplementedError``
-(ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -43,20 +51,14 @@ from .attention import (gqa_apply, gqa_decode, gqa_init, gqa_init_cache,
                         mla_apply, mla_decode, mla_init, mla_init_cache)
 from .layers import (chunked_softmax_xent, dense_init, dtype_of, embed_init,
                      mlp_apply, mlp_init, onehot_embed_lookup, rms_norm)
+from .mamba2 import (mamba2_apply, mamba2_decode, mamba2_init,
+                     mamba2_init_cache)
 from .moe import aux_load_balance_loss, moe_apply, moe_init
 
 Params = dict
 MOE_AUX_COEF = 0.01
 # the layer stacks, in the order forward and decode_step run them
 STACKS = ("dense_layers", "layers")
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP queue 1 item 10); the port runs the dense, moe, vlm "
-            "and audio families")
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -68,7 +70,7 @@ def _layer(tree: dict, i: int) -> dict:
 def _depth(stack: dict | list) -> int:
     if isinstance(stack, list):
         return len(stack)
-    return stack["attn_norm"].shape[0]
+    return tree_leaves(stack)[0].shape[0]
 
 
 def split_layers(params: Params) -> Params:
@@ -93,8 +95,12 @@ def _attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
 
 def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
                 device: torch.device, n: int, moe_layer: bool) -> Params:
-    """A stack of ``n`` attention blocks, each with an MoE FFN or an MLP."""
+    """A stack of ``n`` blocks: Mamba2 (``ssm``, ``hybrid``), else
+    attention, each with an MoE FFN or an MLP."""
     ones = torch.ones((n, cfg.d_model), dtype=torch.float32, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        return {"norm": ones,
+                "mixer": mamba2_init(gen, cfg, dtype, device, (n,))}
     p = {"attn_norm": ones, "mlp_norm": ones.clone(),
          "attn": _attn_init(gen, cfg, dtype, device, (n,))}
     if moe_layer:
@@ -110,7 +116,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     """Random params in ``cfg.param_dtype`` (the MoE router in float32)
     on ``device`` (``None``: the card), drawn from ``gen``, which must
     live on that device."""
-    _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     d = cfg.d_model
@@ -131,6 +136,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     else:
         params["layers"] = _layer_init(gen, cfg, dtype, device,
                                        cfg.num_layers, moe)
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        d2 = 2 * d
+        ones = torch.ones((d2,), dtype=torch.float32, device=device)
+        params["shared"] = {
+            "attn_norm": ones,
+            "attn": gqa_init(gen, cfg, dtype, device, d_in=d2, d_out=d2),
+            "mlp_norm": ones.clone(),
+            "mlp": mlp_init(gen, d2, cfg.d_ff, cfg.mlp_type, dtype, device),
+            "out_proj": dense_init(gen, d2, d, dtype, device)}
     return params
 
 
@@ -160,6 +174,30 @@ def _dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return x + mlp_apply(p["mlp"], h, cfg.mlp_type)
 
 
+def _ssm_block(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    return x + mamba2_apply(p["mixer"], cfg,
+                            rms_norm(x, p["norm"], cfg.norm_eps))
+
+
+def _shared_block(ps: dict, cfg: ArchConfig, x: torch.Tensor,
+                  emb0: torch.Tensor, positions: torch.Tensor
+                  ) -> torch.Tensor:
+    """Zamba2's shared attention + MLP block on [x ; emb0] (2 · d wide,
+    always causal), projected back to d and added to x."""
+    h = torch.cat([x, emb0], dim=-1)
+    a = rms_norm(h, ps["attn_norm"], cfg.norm_eps)
+    h = h + gqa_apply(ps["attn"], cfg, a, positions, causal=True)
+    m = rms_norm(h, ps["mlp_norm"], cfg.norm_eps)
+    h = h + mlp_apply(ps["mlp"], m, cfg.mlp_type)
+    return x + h @ ps["out_proj"]
+
+
+def _applies_shared(cfg: ArchConfig, i: int) -> bool:
+    """Whether the shared block follows layer ``i`` (``hybrid``)."""
+    every = cfg.shared_attn_every
+    return cfg.family == "hybrid" and every > 0 and i % every == every - 1
+
+
 def _embed_inputs(params: Params, cfg: ArchConfig,
                   batch: dict) -> torch.Tensor:
     """The hidden states that enter the first layer, in compute dtype:
@@ -184,28 +222,34 @@ def forward(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     ``frame`` frontend; ``batch["patches"]`` before the tokens for
     ``patch``). Returns the final hidden states (B, S', D) in compute
     dtype; S' includes the patches."""
-    _require_ported(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     split = split_layers(params)
-    layers = [p for name in STACKS for p in split.get(name, [])]
+    emb0 = x
+    shared = cast_params(params["shared"], cfg) if "shared" in params \
+        else None
     # every stacked layer leaf has ndim >= 2, so cast_params casts them
     # all; here one layer at a time, inside the checkpointed region
 
-    def layer(x, p):
-        return _dense_block(tree_map(lambda a: a.to(cd), p), cfg, x,
-                            positions)
+    def layer(x, p, i):
+        p = tree_map(lambda a: a.to(cd), p)
+        if "mixer" not in p:
+            return _dense_block(p, cfg, x, positions)
+        x = _ssm_block(p, cfg, x)
+        if _applies_shared(cfg, i):
+            x = _shared_block(shared, cfg, x, emb0, positions)
+        return x
 
     remat = cfg.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
 
-    def run(x, group):
-        for p in group:
-            x = checkpoint(layer, x, p, use_reentrant=False) if remat \
-                else layer(x, p)
+    def run(x, group, start):
+        for i, p in enumerate(group, start):
+            x = checkpoint(layer, x, p, i, use_reentrant=False) if remat \
+                else layer(x, p, i)
         return x
 
     def run_stack(x, stack):
@@ -215,9 +259,10 @@ def forward(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
             # group's layers are recomputed, each checkpointed again,
             # during that group's backward
             for k in range(0, len(stack), g):
-                x = checkpoint(run, x, stack[k:k + g], use_reentrant=False)
+                x = checkpoint(run, x, stack[k:k + g], k,
+                               use_reentrant=False)
             return x
-        return run(x, stack)
+        return run(x, stack, 0)
 
     for name in STACKS:
         if name in split:
@@ -268,10 +313,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     {"k", "v"}, each (L, B, max_len, KV, hd), or with MLA {"latent"
     (L, B, max_len, r), "k_rope" (L, B, max_len, 1, dr)}; a ``moe``
     config with ``first_k_dense`` has ``dense_layers`` beside
-    ``layers``."""
-    _require_ported(cfg)
+    ``layers``. Mamba2 layers (``ssm``, ``hybrid``) hold {"ssm" (L, B,
+    H, P, N) float32, "conv_x" / "conv_b" / "conv_c" (L, B, w-1, ch)};
+    a ``hybrid`` config adds ``shared``, a GQA cache for each of the
+    L // shared_attn_every applications of its shared block."""
     device = resolve_device(device)
     cd = dtype_of(cfg.compute_dtype)
+    if cfg.family in ("ssm", "hybrid"):
+        out = {"layers": mamba2_init_cache(cfg, batch, cd, device,
+                                           lead=(cfg.num_layers,))}
+        napp = sum(_applies_shared(cfg, i) for i in range(cfg.num_layers))
+        if napp:
+            out["shared"] = gqa_init_cache(cfg, batch, max_len, cd, device,
+                                           lead=(napp,),
+                                           d_in=2 * cfg.d_model)
+        return out
     make = mla_init_cache if cfg.use_mla else gqa_init_cache
     dense = cfg.first_k_dense if cfg.family == "moe" else 0
     out = {"layers": make(cfg, batch, max_len, cd, device,
@@ -280,6 +336,39 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         out["dense_layers"] = make(cfg, batch, max_len, cd, device,
                                    lead=(dense,))
     return out
+
+
+def _shared_decode(ps: dict, cfg: ArchConfig, x: torch.Tensor,
+                   emb0: torch.Tensor, cache: dict, pos: int
+                   ) -> torch.Tensor:
+    """The shared block at one position, against its application's GQA
+    cache (written in place)."""
+    h = torch.cat([x, emb0], dim=-1)
+    a = rms_norm(h, ps["attn_norm"], cfg.norm_eps)
+    att, _ = gqa_decode(ps["attn"], cfg, a, cache, pos)
+    h = h + att
+    m = rms_norm(h, ps["mlp_norm"], cfg.norm_eps)
+    h = h + mlp_apply(ps["mlp"], m, cfg.mlp_type)
+    return x + h @ ps["out_proj"]
+
+
+def _layer_decode(pl: dict, cfg: ArchConfig, x: torch.Tensor, cl: dict,
+                  pos: int) -> torch.Tensor:
+    """One layer at one position: a Mamba2 step, or attention then the
+    MoE FFN (dropless: decode batches are tiny) or the MLP."""
+    if "mixer" in pl:
+        y, _ = mamba2_decode(pl["mixer"], cfg,
+                             rms_norm(x, pl["norm"], cfg.norm_eps), cl)
+        return x + y
+    attend = mla_decode if cfg.use_mla else gqa_decode
+    h = rms_norm(x, pl["attn_norm"], cfg.norm_eps)
+    a, _ = attend(pl["attn"], cfg, h, cl, pos)
+    x = x + a
+    h = rms_norm(x, pl["mlp_norm"], cfg.norm_eps)
+    if "moe" in pl:
+        return x + moe_apply(pl["moe"], cfg, h,
+                             capacity_factor=float(cfg.num_experts))
+    return x + mlp_apply(pl["mlp"], h, cfg.mlp_type)
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Any,
@@ -291,28 +380,25 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Any,
     Each layer writes its new cache entries into ``cache`` in place (a
     view of the stacked tensors), so the returned cache is the one
     passed in; it holds the values the JAX package's returned cache
-    holds."""
-    _require_ported(cfg)
+    holds. In a ``hybrid`` config the shared block's ``k``-th
+    application reads and writes ``cache["shared"]`` entry ``k``, on
+    [hidden ; the current token's embedding]."""
     params = cast_params(params, cfg)
     pos = int(pos)
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
-    attend = mla_decode if cfg.use_mla else gqa_decode
+    emb0 = x
     for name in STACKS:
         if name not in params:
             continue
         layers, caches = params[name], cache[name]
         for i in range(_depth(layers)):
-            pl = _layer(layers, i)
-            h = rms_norm(x, pl["attn_norm"], cfg.norm_eps)
-            a, _ = attend(pl["attn"], cfg, h, _layer(caches, i), pos)
-            x = x + a
-            h = rms_norm(x, pl["mlp_norm"], cfg.norm_eps)
-            if "moe" in pl:
-                # decode batches are tiny: dropless capacity
-                x = x + moe_apply(pl["moe"], cfg, h,
-                                  capacity_factor=float(cfg.num_experts))
-            else:
-                x = x + mlp_apply(pl["mlp"], h, cfg.mlp_type)
+            x = _layer_decode(_layer(layers, i), cfg, x, _layer(caches, i),
+                              pos)
+            if _applies_shared(cfg, i):
+                x = _shared_decode(
+                    params["shared"], cfg, x, emb0,
+                    _layer(cache["shared"], i // cfg.shared_attn_every),
+                    pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ lm_head_weight(params, cfg)).float()
     return logits, cache

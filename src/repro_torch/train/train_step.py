@@ -17,8 +17,8 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ArchConfig
-from ..models.lm import (STACKS, _layer, cast_params, decode_step, forward,
-                         lm_head_weight, loss_fn)
+from ..models.lm import (STACKS, _depth, _layer, cast_params, decode_step,
+                         forward, lm_head_weight, loss_fn)
 from ..tree import tree_leaves, tree_map
 from .optimizer import OptimizerConfig, adamw_update
 
@@ -30,7 +30,9 @@ def _grad_leaves(params: dict, grads: dict) -> dict:
     tree (``layers``, and ``dense_layers`` where the config has one)
     becomes one leaf per layer (a list, as ``forward`` takes it): a
     backward through slices of one stacked leaf would allocate a
-    full-size gradient for every layer."""
+    full-size gradient for every layer. Other trees (a ``hybrid``
+    config's ``shared`` block) stay one leaf a tensor: autograd sums
+    their gradients over every use."""
     def leaf(p, g):
         t = p.detach().requires_grad_()
         t.grad = g
@@ -44,7 +46,7 @@ def _grad_leaves(params: dict, grads: dict) -> dict:
     for k, p in params.items():
         if k in STACKS:
             out[k] = [tree(_layer(p, i), _layer(grads[k], i))
-                      for i in range(p["attn_norm"].shape[0])]
+                      for i in range(_depth(p))]
         else:
             out[k] = tree(p, grads[k]) if isinstance(p, dict) \
                 else leaf(p, grads[k])

@@ -1116,3 +1116,92 @@ def test_family_prefill_and_decode_on_card(cuda, arch):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert launched == (0 if cfg.use_mla else cfg.num_layers)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 matmuls in float32 (not TF32) while the test runs."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("t,chunk", [(256, 64), (200, 64)])
+def test_ssd_chunked_on_card_equals_the_cpu(cuda, no_tf32, t, chunk):
+    """Four chunks of 64, and 200 tokens (one chunk of 200): float32 on
+    both sides, only the order of sums differs (relative 1e-5)."""
+    from repro_torch.models.mamba2 import ssd_chunked
+    rng = np.random.default_rng(t)
+    b, h, p, n = 2, 8, 16, 32
+    host = [torch.from_numpy(a) for a in (
+        rng.normal(size=(b, t, h, p)).astype(np.float32),
+        rng.uniform(0.01, 0.2, size=(b, t, h)).astype(np.float32),
+        -rng.uniform(0.5, 2.0, size=(h,)).astype(np.float32),
+        rng.normal(size=(b, t, h, n)).astype(np.float32),
+        rng.normal(size=(b, t, h, n)).astype(np.float32))]
+    y, s = ssd_chunked(*(a.to(cuda) for a in host), chunk)
+    y_want, s_want = ssd_chunked(*host, chunk)
+    for got, want in ((y, y_want), (s, s_want)):
+        assert got.is_cuda
+        assert float((got.cpu() - want).abs().max()
+                     / want.abs().max()) <= 1e-5
+
+
+def test_mamba2_forward_and_decode_on_card_equal_the_cpu(cuda, no_tf32):
+    """A 2-layer Mamba2 smoke model in float32: the forward on the card
+    against the host (two SSD chunks), and decode_step on the card
+    against its forward at every position."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config("mamba2_1_3b").reduced(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    host = lm.init_params(cfg, gen, "cpu")
+    params = tree_map(lambda t: t.to(cuda), host)
+    tok = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    got = lm.forward(params, cfg, {"tokens": tok.to(cuda)})
+    want = lm.forward(host, cfg, {"tokens": tok})
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-4
+    full = got @ lm.lm_head_weight(params, cfg)
+    cache = lm.init_cache(cfg, 2, 32, cuda)
+    for i in range(32):
+        logits, cache = lm.decode_step(params, cfg, cache,
+                                       tok[:, i:i + 1].to(cuda), i)
+        assert float((logits[:, 0] - full[:, i]).abs().max()
+                     / full[:, i].abs().max()) <= 1e-4
+
+
+def test_zamba2_flash_prefill_on_card_matches_dense(cuda, no_tf32):
+    """Zamba2's smoke config at 4 layers in float32: the flash prefill
+    launches the kernel once per shared application (2) and agrees
+    with the dense prefill; decode launches it never and agrees with
+    the forward pass."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import make_prefill_step
+    cfg = get_smoke_config("zamba2_1_2b").reduced(num_layers=4,
+                                                  compute_dtype="float32")
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = lm.init_params(cfg, gen, cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                        device=cuda)
+    before = fa.LAUNCHES["flash_attention"]
+    got = make_prefill_step(flash)(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 2
+    want = make_prefill_step(cfg)(params, {"tokens": tok})
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    full = lm.forward(params, cfg, {"tokens": tok}) \
+        @ lm.lm_head_weight(params, cfg)
+    cache = lm.init_cache(cfg, 2, 32, cuda)
+    before = fa.LAUNCHES["flash_attention"]
+    for i in range(32):
+        logits, cache = lm.decode_step(params, cfg, cache, tok[:, i:i + 1],
+                                       i)
+        assert float((logits[:, 0] - full[:, i]).abs().max()
+                     / full[:, i].abs().max()) <= 1e-4
+    assert fa.LAUNCHES["flash_attention"] == before

@@ -282,17 +282,21 @@ def test_batched_decoder_matches_jax():
     assert all(len(got[rid]) == budget for rid, _, budget in reqs)
 
 
-# -- the other attention families: moe, MLA, vlm, audio ----------------------
+# -- the other families: moe, MLA, vlm, audio, ssm, hybrid ------------------
 
 # (name, arch, overrides): the smoke configs, OLMoE also at its published
-# capacity factor (the smoke reduction is dropless), and a dense config
-# with MLA attention
+# capacity factor (the smoke reduction is dropless), a dense config with
+# MLA attention, Mamba2 (ssm) and Zamba2 (hybrid: the smoke config's
+# shared_attn_every 2, one shared application in 2 layers)
 FAMILIES = [("olmoe", "olmoe_1b_7b", {}),
             ("olmoe_cf125", "olmoe_1b_7b", {"moe_capacity_factor": 1.25}),
             ("deepseek", "deepseek_v2_236b", {}),
             ("internvl2", "internvl2_26b", {}),
             ("hubert", "hubert_xlarge", {}),
-            ("dense_mla", "deepseek_v2_236b", {"family": "dense"})]
+            ("dense_mla", "deepseek_v2_236b", {"family": "dense"}),
+            ("mamba2", "mamba2_1_3b", {}),
+            ("zamba2", "zamba2_1_2b", {})]
+SSM_FAMILIES = [f for f in FAMILIES if f[0] in ("mamba2", "zamba2")]
 
 
 def _family_cfgs(arch, overrides, **kw):
@@ -322,6 +326,7 @@ def test_family_init_params_and_cache_have_the_jax_trees(name, arch,
     ours = lm.init_params(cfg_t, torch.Generator().manual_seed(0), "cpu")
     theirs = rlm.init_params(cfg_j, jax.random.PRNGKey(0))
     assert ("dense_layers" in ours) == (name == "deepseek")
+    assert ("shared" in ours) == (name == "zamba2")
     cache = lm.init_cache(cfg_t, 2, 6, "cpu")
     if name == "dense_mla":
         # the reference gives a dense MLA config a GQA cache, which its
@@ -392,12 +397,14 @@ def test_family_decode_step_matches_jax(name, arch, overrides):
 
 @pytest.mark.parametrize("name,arch,overrides",
                          [f for f in FAMILIES
-                          if f[0] in ("olmoe", "deepseek", "dense_mla")])
+                          if f[0] in ("olmoe", "deepseek", "dense_mla",
+                                      "mamba2", "zamba2")])
 def test_family_decode_matches_forward_logits(name, arch, overrides):
     """Teacher-forced decode reproduces the forward pass's logits at
-    every position (dropless MoE on both paths). For the dense MLA
-    config this is the check of decode: the reference's own decode of
-    it raises (see the tree test above)."""
+    every position (dropless MoE on both paths; the SSM state and conv
+    windows against the chunked SSD). For the dense MLA config this is
+    the check of decode: the reference's own decode of it raises (see
+    the tree test above)."""
     cfg_j, cfg_t = _family_cfgs(arch, overrides)
     _, ours = _params(cfg_j, seed=4)
     b, s = 2, 10
@@ -412,10 +419,13 @@ def test_family_decode_matches_forward_logits(name, arch, overrides):
 
 
 @pytest.mark.parametrize("name,arch,overrides",
-                         [f for f in FAMILIES if f[0] in ("internvl2",
-                                                         "dense_mla")])
+                         [f for f in FAMILIES if f[0] in (
+                             "internvl2", "dense_mla", "mamba2", "zamba2")])
 def test_family_forward_bf16_matches_jax(name, arch, overrides):
-    """The patch frontend and MLA in bf16, within TOL_BF16. The MoE
+    """The patch frontend, MLA and the SSM families in bf16, within
+    TOL_BF16 (the stacked 1-D SSM vectors, ``a_log`` among them, are
+    cast to bf16 as the reference's ``cast_params`` casts them; the
+    hybrid's unstacked shared norms stay float32). The MoE
     families are held in bf16 layer by layer (``tests/test_torch_moe.py``:
     the same inputs route bit for bit, outputs within one bf16 ulp):
     through a whole model the two packages' bf16 roundings differ in the
@@ -430,17 +440,47 @@ def test_family_forward_bf16_matches_jax(name, arch, overrides):
            TOL_BF16)
 
 
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+@pytest.mark.parametrize("name,arch,overrides", SSM_FAMILIES)
+def test_family_make_prefill_step_matches_jax(name, arch, overrides, impl):
+    """32 tokens: two SSD chunks of 16 (the forward tests' 24 tokens
+    take the one-chunk fallback); the hybrid's shared block through
+    ``impl``."""
+    cfg_j, cfg_t = _family_cfgs(arch, overrides, attention_impl=impl)
+    params, ours = _params(cfg_j, seed=2)
+    assert 32 % cfg_t.ssm_chunk == 0 and 32 > cfg_t.ssm_chunk
+    tok = _tokens(cfg_j, 3, 32, seed=5)
+    before = dict(fa_kernel.LAUNCHES)
+    got = make_prefill_step(cfg_t)(ours, {"tokens": torch.from_numpy(tok)})
+    assert fa_kernel.LAUNCHES == before          # the CPU runs no kernel
+    want = r_make_prefill_step(cfg_j)(params, {"tokens": jnp.asarray(tok)})
+    assert got.shape == (3, 1, cfg_t.vocab_size)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("name,arch,overrides", SSM_FAMILIES)
+def test_family_batched_decoder_matches_jax(name, arch, overrides):
+    """Five requests at batch 3 (two groups, each from a fresh cache):
+    every step's logits within TOL, so the greedy tokens agree."""
+    cfg_j, cfg_t = _family_cfgs(arch, overrides)
+    params, ours = _params(cfg_j, seed=5)
+    rng = np.random.default_rng(9)
+    reqs = [(rid, rng.integers(1, cfg_j.vocab_size, 2 + rid).tolist(),
+             3 + rid % 3) for rid in range(5)]
+    ref_dec = RBatchedDecoder(cfg_j, params, batch_size=3, max_len=16)
+    dec = BatchedDecoder(cfg_t, ours, batch_size=3, max_len=16,
+                         device="cpu")
+    for rid, prompt, budget in reqs:
+        ref_dec.submit(RRequest(rid=rid, prompt=prompt,
+                                max_new_tokens=budget))
+        dec.submit(Request(rid=rid, prompt=prompt, max_new_tokens=budget))
+    want = {r.rid: r.tokens for r in ref_dec.run()}
+    got = {r.rid: r.tokens for r in dec.run()}
+    assert got == want
+    assert all(len(got[rid]) == budget for rid, _, budget in reqs)
+
+
 # -- what is not ported raises --------------------------------------------------
-
-@pytest.mark.parametrize("arch", ["mamba2_1_3b", "zamba2_1_2b"])
-def test_unported_families_raise(arch):
-    cfg = get_smoke_config(arch)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        lm.init_params(cfg, gen, "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        lm.init_cache(cfg, 1, 4, "cpu")
-
 
 def test_stub_attention_raises():
     cfg_j, cfg_t = _cfgs(attention_impl="stub")
@@ -451,7 +491,8 @@ def test_stub_attention_raises():
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "olmoe_1b_7b",
-                                  "deepseek_v2_236b"])
+                                  "deepseek_v2_236b", "mamba2_1_3b",
+                                  "zamba2_1_2b"])
 def test_serve_cli_runs_on_the_cpu(capsys, arch):
     from repro_torch.launch import serve
     serve.main(["--arch", arch, "--smoke", "--device", "cpu",

@@ -257,23 +257,19 @@ def test_flash_attention_under_autograd_raises_in_both_packages():
         assert bool(torch.isfinite(tlm.loss_fn(pt, ct, bt)))
 
 
-def test_other_families_raise_naming_item_10():
-    for arch in ("mamba2_1_3b", "zamba2_1_2b"):
-        ct = get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tlm.loss_fn({}, ct, {})
-    assert tlm.MOE_AUX_COEF == rlm.MOE_AUX_COEF
-
-
-# -- the other attention families: moe, MLA, vlm, audio ----------------------
+# -- the other families: moe, MLA, vlm, audio, ssm, hybrid ------------------
 
 # the smoke configs (OLMoE at its published capacity factor 1.25, so
-# that training runs the capacity path) and a dense config with MLA
+# that training runs the capacity path), a dense config with MLA, Mamba2
+# and Zamba2 (its shared block applied once in 2 layers: one set of
+# leaves whose gradient autograd sums over its uses)
 FAMILIES = [("olmoe_cf125", "olmoe_1b_7b", {"moe_capacity_factor": 1.25}),
             ("deepseek", "deepseek_v2_236b", {}),
             ("internvl2", "internvl2_26b", {}),
             ("hubert", "hubert_xlarge", {}),
-            ("dense_mla", "deepseek_v2_236b", {"family": "dense"})]
+            ("dense_mla", "deepseek_v2_236b", {"family": "dense"}),
+            ("mamba2", "mamba2_1_3b", {}),
+            ("zamba2", "zamba2_1_2b", {})]
 
 
 def _family(arch, overrides, **kw):
@@ -290,8 +286,9 @@ def test_family_loss_and_every_gradient_match_the_reference(name, arch,
                                                             overrides):
     """``loss_fn`` (the patch positions sliced off, the MoE auxiliary
     term on the uncast router) within 1e-5 and every gradient leaf,
-    ``dense_layers`` included, within 1e-4, through stacked leaves and
-    through the train step's per-layer leaves."""
+    ``dense_layers`` and the hybrid's ``shared`` included, within 1e-4,
+    through stacked leaves and through the train step's per-layer
+    leaves."""
     cj, ct, pj, pt, bj, bt = _family(arch, overrides)
     want, wgrads = jax.value_and_grad(lambda p: rlm.loss_fn(p, cj, bj))(pj)
     leaves = tree_map(lambda a: a.clone().requires_grad_(), pt)
@@ -307,6 +304,7 @@ def test_family_loss_and_every_gradient_match_the_reference(name, arch,
     assert float(loss) == float(got.detach())
     _assert_trees_close(grads, wgrads, 1e-4)
     assert ("dense_layers" in grads) == (name == "deepseek")
+    assert ("shared" in grads) == (name == "zamba2")
 
 
 @pytest.mark.parametrize("name,arch,overrides", FAMILIES)
@@ -330,6 +328,7 @@ def test_moe_aux_term_is_the_reference_router_loss():
     router it reads is the float32 one, uncast, in bf16 compute too."""
     cj, ct, pj, pt, bj, bt = _family("olmoe_1b_7b", {},
                                      compute_dtype="bfloat16")
+    assert tlm.MOE_AUX_COEF == rlm.MOE_AUX_COEF
     assert pt["layers"]["moe"]["router"].dtype == torch.float32
     x = tlm.forward(pt, ct, bt)
     first = tlm._first_moe_params(pt)
@@ -384,6 +383,37 @@ def test_both_layer_stacks_checkpoint_and_alias_their_gradients(
     _, wgrads = jax.value_and_grad(lambda p: rlm.loss_fn(p, cj, bj))(pj)
     _assert_trees_close(grads, wgrads, 1e-4)
     assert bool(grads["dense_layers"]["mlp"]["wi"].abs().sum() > 0)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_hybrid_checkpoint_holds_each_shared_application(monkeypatch,
+                                                          remat):
+    """Zamba2 at 4 layers (shared after layers 1 and 3): with ``remat``
+    one checkpoint a layer, and each layer's checkpoint holds the shared
+    application after it, so the backward runs the shared block again
+    (once more per application); the gradients of the shared leaves are
+    summed over both applications, as the reference's."""
+    cj, ct, pj, pt, bj, bt = _family("zamba2_1_2b", {}, num_layers=4,
+                                     remat=remat)
+    assert ct.shared_attn_every == 2
+    calls, shared = [], []
+    real_ckpt, real_shared = tlm.checkpoint, tlm._shared_block
+
+    def counted(fn, *args, **kw):
+        calls.append(fn)
+        return real_ckpt(fn, *args, **kw)
+
+    def counted_shared(*args):
+        shared.append(torch.is_grad_enabled())
+        return real_shared(*args)
+
+    monkeypatch.setattr(tlm, "checkpoint", counted)
+    monkeypatch.setattr(tlm, "_shared_block", counted_shared)
+    _, grads = tts.value_and_grad(pt, ct, bt)
+    assert len(calls) == (4 if remat else 0)
+    assert len(shared) == (4 if remat else 2)
+    _, wgrads = jax.value_and_grad(lambda p: rlm.loss_fn(p, cj, bj))(pj)
+    _assert_trees_close(grads, wgrads, 1e-4)
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
@@ -797,7 +827,8 @@ def test_loop_with_fault_and_resume_matches_the_reference(tmp_path):
         np.testing.assert_array_equal(got, want, err_msg=path)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_4b", "olmoe_1b_7b"])
+@pytest.mark.parametrize("arch", ["qwen3_4b", "olmoe_1b_7b", "mamba2_1_3b",
+                                  "zamba2_1_2b"])
 def test_launcher_runs_on_the_cpu(tmp_path, capsys, arch):
     tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
                   "--steps", "3", "--seq", "16", "--batch", "2",
