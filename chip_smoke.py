@@ -10,7 +10,7 @@ rate beside the issue ceiling its instructions allow (phase
 bounds), holds each kernel against its plain PyTorch version on the
 card (``relax`` with and without its occupancy map; the fused closure
 on each side of its cap; the k-major product; the join at every vector
-width), and drives the port's seventeen paths:
+width), and drives the port's eighteen paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -109,7 +109,15 @@ width), and drives the port's seventeen paths:
   shared-block application) against the dense prefill,
   ``BatchedDecoder`` at batch 4 and a decode profile; a float32 check
   at 6 layers (one shared application) on the card against the host,
-  and 3 train steps at full depth.
+  and 3 train steps at full depth;
+* the launch and sharding tooling — the roofline (``launch/roofline.py``:
+  fake-tensor probes, H100 constants) of each LM path timed above,
+  beside its measured seconds and MFU; a 2-layer Qwen3-4B flash prefill
+  on the card under ``FlopCounterMode`` equal to the fake-tensor
+  probe's count; the dry run's argument bytes equal to the serving
+  params held on the card; ``moe_apply``'s expert-parallel path on
+  OLMoE's full-width layer (data 1 x model 4) against the host; and
+  ``python -m repro_torch.launch.dryrun`` for one cell in a subprocess.
 
 It checks answers against the scalar loop, the plain versions, the host
 builders and Dijkstra, the dense attention path, and times every
@@ -124,7 +132,9 @@ of JAX.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -135,12 +145,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 rate and
-# float32 rate outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-# bf16 dense tensor-core peak: the bound of attention's products
-PEAK_BF16_TENSOR_FLOPS_PER_S = 989e12
+# H100 SXM published peaks (NVIDIA data sheet, 700 W), set by main()
+# from the port's launch/mesh.py, so the kernel table's bounds and the
+# roofline read one source: the HBM3 rate, the float32 rate outside the
+# tensor cores, and the bf16 dense tensor-core peak (the bound of
+# attention's products)
+PEAK_BYTES_PER_S: float
+PEAK_F32_OPS_PER_S: float
+PEAK_BF16_TENSOR_FLOPS_PER_S: float
 # the min-plus operations bound is the issue ceiling of the term form
 # with the fewest instructions a term (from its SASS; phase minplus_peak)
 # on 128 lanes per SM at the max SM clock; beside it, the figure of
@@ -2842,6 +2854,7 @@ def phase_lm(torch, dev, launches: dict) -> dict:
     init_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     w_gb = weight_gb(params)
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     b, s = LM_PREFILL
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                      generator=gen, device=dev)}
@@ -2888,7 +2901,7 @@ def phase_lm(torch, dev, launches: dict) -> dict:
             "heads": [cfg.num_heads, cfg.num_kv_heads],
             "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
             "vocab": cfg.vocab_size, "weights_gb_bf16": w_gb,
-            "init_s": init_s, "tight_f32": tight,
+            "weights_bytes": w_bytes, "init_s": init_s, "tight_f32": tight,
             "prefill": {"batch": b, "tokens": b * s,
                         "flash_first_s": first[0], "flash_s": flash_s,
                         "flash_tokens_per_s": b * s / min(flash_s),
@@ -4452,6 +4465,267 @@ def phase_lm_zamba2(torch, dev, launches: dict) -> dict:
 # district of n = 102 400 for Floyd–Warshall), and the TPU kernel it
 # replaces (the tiled, fused-closure and k-major kernels all replace
 # minplus_pallas)
+# -- phase 12: the launch and sharding tooling (slice 13) ---------------------
+
+# the measured paths run on one card: the roofline's mesh and chip count
+ONE_CARD = ((1, 1), ("data", "model"))
+FLOP_CHECK_LAYERS = 2
+EP_CHECK = dict(mesh=((1, 4), ("data", "model")), batch=2, tokens=512,
+                cf=1.25, step=0.1)
+# float32, TF32 off: the card's and the host's matmuls differ only in the
+# order of their sums (d = 2048, f = 1024 terms), ≈ 1e-6 on outputs of
+# order 1
+EP_TOL = 1e-5
+DRYRUN_CELL = ("qwen3_4b", "decode_32k")
+# the dry-run CLI as `python -m`, in a process where `import jax` fails
+DRYRUN_NO_JAX = ("import runpy, sys; sys.modules['jax'] = None; "
+                 "runpy.run_module('repro_torch.launch.dryrun', "
+                 "run_name='__main__')")
+LAUNCH_WALL_LIMIT_S = 30.0
+
+
+def roofline_rows(measured: list) -> list:
+    """For each measured path, the roofline of the work it does, from
+    the port's probe on fake tensors at that path's shape on one card,
+    with the path's gather embedding: stub attention plus flash's
+    analytic add-back where the model attends (the reference's
+    optimized probe), the bound, and mfu = model_flops / (measured_s ·
+    bf16 peak). memory_s counts the eager program's traffic, every aten
+    op's inputs and outputs: what the port's unfused steps move."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import AbstractMesh
+    one = AbstractMesh(*ONE_CARD)
+    rows = []
+    for path, arch, (kind, b, s), secs in measured:
+        shape = ShapeSpec(f"{kind}_{b}x{s}", s, b, kind)
+        cfg = get_config(arch)
+        flash = bool(cfg.num_heads) and not cfg.use_mla
+        over = {"onehot_embed": False, **(
+            {"attention_impl": "stub"} if flash else {})}
+        probe = roofline.probe_shape(arch, shape, over, one)
+        add = roofline.flash_attention_cost(arch, shape, chips=1) \
+            if flash else (0.0, 0.0)
+        probe["hlo_flops"] += add[0]
+        probe["hlo_bytes"] += add[1]
+        t = roofline.roofline_terms(probe, chips=1)
+        rows.append({
+            "path": path, "arch": arch, "shape": shape.name,
+            "hlo_flops": t["hlo_flops"], "hlo_bytes": t["hlo_bytes"],
+            "flash_flops_added": add[0], "flash_bytes_added": add[1],
+            "compute_s": t["compute_s"], "memory_s": t["memory_s"],
+            "dominant": t["dominant"], "bound_s": t["step_time_bound_s"],
+            "model_flops": t["model_flops"], "measured_s": secs,
+            "mfu": t["model_flops"] / (secs * PEAK_BF16_TENSOR_FLOPS_PER_S),
+            "bound_share": t["step_time_bound_s"] / secs})
+    return rows
+
+
+def roofline_flop_check(torch, dev) -> dict:
+    """Qwen3-4B at full width, 2 layers, a bf16 flash prefill of
+    LM_PREFILL on the card under FlopCounterMode (the flash kernel, a
+    ctypes call, counts nothing), in the configuration of the probe's
+    first depth with the gather embedding: with flash_attention_cost
+    added back, it must equal the fake-tensor probe's stub count plus
+    the same add-back, as integers."""
+    from dataclasses import replace
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.lm import cast_params, init_params
+    from repro_torch.train.train_step import make_prefill_step
+    b, s = LM_PREFILL
+    shape = ShapeSpec("prefill_flop_check", s, b, "prefill")
+    base = get_config(LM_ARCH)
+    over = roofline._probe_cfg_overrides(base, shape, FLOP_CHECK_LAYERS)
+    stub_cfg = dryrun.cell_config(base, shape, attention_impl="stub",
+                                  onehot_embed=False, **over)
+    flash_cfg = replace(stub_cfg, attention_impl="flash")
+    stub = dryrun.lower(stub_cfg, shape, AbstractMesh(*ONE_CARD))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = cast_params(init_params(flash_cfg, gen, dev), flash_cfg)
+    tok = torch.randint(0, base.vocab_size, (b, s), generator=gen,
+                        device=dev, dtype=torch.int32)
+    before = fa.LAUNCHES["flash_attention"]
+    with FlopCounterMode(display=False) as fc:
+        logits = make_prefill_step(flash_cfg)(params, {"tokens": tok,
+                                                       "labels": tok})
+    sync(torch, dev)
+    launched = fa.LAUNCHES["flash_attention"] - before
+    check(launched == FLOP_CHECK_LAYERS,
+          f"flop check: {launched} flash launches")
+    check(bool(torch.isfinite(logits).all()), "flop check logits")
+    add = roofline.flash_attention_cost(flash_cfg, shape, chips=1)[0]
+    card = int(fc.get_total_flops()) + int(add)
+    fake = int(stub["flops_total"]) + int(add)
+    check(card == fake, f"card flops {card} != fake-tensor probe {fake}")
+    del params, logits
+    return {"layers": FLOP_CHECK_LAYERS, "batch": b, "tokens": s,
+            "card_flops_plus_flash": card, "stub_flops_plus_flash": fake,
+            "flash_flops_added": int(add), "flash_launches": launched,
+            "equal": card == fake}
+
+
+def argument_bytes_check(torch, lm: dict) -> dict:
+    """The dry run's exact argument bytes on a one-device mesh: its
+    params role must be the serving params phase lm_qwen3_4b held on the
+    card; and the dry run of the full model allocates no device memory
+    (its tensors are fake)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    b, s = LM_PREFILL
+    shape = ShapeSpec("prefill_2x4096", s, b, "prefill")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = dryrun.lower(dryrun.cell_config(get_config(LM_ARCH), shape),
+                       shape, AbstractMesh(*ONE_CARD))
+    grew = torch.cuda.max_memory_allocated() - held
+    check(grew == 0, f"the dry run allocated {grew} B on the card")
+    params = round(res["argument_mb_by_role"]["params"] * 1e6)
+    check(params == lm["weights_bytes"],
+          f"dry-run params {params} B != {lm['weights_bytes']} B on the card")
+    return {"argument_mb_per_dev": res["argument_mb_per_dev"],
+            "argument_mb_by_role": res["argument_mb_by_role"],
+            "params_bytes": params, "card_params_bytes": lm["weights_bytes"],
+            "equal": True, "device_bytes_allocated": grew}
+
+
+def ep_check(torch, dev) -> dict:
+    """OLMoE-1B-7B's MoE layer at full width in float32, moe_apply's
+    expert-parallel path (data 1 x model 4: 16 experts a shard) on the
+    card and on the host: every shard's routing plan equal as integers,
+    drops included (expert 0 overflows), outputs within EP_TOL."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.act_sharding import (ActivationSharding,
+                                                      activation_sharding)
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import moe
+    cfg = replace(get_config(OLMOE_ARCH), compute_dtype="float32")
+    e, b, s = cfg.num_experts, EP_CHECK["batch"], EP_CHECK["tokens"]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    pc = moe.moe_init(gen, cfg, torch.float32, dev)
+    # an orthonormal router and tokens that give each expert one of e
+    # levels EP_CHECK["step"] apart (a random order a token, expert 0
+    # above all): the top-k's gaps are far above the devices' float32
+    # differences, so routing must agree, and expert 0 overflows
+    q = torch.linalg.qr(torch.randn((cfg.d_model, e), generator=gen,
+                                    device=dev)).Q.contiguous()
+    levels = torch.argsort(torch.rand((b * s, e), generator=gen,
+                                      device=dev), dim=1).float()
+    levels[:, 0] = e
+    pc["router"] = q
+    xc = (EP_CHECK["step"] * levels @ q.T).reshape(b, s, cfg.d_model)
+    ph = {k: v.cpu() for k, v in pc.items()}
+    xh = xc.cpu()
+    top = torch.topk(xh.reshape(b * s, -1) @ ph["router"],
+                     cfg.experts_per_token + 1, dim=-1).values
+    gap = float((top[:, -2] - top[:, -1]).min())
+    check(gap > 1e-3, f"EP: top-k gap {gap}")
+    ctx = ActivationSharding(AbstractMesh(*EP_CHECK["mesh"]), "data")
+    plans = []
+    real = moe.dispatch_plan
+
+    def recorded(ids, e, cap):
+        out = real(ids, e, cap)
+        plans.append((e, cap, [ids, *out]))
+        return out
+
+    moe.dispatch_plan = recorded
+    try:
+        with activation_sharding(ctx):
+            got = moe.moe_apply(pc, cfg, xc, EP_CHECK["cf"])
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            want = moe.moe_apply(ph, cfg, xh, EP_CHECK["cf"])
+            host_s = time.perf_counter() - t0
+    finally:
+        moe.dispatch_plan = real
+    shards = EP_CHECK["mesh"][0][1]
+    check(len(plans) == 2 * shards, f"EP: {len(plans)} dispatches")
+    dropped = []
+    for (e, cap, a), (e_h, cap_h, w) in zip(plans[:shards], plans[shards:]):
+        check((e, cap) == (e_h, cap_h), "EP: experts or capacity differ")
+        for u, v in zip(a, w):
+            check(torch.equal(u.cpu(), v), "EP: routing differs from host")
+        ids, order, keep, _ = w
+        local = ((ids >= 0) & (ids < e)).reshape(-1)[order]
+        dropped.append(int((local & ~keep).sum()))
+    err = float((got.cpu() - want).abs().max())
+    check(err <= EP_TOL, f"EP card vs host {err} > {EP_TOL}")
+    check(sum(dropped) > 0, "EP: no assignment was dropped")
+    return {"arch": OLMOE_ARCH, "mesh": EP_CHECK["mesh"],
+            "experts_a_shard": cfg.num_experts // shards,
+            "tokens": EP_CHECK["batch"] * EP_CHECK["tokens"],
+            "capacity": plans[0][1], "dropped_by_shard": dropped,
+            "min_topk_gap": gap,
+            "routing_equal": True, "max_abs_err": err, "tolerance": EP_TOL,
+            "host_s": host_s}
+
+
+def phase_launch_roofline(torch, dev, smi: str, lm: dict,
+                          measured: list) -> dict:
+    """The launch and sharding tooling on the card's machine: the
+    roofline of each path the LM phases timed (their seconds, no new
+    timing runs), the FLOP counter against what the card runs, the dry
+    run's argument bytes against the card's, the expert-parallel MoE
+    path card vs host, and the dry-run CLI in a subprocess (this
+    machine has no JAX)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_json = ROOT / "build" / "chip_smoke" / "dryrun.json"
+    out_json.parent.mkdir(parents=True, exist_ok=True)
+    arch, shape = DRYRUN_CELL
+    cli = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_NO_JAX, "--arch", arch, "--shape",
+         shape, "--mesh", "pod", "--out", str(out_json), "--force"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    parts = {}
+    try:
+        for name, fn in (("roofline", lambda: roofline_rows(measured)),
+                         ("flop_check", lambda: roofline_flop_check(torch,
+                                                                    dev)),
+                         ("argument_bytes", lambda: argument_bytes_check(
+                             torch, lm)),
+                         ("ep", lambda: ep_check(torch, dev))):
+            t1 = time.perf_counter()
+            parts[name] = fn()
+            parts[name + "_s"] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _, cli_err = cli.communicate(timeout=120)
+        parts["dryrun_cli_wait_s"] = time.perf_counter() - t1
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    check(cli.returncode == 0, f"dryrun CLI exited {cli.returncode}: "
+          f"{cli_err[-2000:]}")
+    cell = json.loads(out_json.read_text())[f"{arch}|{shape}|sp"]
+    check("error" not in cell, f"dryrun CLI cell: {cell}")
+    wall = time.perf_counter() - t0
+    return {"phase": "launch_roofline", "nvidia_smi": smi,
+            "peak_flops_bf16": PEAK_BF16_TENSOR_FLOPS_PER_S,
+            "hbm_bytes_per_s": PEAK_BYTES_PER_S, **parts,
+            "dryrun_cli": {"cell": cell, "returncode": cli.returncode,
+                           "jax_blocked": True,
+                           "jax_installed_here":
+                           importlib.util.find_spec("jax") is not None},
+            "wall_s": wall, "wall_limit_s": LAUNCH_WALL_LIMIT_S,
+            "within_wall_limit": wall < LAUNCH_WALL_LIMIT_S, "ok": True}
+
+
 KERNELS = {
     "label_join": ("engine_f32", "label_join/csrc/label_join.cu",
                    "src/repro/kernels/label_join/kernel.py:63"),
@@ -4528,6 +4802,10 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S, PEAK_BF16_TENSOR_FLOPS_PER_S
+    from repro_torch.launch import mesh as hw
+    PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S, PEAK_BF16_TENSOR_FLOPS_PER_S = (
+        hw.HBM_BW, hw.PEAK_FLOPS_F32, hw.PEAK_FLOPS_BF16)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
@@ -4602,18 +4880,35 @@ def main() -> int:
     emit(ingest)
     torch.cuda.empty_cache()
     emit(phase_flash_kernels(torch, dev, errs))
-    emit(phase_lm(torch, dev, launches))
+    lm = phase_lm(torch, dev, launches)
+    emit(lm)
     torch.cuda.empty_cache()
     flash_times = phase_flash_times(torch, dev, logs)
     emit(flash_times)
     torch.cuda.empty_cache()
-    emit(phase_lm_train(torch, dev))
+    lm_train = phase_lm_train(torch, dev)
+    emit(lm_train)
     torch.cuda.empty_cache()
-    emit(phase_lm_olmoe(torch, dev, launches))
+    olmoe = phase_lm_olmoe(torch, dev, launches)
+    emit(olmoe)
     emit(phase_lm_deepseek(torch, dev))
     emit(phase_lm_frontends(torch, dev, launches))
-    emit(phase_lm_mamba2(torch, dev))
-    emit(phase_lm_zamba2(torch, dev, launches))
+    mamba = phase_lm_mamba2(torch, dev)
+    emit(mamba)
+    zamba = phase_lm_zamba2(torch, dev, launches)
+    emit(zamba)
+    emit(phase_launch_roofline(torch, dev, smi, lm, [
+        ("lm_qwen3_4b prefill", LM_ARCH, ("prefill", *LM_PREFILL),
+         min(lm["prefill"]["flash_s"])),
+        ("lm_train_qwen3_4b step", LM_ARCH,
+         ("train", LM_TRAIN["batch"], LM_TRAIN["tokens"]),
+         lm_train["ms_per_step"] / 1e3),
+        ("lm_olmoe_1b_7b prefill", OLMOE_ARCH, ("prefill", *OLMOE_PREFILL),
+         min(olmoe["prefill"]["flash_s"])),
+        ("lm_mamba2_1_3b prefill", MAMBA_ARCH, ("prefill", *SSM_PREFILL),
+         min(mamba["prefill"]["s"])),
+        ("lm_zamba2_1_2b prefill", ZAMBA_ARCH, ("prefill", *SSM_PREFILL),
+         min(zamba["prefill"]["flash_s"]))]))
     emit(finish_ingest_check(ingest_pending))
     emit(kernels_line(times["rows"] + sharded_times["rows"]
                       + builder_times["rows"] + flash_times["rows"]

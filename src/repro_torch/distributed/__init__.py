@@ -1,4 +1,6 @@
-"""Training state across failures and the wire: checkpoints in the JAX
-package's on-disk format and error-feedback int8 gradient compression.
-The reference's mesh sharding (``sharding``, ``act_sharding``) has no
-counterpart in the port yet (ROADMAP queue 1 item 10)."""
+"""Training state across failures and the wire, and the mesh layouts:
+checkpoints in the JAX package's on-disk format, error-feedback int8
+gradient compression, the FSDP × TP × EP × SP sharding rules as
+``PartitionSpec`` trees and DTensor placements (``sharding``), and the
+activation-sharding context that steers ``models/moe.py``'s
+expert-parallel path (``act_sharding``)."""

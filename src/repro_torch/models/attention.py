@@ -3,10 +3,11 @@ full-sequence apply (prefill) and decode apply (one new token against a
 fixed-size cache written at ``pos``).
 
 The port of the JAX package's ``models/attention.py``. Caches are dicts
-of tensors. Differences, all deliberate: no tensor-parallel pins (the
-identity outside a mesh); ``gqa_decode`` and ``mla_decode`` write the
-new token's entries into the cache in place; the ``"stub"`` roofline
-probe raises ``NotImplementedError`` (ROADMAP queue 1 item 10).
+of tensors. ``attention_impl="stub"`` is the roofline probe's byte model
+of the fused kernel (``launch/roofline.py``). Differences, all
+deliberate: no tensor-parallel pins (the identity outside a mesh);
+``gqa_decode`` and ``mla_decode`` write the new token's entries into
+the cache in place.
 """
 from __future__ import annotations
 
@@ -95,9 +96,12 @@ def gqa_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
         mask = causal_mask(s, s, device=x.device) if causal else None
         out = _sdpa(q, k, v, mask)
     elif cfg.attention_impl == "stub":
-        raise NotImplementedError(
-            "attention_impl='stub' is the JAX package's roofline probe; "
-            "not ported (ROADMAP queue 1 item 10)")
+        # roofline probe: QKVO traffic only — the HBM byte model of the
+        # fused flash kernel (scores stay on chip); its flops are added
+        # back analytically by launch/roofline.py
+        g = cfg.num_heads // cfg.num_kv_heads
+        out = torch.repeat_interleave(v[:, :s] if v.shape[1] >= s else v,
+                                      g, dim=2) + 0.0 * q
     else:
         raise ValueError(cfg.attention_impl)
     return out.reshape(x.shape[0], s, -1) @ p["wo"]

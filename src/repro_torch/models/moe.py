@@ -17,12 +17,16 @@ Differences, both deliberate:
   scatter-add meets them), with k gathers and adds instead of a
   scatter-add, so it gives the same bits on every run and device (a
   CUDA ``index_add_`` adds in whatever order its atomics land);
-* ``_moe_apply_shardmap``, the reference's expert-parallel path under a
-  JAX device mesh (``shard_map`` plus a ``psum`` over the model axis),
-  is not ported: the port has no activation-sharding context, so
-  ``moe_apply`` always runs the global dispatch (``_moe_apply_global``).
-  ``_dispatch_ffn`` keeps the local-expert form that path calls (ids
-  outside [0, e) are dropped).
+* ``_moe_apply_shardmap``, the expert-parallel (EP) path that
+  ``moe_apply`` takes under an activation-sharding context
+  (``distributed/act_sharding.py``), runs the mesh's shards as logical
+  shards in one process, as ``EdgeMesh`` does for the edge axis: each
+  data shard's tokens go through each model shard's ``_dispatch_ffn``
+  (its e / m experts; capacity from the data shard's token count), and
+  the model shards' float32 partials are summed in ascending shard
+  order — the reference's ``psum``. Across processes, one model shard a
+  rank, that sum is ``all_reduce(SUM)``; no multi-process path exists
+  yet.
 
 Each stage runs under a ``torch.profiler.record_function`` range
 (``moe/router``, ``moe/dispatch``, ``moe/experts``, ``moe/combine``,
@@ -137,8 +141,55 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
               capacity_factor: float | None = None) -> torch.Tensor:
     """Dispatch + expert FFN + combine over x (B, S, d); the result in
     x's dtype. ``capacity_factor`` defaults to the config's (decode
-    passes ``float(num_experts)``: dropless)."""
+    passes ``float(num_experts)``: dropless). With an activation-sharding
+    context installed this runs the EP path (each model shard
+    dispatches the data shard's tokens to ITS experts and the partial
+    outputs sum over the model axis); without one, the global dispatch
+    below."""
+    from ..distributed.act_sharding import current
+    ctx = current()
+    if (ctx is not None and ctx.batch_axes is not None
+            and ctx.model_axis is not None
+            and cfg.num_experts % ctx.mesh.shape[ctx.model_axis] == 0):
+        return _moe_apply_shardmap(p, cfg, x, capacity_factor, ctx)
     return _moe_apply_global(p, cfg, x, capacity_factor)
+
+
+def _moe_apply_shardmap(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                        capacity_factor: float | None, ctx) -> torch.Tensor:
+    """The reference's ``shard_map`` EP path over ``ctx.mesh``'s logical
+    shards: tokens split over the data axes in contiguous blocks (P(dp,
+    None)), experts over the model axis (P(model, None, None))."""
+    from ..distributed.sharding import axis_size
+    if capacity_factor is None:
+        capacity_factor = cfg.moe_capacity_factor
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    m_size = ctx.mesh.shape[ctx.model_axis]
+    e_loc = e // m_size
+    n_data = axis_size(ctx.mesh, ctx.batch_axes)
+    if (b * s) % n_data:
+        raise ValueError(f"{b * s} tokens do not split over {n_data} data "
+                         "shards")
+    outs = []
+    for tokens in x.reshape(b * s, d).chunk(n_data):
+        tl = tokens.shape[0]
+        with record_function("moe/router"):
+            gates, ids = route(p["router"], tokens, k)
+        cap = capacity(capacity_factor, tl, k, e)
+        total = None
+        for j in range(m_size):
+            sl = slice(j * e_loc, (j + 1) * e_loc)
+            part = _dispatch_ffn(tokens, p["wi"][sl], p["wg"][sl],
+                                 p["wo"][sl], ids - j * e_loc, gates,
+                                 e_loc, k, cap, tokens.dtype)
+            total = part if total is None else total + part
+        outs.append(total.to(x.dtype))
+    out = torch.cat(outs).reshape(b, s, d)
+    if "shared" in p:
+        with record_function("moe/shared"):
+            out = out + mlp_apply(p["shared"], x, "swiglu")
+    return out
 
 
 def _moe_apply_global(p: dict, cfg: ArchConfig, x: torch.Tensor,

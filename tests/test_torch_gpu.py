@@ -1041,6 +1041,51 @@ def test_moe_apply_twice_on_card_gives_the_same_bits(cuda):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("skew", [0.0, 4.0])
+def test_moe_ep_path_on_card_equals_the_cpu(cuda, monkeypatch, skew):
+    """``moe_apply``'s expert-parallel path on a (2, 4) mesh of logical
+    shards (16 experts, 4 a model shard, capacity from a data shard's
+    tokens), float32, TF32 off: every shard's routing plan (ids, sort,
+    kept slots; drops under the skew) equal as integers to the CPU's,
+    the output within 1e-5."""
+    from repro_torch.distributed.act_sharding import (ActivationSharding,
+                                                      activation_sharding)
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import moe
+    cfg, pc, xc = _moe_case(cuda, 1.25, skew)
+    ph = {k: v.cpu() for k, v in pc.items()}
+    xh = xc.cpu()
+    assert _topk_gap(cfg, ph, xh) > 1e-5
+    plans = []
+    real = moe.dispatch_plan
+
+    def recorded(ids, e, cap):
+        out = real(ids, e, cap)
+        plans.append((e, cap, [ids, *out]))
+        return out
+
+    monkeypatch.setattr(moe, "dispatch_plan", recorded)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    ctx = ActivationSharding(AbstractMesh((2, 4), ("data", "model")), "data")
+    with activation_sharding(ctx):
+        got = moe.moe_apply(pc, cfg, xc)
+        torch.cuda.synchronize()
+        want = moe.moe_apply(ph, cfg, xh)
+    assert len(plans) == 16
+    dropped = 0
+    for (e, cap, a), (e_h, cap_h, b) in zip(plans[:8], plans[8:]):
+        assert (e, cap) == (e_h, cap_h)
+        for u, v in zip(a, b):
+            assert torch.equal(u.cpu(), v)
+        ids, order, keep, _ = b
+        flat = ids.reshape(-1)
+        local = ((flat >= 0) & (flat < e))[order]
+        dropped += int((local & ~keep).sum())
+    if skew:
+        assert dropped > 0
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
 def test_mla_decode_on_card_equals_the_cpu(cuda):
     """DeepSeek-V2's smoke widths, float32, six decode steps from a cache
     of random values: each output and the written slots within 1e-4 of

@@ -68,8 +68,10 @@ def test_port_imports_without_jax_or_the_jax_package():
     # the scatter-gather plane, faults, simulator and load harness, the
     # DIMACS ingest (ingest/dimacs, ingest/datasets) and the training
     # path (train/optimizer, train/data, train/loop, distributed,
-    # launch/train, tree) and the MoE layer (models/moe)
-    assert int(out.stdout.split("IMPORTED")[1]) >= 91
+    # launch/train, tree), the MoE layer (models/moe) and the launch and
+    # sharding tooling (launch/mesh, specs, dryrun, roofline,
+    # distributed/sharding, act_sharding)
+    assert int(out.stdout.split("IMPORTED")[1]) >= 97
 
 
 _IMPORT_NEW = r"""
@@ -88,8 +90,8 @@ print("OK")
 # (one process for the lot) those of the oracle API and the sharded
 # layouts, (one more) those of the scatter-gather read path, the
 # faults, the simulator and the load harness, (two more) those of the
-# DIMACS ingest and of the training path, and (one more) the MoE and
-# MLA modules
+# DIMACS ingest and of the training path, (one more) the MoE and MLA
+# modules, and (one more) the launch and sharding tooling
 UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.update.incremental", "repro_torch.update",
                   "repro_torch.topo.structural", "repro_torch.topo",
@@ -114,7 +116,11 @@ UPDATE_MODULES = ["repro_torch.update.delta", "repro_torch.update.scenarios",
                   "repro_torch.distributed.compression "
                   "repro_torch.launch.train repro_torch.tree",
                   "repro_torch.models.moe repro_torch.models.attention "
-                  "repro_torch.models.lm"]
+                  "repro_torch.models.lm",
+                  "repro_torch.launch.mesh repro_torch.launch.specs "
+                  "repro_torch.launch.dryrun repro_torch.launch.roofline "
+                  "repro_torch.distributed.sharding "
+                  "repro_torch.distributed.act_sharding"]
 
 
 @pytest.mark.parametrize("module", UPDATE_MODULES)

@@ -480,14 +480,19 @@ def test_family_batched_decoder_matches_jax(name, arch, overrides):
     assert all(len(got[rid]) == budget for rid, _, budget in reqs)
 
 
-# -- what is not ported raises --------------------------------------------------
+# -- the roofline probe's stub attention -----------------------------------------
 
 def test_stub_attention_raises():
+    """The ``"stub"`` probe (the fused kernel's byte model, used by
+    ``launch/roofline.py``) no longer raises: the forward through it
+    matches the JAX package's and launches no kernel."""
     cfg_j, cfg_t = _cfgs(attention_impl="stub")
-    _, ours = _params(cfg_j)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        lm.forward(ours, cfg_t, {"tokens": torch.zeros((1, 4),
-                                                       dtype=torch.int32)})
+    params, ours = _params(cfg_j)
+    tok = _tokens(cfg_j, 2, 16)
+    before = dict(fa_kernel.LAUNCHES)
+    got = lm.forward(ours, cfg_t, {"tokens": torch.from_numpy(tok)})
+    assert fa_kernel.LAUNCHES == before
+    _close(got, rlm.forward(params, cfg_j, {"tokens": jnp.asarray(tok)}))
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "olmoe_1b_7b",
