@@ -1,6 +1,6 @@
 // GQA flash attention (online softmax, causal and key-padding masks) in
-// float32 on the CUDA cores, for Hopper (sm_90a). bfloat16 inputs go to
-// the tensor-core kernel of flash_attention_bf16.cu instead.
+// float32 on the CUDA cores, for Hopper (sm_90a). bfloat16 and float16
+// inputs go to the tensor-core kernel of flash_attention_bf16.cu instead.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 //   src/repro/kernels/flash_attention/kernel.py:28 _flash_kernel
@@ -27,9 +27,12 @@
 // Design (simple and right, kept for float32): a block of 256 threads owns
 // 64 query rows; K/V tiles of 32 rows are staged in shared memory (Q
 // transposed, K transposed, V as is, each padded against bank conflicts;
-// 75 KB at hd = 128). Thread (tx, ty) of the 16 x 16 block owns query rows
-// ty + 16 i (i < 4): the scores of keys tx + 16 j (j < 2) and output
-// columns tx + 16 c (c < hd/16), with m, l and acc in registers. Row max
+// 75 KB at hd = 128, 108 KB at hd = 192). Thread (tx, ty) of the 16 x 16
+// block owns query rows ty + 16 i (i < 4): the scores of keys tx + 16 j
+// (j < 2) and output columns tx + 16 c (c < HD/16), with m, l and acc in
+// registers. An instance of width HD (16, 32, 64, 80, 128 or 192) serves
+// every hd up to it: columns past hd load as 0 (they add nothing to a
+// score) and are not stored. Row max
 // and row sum are reduced over the 16 threads of a row with xor shuffles
 // (every lane ends with the same bits). P goes through shared memory to the
 // PV product. Both products run on the float32 CUDA cores, with explicit
@@ -67,7 +70,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int64_t s_len,
-          int64_t t_len, int heads, int group, int64_t qsb, int64_t qss,
+          int64_t t_len, int heads, int group, int hd, int64_t qsb, int64_t qss,
           int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb,
           int64_t vss, int64_t vsh, float scale, int causal) {
   constexpr int kCols = HD / kSide;      // output columns per thread
@@ -89,7 +92,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = threadIdx.x; idx < kBQ * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int64_t gr = q0 + r;
-    qt[d * (kBQ + 1) + r] = gr < s_len ? qb[gr * qss + d] : 0.f;
+    qt[d * (kBQ + 1) + r] = gr < s_len && d < hd ? qb[gr * qss + d] : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kCols];
@@ -108,7 +111,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = threadIdx.x; idx < kBK * HD; idx += kThreads) {
       const int c = idx / HD, d = idx % HD;
       const int64_t gk = k0 + c;
-      const bool in = gk < t_len;
+      const bool in = gk < t_len && d < hd;
       kt[d * (kBK + 1) + c] = in ? kb[gk * kss + d] : 0.f;
       vs[c * HD + d] = in ? vb[gk * vss + d] : 0.f;
     }
@@ -184,9 +187,10 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t gr = q0 + ty + i * kSide;
     if (gr >= s_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = out + ((b * s_len + gr) * heads + h) * HD;
+    float* orow = out + ((b * s_len + gr) * heads + h) * hd;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) orow[tx + c * kSide] = acc[i][c] / denom;
+    for (int c = 0; c < kCols; ++c)
+      if (tx + c * kSide < hd) orow[tx + c * kSide] = acc[i][c] / denom;
   }
 }
 
@@ -196,8 +200,8 @@ static_assert(kSide == 16, "row reductions shuffle within a half-warp");
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int64_t batch, int64_t s_len, int64_t t_len, int heads,
-                   int group, const int64_t* st, float scale, int causal,
-                   cudaStream_t stream) {
+                   int group, int hd, const int64_t* st, float scale,
+                   int causal, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -207,23 +211,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_fwd<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), s_len, t_len,
-      heads, group, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      heads, group, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], scale, causal);
   return cudaGetLastError();
 }
 
+// the instance of the smallest width at or above hd
 cudaError_t dispatch_hd(int64_t hd, const void* q, const void* k,
                         const void* v, void* out, int64_t batch,
                         int64_t s_len, int64_t t_len, int heads, int group,
                         const int64_t* st, float scale, int causal,
                         cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<16>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
-    case 32: return launch<32>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
-    case 64: return launch<64>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
-    case 128: return launch<128>(q, k, v, out, batch, s_len, t_len, heads, group, st, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  auto* fn = hd <= 16 ? launch<16>
+             : hd <= 32 ? launch<32>
+             : hd <= 64 ? launch<64>
+             : hd <= 80 ? launch<80>
+             : hd <= 128 ? launch<128>
+                         : launch<192>;
+  if (hd <= 0 || hd > 192) return cudaErrorInvalidValue;
+  return fn(q, k, v, out, batch, s_len, t_len, heads, group,
+            static_cast<int>(hd), st, scale, causal, stream);
 }
 
 }  // namespace
@@ -231,7 +238,7 @@ cudaError_t dispatch_hd(int64_t hd, const void* q, const void* k,
 // Plain C entry point, loaded with ctypes. q (B,S,H,hd), k and v (B,T,KV,hd)
 // float32 on the device with a contiguous last dim and the given element
 // strides (strides[0..2] = q's b, s, h; [3..5] = k's b, t, kv; [6..8] =
-// v's); out (B,S,H,hd) contiguous float32. hd in {16, 32, 64, 128};
+// v's); out (B,S,H,hd) contiguous float32. 1 <= hd <= 192;
 // H % KV == 0; S >= 1, T >= 1. Returns the cudaError_t of the launch
 // (0 = launched).
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,

@@ -1,6 +1,6 @@
 // GQA flash attention (online softmax, causal and key-padding masks) in
-// bfloat16 on Hopper's tensor cores (sm_90a: TMA, mbarrier, wgmma, warp
-// specialisation).
+// bfloat16 or float16 on Hopper's tensor cores (sm_90a: TMA, mbarrier,
+// wgmma, warp specialisation).
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 //   src/repro/kernels/flash_attention/kernel.py:28 _flash_kernel
@@ -13,11 +13,12 @@
 // What it computes is the TPU kernel's: per (batch*head, query tile) it
 // streams K/V tiles and keeps the running max m, the denominator l and the
 // accumulator acc in float32; masked scores are -1e30 (not -inf); the
-// output is acc / max(l, 1e-30) rounded once to bf16. One rounding more
-// than the TPU kernel: the probabilities p enter the P.V product as bf16,
-// as in every tensor-core flash kernel (l sums the unrounded p). Key tiles
-// wholly above the causal diagonal are skipped: in the TPU kernel such a
-// tile adds exactly nothing, because key 0 is never masked.
+// output is acc / max(l, 1e-30) rounded once to the input type. One
+// rounding more than the TPU kernel: the probabilities p enter the P.V
+// product in the input type, as in every tensor-core flash kernel (l sums
+// the unrounded p). Key tiles wholly above the causal diagonal are
+// skipped: in the TPU kernel such a tile adds exactly nothing, because key
+// 0 is never masked.
 //
 // Bound at the main path's shape, Qwen3-4B prefill (B, S, H, KV, hd) =
 // (2, 4096, 32, 8, 128), causal: 2*B*H*S*T*hd = 275 GFLOP, 0.278 ms at the
@@ -32,16 +33,23 @@
 // * TMA: q (B,S,H,hd) and k, v (B,T,KV,hd) are described in place as 4-D
 //   tensor maps with their real strides (16-byte aligned, checked by the
 //   wrapper); a tile lands in shared memory with the 128-byte swizzle, one
-//   box per 64 columns of the head dim. Rows past S or T, and columns past
-//   hd (hd = 16, 32 run as 64), arrive as zeros. Q is loaded once; K and V
-//   go through a ring of two stages, each with its own full barrier (TMA
-//   bytes) and empty barrier (one arrival per consumer warp).
+//   box per 64 columns of the layout width HDL (64, 128 or 192, the
+//   multiple of 64 at or above hd). The map's inner extent is the real hd,
+//   so columns past hd arrive as zeros: any hd that is a multiple of 8
+//   (TMA's 16-byte stride rule) runs, in the instance of its layout width.
+// * The compute width HDC is the head dim the products cover: HDL, except
+//   at hd 72 and 80 (HuBERT-XLarge), whose instance keeps the 128 layout
+//   and covers 80 columns: S = Q.K^T in 5 k16 steps (the fifth from box
+//   1), O += P.V as one wgmma m64n80k16 a step (its MN-major descriptor
+//   reads columns 64..79 from box 1, a leading offset away), O 40 floats
+//   a thread, 80 columns stored.
 // * S = Q.K^T is wgmma m64n{BK}k16 with both operands in shared memory
 //   (K-major descriptors, 128-byte swizzle). The f32 accumulator of S,
-//   after the softmax, is converted to bf16 pairs in place: that is
+//   after the softmax, is converted to 16-bit pairs in place: that is
 //   exactly the register layout of wgmma's A operand, so O += P.V is
-//   wgmma m64n{hd}k16 with P in registers and V from shared memory through
-//   an MN-major descriptor (V is keys x hd, hd contiguous; transpose bit).
+//   wgmma m64n{HDC}k16 with P in registers and V from shared memory
+//   through an MN-major descriptor (V is keys x hd, hd contiguous;
+//   transpose bit).
 // * Within a warpgroup, S of tile j and P.V of tile j-1 are issued
 //   together, and the softmax of tile j runs while P.V is in flight; O is
 //   rescaled by tile j's alpha once P.V is in.
@@ -53,19 +61,24 @@
 //   Only the diagonal tile and the last, ragged key tile are masked.
 // * Query tiles are launched last-first, so the long causal rows start
 //   early.
+// * bfloat16 and float16 share the kernel: the type picks the wgmma's
+//   input type, the conversion of P and of the output, and the TMA type.
 //
 // Key tile BK, by registers: ptxas allocates every thread of the block
 // within the launch budget (65536 / 384 -> 168 registers; setmaxnreg
 // moves registers at run time but does not raise that allocation), and a
-// consumer thread holds O (hd/2 floats), S (BK/2) and P (BK/4 pairs) at
-// once while P.V overlaps the softmax. BK = 128 at hd <= 64, 96 at
-// hd = 128 (128 spills and serialises the wgmmas), 64 at hd = 192.
-// Shared memory at hd = 128: Q 32 KB + 2 x (K 24 KB + V 24 KB).
+// consumer thread holds O (HDC/2 floats), S (BK/2) and P (BK/4 pairs) at
+// once while P.V overlaps the softmax. BK = 128 at HDC <= 80 (136 of
+// those registers at 80), 96 at HDC = 128 (128 spills and serialises the
+// wgmmas), 64 at HDC = 192. Shared memory at HDL = 128: Q 32 KB + 2 x (K
+// + V), 24 KB each at BK = 96, 32 KB at BK = 128.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>  // CUtensorMap and its enums (no -lcuda: see encode_tiled)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -75,14 +88,22 @@ constexpr int kStages = 2;               // K/V ring depth
 constexpr int kThreads = 3 * 128;        // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxHeadDim = 192;
 
-template <int HD, int BK>
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
+// the shared-memory tiles of layout width HDL (64-column boxes of 2-byte
+// values) for key tiles of BK rows; the products cover HDC columns
+template <int HDL, int HDC, int BK>
 struct Tile {
-  static constexpr int kBlocks = HD / 64;          // 64-column boxes
-  static constexpr int kQBytes = kBQ * HD * 2;
-  static constexpr int kKVBytes = BK * HD * 2;
+  static constexpr int kBlocks = HDL / 64;         // 64-column boxes
+  static constexpr int kQBytes = kBQ * HDL * 2;
+  static constexpr int kKVBytes = BK * HDL * 2;
   static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;
-  static_assert(HD % 64 == 0 && BK % 16 == 0, "whole boxes and k16 steps");
+  static_assert(HDL % 64 == 0 && HDC % 16 == 0 && HDC <= HDL &&
+                    HDC > HDL - 64 && BK % 16 == 0,
+                "whole boxes, k16 steps, and every box computed on");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -174,215 +195,117 @@ __device__ __forceinline__ float exp2_sfu(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two floats as one pair of T, rounded to nearest even, in a register
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// m64nNk16 bf16 -> f32. The accumulator fragment: thread t of the
-// warpgroup (warp w = t / 32, lane l) holds d[4j + 2i + c] at row
+// m64nNk16 with 16-bit inputs -> f32. The accumulator fragment: thread t of
+// the warpgroup (warp w = t / 32, lane l) holds d[4j + 2i + c] at row
 // 16w + l/4 + 8i, column 8j + 2(l%4) + c.
-template <int N>
+template <typename T, int N>
 struct Wgmma;
 
-template <>
-struct Wgmma<64> {
-  // D (64 x 64, f32) = (scale_d ? D : 0) + A (64 x 16) * B (16 x 64);
-  // A and B from shared memory, both K-major
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // D += A (64 x 16, bf16 pairs in registers) * B (16 x 64); B MN-major
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
+// the accumulators as asm operands: the register list D of N/2 floats and
+// the matching output constraints OUT, 8 at a time
+#define L0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define L1 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define L2 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define L3 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define L4 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define L5 "%40, %41, %42, %43, %44, %45, %46, %47"
+#define L6 "%48, %49, %50, %51, %52, %53, %54, %55"
+#define L7 "%56, %57, %58, %59, %60, %61, %62, %63"
+#define L8 "%64, %65, %66, %67, %68, %69, %70, %71"
+#define L9 "%72, %73, %74, %75, %76, %77, %78, %79"
+#define L10 "%80, %81, %82, %83, %84, %85, %86, %87"
+#define L11 "%88, %89, %90, %91, %92, %93, %94, %95"
+#define D32 "{" L0 ", " L1 ", " L2 ", " L3 "}"
+#define D40 "{" L0 ", " L1 ", " L2 ", " L3 ", " L4 "}"
+#define D48 "{" L0 ", " L1 ", " L2 ", " L3 ", " L4 ", " L5 "}"
+#define D64 "{" L0 ", " L1 ", " L2 ", " L3 ", " L4 ", " L5 ", " L6 ", " L7 "}"
+#define D96                                                               \
+  "{" L0 ", " L1 ", " L2 ", " L3 ", " L4 ", " L5 ", " L6 ", " L7 ", " L8 \
+  ", " L9 ", " L10 ", " L11 "}"
+#define F8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define F32(i) F8(i), F8(i + 8), F8(i + 16), F8(i + 24)
+#define OUT32 F32(0)
+#define OUT40 F32(0), F8(32)
+#define OUT48 F32(0), F8(32), F8(40)
+#define OUT64 F32(0), F32(32)
+#define OUT96 F32(0), F32(32), F32(64)
 
-template <>
-struct Wgmma<96> {
-  // D (64 x 96, f32) = (scale_d ? D : 0) + A (64 x 16) * B (16 x 96);
-  // A and B from shared memory, both K-major
-  static __device__ __forceinline__ void ss(float (&d)[48], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-        "%48, %49, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
+// D (64 x N, f32) = (P ? D : 0) + A (64 x 16) * B (16 x N); A and B from
+// shared memory, both K-major; TY is the inputs' type, bf16 or f16
+#define WGMMA_SS(N, TY, D, A, B, P)                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                     \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " " D \
+  ", " A ", " B ", p, 1, 1, 0, 0;\n}\n"
+// D += A (64 x 16, 16-bit pairs in registers) * B (16 x N); B MN-major
+#define WGMMA_RS(N, TY, D, A, B, P)                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                     \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " " D \
+  ", " A ", " B ", p, 1, 1, 1;\n}\n"
 
-template <>
-struct Wgmma<128> {
-  // D (64 x 128, f32) = (scale_d ? D : 0) + A (64 x 16) * B (16 x 128);
-  // A and B from shared memory, both K-major
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // D += A (64 x 16, bf16 pairs in registers) * B (16 x 128); B MN-major
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
+// Wgmma<T, N>::ss and ::rs. After the R = N/2 accumulators come ss's A,
+// B and scale_d (operands R, R+1, R+2) and rs's four A registers, B and
+// scale_d (R..R+3, R+4, R+5).
+#define DEFINE_WGMMA(N, R, SA, SB, SP, RA, RB, RP)                          \
+  template <typename T>                                                     \
+  struct Wgmma<T, N> {                                                      \
+    static __device__ __forceinline__ void ss(float (&d)[R], uint64_t a,    \
+                                              uint64_t b, int scale_d) {    \
+      if constexpr (kIsHalf<T>)                                             \
+        asm volatile(WGMMA_SS(N, "f16", D##R, SA, SB, SP)                   \
+                     : OUT##R : "l"(a), "l"(b), "r"(scale_d));              \
+      else                                                                  \
+        asm volatile(WGMMA_SS(N, "bf16", D##R, SA, SB, SP)                  \
+                     : OUT##R : "l"(a), "l"(b), "r"(scale_d));              \
+    }                                                                       \
+    static __device__ __forceinline__ void rs(float (&d)[R],                \
+                                              const uint32_t (&a)[4],       \
+                                              uint64_t b) {                 \
+      if constexpr (kIsHalf<T>)                                             \
+        asm volatile(WGMMA_RS(N, "f16", D##R, RA, RB, RP)                   \
+                     : OUT##R                                               \
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),  \
+                       "r"(1));                                             \
+      else                                                                  \
+        asm volatile(WGMMA_RS(N, "bf16", D##R, RA, RB, RP)                  \
+                     : OUT##R                                               \
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),  \
+                       "r"(1));                                             \
+    }                                                                       \
+  };
 
-template <>
-struct Wgmma<192> {
-  // D += A (64 x 16, bf16 pairs in registers) * B (16 x 192); B MN-major
-  static __device__ __forceinline__ void rs(float (&d)[96],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
+DEFINE_WGMMA(64, 32, "%32", "%33", "%34", "{%32, %33, %34, %35}", "%36",
+             "%37")
+DEFINE_WGMMA(80, 40, "%40", "%41", "%42", "{%40, %41, %42, %43}", "%44",
+             "%45")
+DEFINE_WGMMA(96, 48, "%48", "%49", "%50", "{%48, %49, %50, %51}", "%52",
+             "%53")
+DEFINE_WGMMA(128, 64, "%64", "%65", "%66", "{%64, %65, %66, %67}", "%68",
+             "%69")
+DEFINE_WGMMA(192, 96, "%96", "%97", "%98", "{%96, %97, %98, %99}", "%100",
+             "%101")
 
 // S = Q K^T for one key tile: 16 columns of the head dim per step, 4 steps
-// per 64-column box; both operands K-major
-template <int HD, int BK>
+// per 64-column box, HDC / 16 in all; both operands K-major
+template <typename T, int HDC, int BK>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_addr,
                                          uint32_t k_addr) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    Wgmma<BK>::ss(
+  for (int kk = 0; kk < HDC / 16; ++kk)
+    Wgmma<T, BK>::ss(
         s,
         smem_desc(q_addr + (kk / 4) * (kBQ * 128) + (kk % 4) * 32, 16, 1024),
         smem_desc(k_addr + (kk / 4) * (BK * 128) + (kk % 4) * 32, 16, 1024),
@@ -390,14 +313,16 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_addr,
 }
 
 // O += P V for one key tile: 16 keys per step; V MN-major, its 64-column
-// boxes BK*128 bytes apart (leading offset), 8-key groups 1024 bytes apart
-template <int HD, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+// boxes BK*128 bytes apart (leading offset), 8-key groups 1024 bytes apart.
+// At HDC = 80 one n80 wgmma reads columns 64..79 from the second box.
+template <typename T, int HDC, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[HDC / 2],
                                          uint32_t (&p)[BK / 16][4],
                                          uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    Wgmma<HD>::rs(o, p[kk], smem_desc(v_addr + kk * 16 * 128, BK * 128, 1024));
+    Wgmma<T, HDC>::rs(o, p[kk],
+                      smem_desc(v_addr + kk * 16 * 128, BK * 128, 1024));
 }
 
 // Fold one tile of raw scores into the running max m and sum l of the two
@@ -449,15 +374,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
   }
 }
 
-// P as bf16 pairs: the S fragment of 16 keys is wgmma's A fragment
-template <int BK>
-__device__ __forceinline__ void to_bf16(const float (&s)[BK / 2],
-                                        uint32_t (&p)[BK / 16][4]) {
+// P as pairs of T: the S fragment of 16 keys is wgmma's A fragment
+template <typename T, int BK>
+__device__ __forceinline__ void to_pairs(const float (&s)[BK / 2],
+                                         uint32_t (&p)[BK / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      p[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
@@ -465,14 +390,14 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
-template <int HD, int BK>
+template <typename T, int HDL, int HDC, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
-               const __grid_constant__ CUtensorMap tm_k,
-               const __grid_constant__ CUtensorMap tm_v,
-               __nv_bfloat16* __restrict__ out, int s_len, int t_len,
-               int heads, int group, int hd, float scale_log2, int causal) {
-  using Tl = Tile<HD, BK>;
+flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
+             int s_len, int t_len, int heads, int group, int hd,
+             float scale_log2, int causal) {
+  using Tl = Tile<HDL, HDC, BK>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[1 + 4 * kStages];
   uint64_t* q_full = bars;
@@ -542,9 +467,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t k_addr = smem_u32(sk);
     const uint32_t v_addr = smem_u32(sv);
 
-    float o[HD / 2];
+    float o[HDC / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < HDC / 2; ++i) o[i] = 0.f;
     float m_run[2] = {kNegInf, kNegInf};
     float l_run[2] = {0.f, 0.f};
     float alpha[2];
@@ -555,14 +480,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(q_full, 0);
     mbar_wait(k_full, 0);
     wgmma_fence();
-    issue_qk<HD, BK>(s, q_addr, k_addr);
+    issue_qk<T, HDC, BK>(s, q_addr, k_addr);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     release(k_empty, lane);
     softmax_tile<BK>(s, m_run, l_run, alpha, 0, row0, col0, t_len, causal,
                      q_first, scale_log2);
-    to_bf16<BK>(s, p);
+    to_pairs<T, BK>(s, p);
 
     // tile it: S of tile it and O += P V of tile it - 1 in flight together;
     // the softmax of tile it runs while P V still does
@@ -571,10 +496,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       const int pst = (it - 1) % kStages;
       mbar_wait(k_full + st, (it / kStages) & 1);
       wgmma_fence();
-      issue_qk<HD, BK>(s, q_addr, k_addr + st * Tl::kKVBytes);
+      issue_qk<T, HDC, BK>(s, q_addr, k_addr + st * Tl::kKVBytes);
       wgmma_commit();
       mbar_wait(v_full + pst, ((it - 1) / kStages) & 1);
-      issue_pv<HD, BK>(o, p, v_addr + pst * Tl::kKVBytes);
+      issue_pv<T, HDC, BK>(o, p, v_addr + pst * Tl::kKVBytes);
       wgmma_commit();
       wgmma_wait<1>();                        // S is in
       fence_regs(s);
@@ -586,19 +511,19 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(p);
       release(v_empty + pst, lane);
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < HDC / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           o[4 * j + 2 * i] *= alpha[i];
           o[4 * j + 2 * i + 1] *= alpha[i];
         }
-      to_bf16<BK>(s, p);
+      to_pairs<T, BK>(s, p);
     }
 
     const int last = (n_tiles - 1) % kStages;
     mbar_wait(v_full + last, ((n_tiles - 1) / kStages) & 1);
     wgmma_fence();
-    issue_pv<HD, BK>(o, p, v_addr + last * Tl::kKVBytes);
+    issue_pv<T, HDC, BK>(o, p, v_addr + last * Tl::kKVBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -615,15 +540,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       const float inv = __frcp_rn(fmaxf(l, 1e-30f));
       const int row = row0 + 8 * i;
       if (row >= s_len) continue;
-      __nv_bfloat16* orow =
+      T* orow =
           out + ((static_cast<int64_t>(b) * s_len + row) * heads + h) * hd;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HDC / 8; ++j) {
         const int col = 8 * j + col0;
         if (col < hd)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
-                                    o[4 * j + 2 * i + 1] * inv);
+          *reinterpret_cast<uint32_t*>(orow + col) = pack2<T>(
+              o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
       }
     }
   }
@@ -657,11 +581,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (rows, heads, batch) of hd bf16 values with element strides st = (batch,
-// row, head), cut into boxes of 64 columns x box_rows rows
-CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base,
-                int64_t hd, int64_t rows, int64_t heads, int64_t batch,
-                const int64_t* st, uint32_t box_rows) {
+// (rows, heads, batch) of hd 16-bit values of TMA type `type` with
+// element strides st = (batch, row, head), cut into boxes of 64 columns x
+// box_rows rows
+CUresult encode(EncodeTiled fn, CUtensorMapDataType type, CUtensorMap* map,
+                const void* base, int64_t hd, int64_t rows, int64_t heads,
+                int64_t batch, const int64_t* st, uint32_t box_rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads),
@@ -671,7 +596,7 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base,
                                  static_cast<cuuint64_t>(st[0]) * 2};
   const cuuint32_t box[4] = {64, box_rows, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return fn(map, type, 4,
             const_cast<void*>(base), dims, strides, box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -684,47 +609,84 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base,
 constexpr int kNoEncoder = 1000;
 constexpr int kEncodeFailed = 2000;
 
-template <int HD, int BK>
+template <typename T, int HDL, int HDC, int BK>
 int launch(EncodeTiled fn, const void* q, const void* k, const void* v,
            void* out, int64_t batch, int64_t s_len, int64_t t_len,
            int64_t heads, int64_t kv_heads, int64_t hd,
            const int64_t* strides, float scale_log2, int causal,
            cudaStream_t stream) {
+  const CUtensorMapDataType type = kIsHalf<T>
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap maps[3];
-  CUresult res = encode(fn, &maps[0], q, hd, s_len, heads, batch, strides,
-                        kBQ);
+  CUresult res = encode(fn, type, &maps[0], q, hd, s_len, heads, batch,
+                        strides, kBQ);
   if (res == CUDA_SUCCESS)
-    res = encode(fn, &maps[1], k, hd, t_len, kv_heads, batch, strides + 3,
-                 BK);
+    res = encode(fn, type, &maps[1], k, hd, t_len, kv_heads, batch,
+                 strides + 3, BK);
   if (res == CUDA_SUCCESS)
-    res = encode(fn, &maps[2], v, hd, t_len, kv_heads, batch, strides + 6,
-                 BK);
+    res = encode(fn, type, &maps[2], v, hd, t_len, kv_heads, batch,
+                 strides + 6, BK);
   if (res != CUDA_SUCCESS) return kEncodeFailed + static_cast<int>(res);
-  constexpr int bytes = Tile<HD, BK>::kSmem;
+  constexpr int bytes = Tile<HDL, HDC, BK>::kSmem;
+  auto* kernel = flash_fwd_tc<T, HDL, HDC, BK>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(batch * heads),
                   static_cast<unsigned>((s_len + kBQ - 1) / kBQ));
-  flash_fwd_bf16<HD, BK><<<grid, kThreads, bytes, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out),
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<T*>(out),
       static_cast<int>(s_len), static_cast<int>(t_len),
       static_cast<int>(heads), static_cast<int>(heads / kv_heads),
       static_cast<int>(hd), scale_log2, causal);
   return cudaGetLastError();
 }
 
+// the instance for hd: layout width HDL (the multiple of 64 at or above
+// hd), compute width HDC (HDL, or 80 for hd 72 and 80), key tile BK
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             int64_t batch, int64_t s_len, int64_t t_len, int64_t heads,
+             int64_t kv_heads, int64_t hd, const int64_t* strides,
+             float scale_log2, int causal, void* stream) {
+  if (batch <= 0 || s_len <= 0 || t_len <= 0 || heads <= 0 ||
+      kv_heads <= 0 || heads % kv_heads != 0 || s_len > 0x7fffffffLL ||
+      t_len > 0x7fffffffLL || hd <= 0 || hd > kMaxHeadDim || hd % 8 != 0)
+    return cudaErrorInvalidValue;
+  if (batch * heads > 0x7fffffffLL || (s_len + kBQ - 1) / kBQ > 65535)
+    return cudaErrorInvalidValue;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd <= 64)
+    return launch<T, 64, 64, 128>(fn, q, k, v, out, batch, s_len, t_len,
+                                  heads, kv_heads, hd, strides, scale_log2,
+                                  causal, st);
+  if (hd <= 80)
+    return launch<T, 128, 80, 128>(fn, q, k, v, out, batch, s_len, t_len,
+                                   heads, kv_heads, hd, strides, scale_log2,
+                                   causal, st);
+  if (hd <= 128)
+    return launch<T, 128, 128, 96>(fn, q, k, v, out, batch, s_len, t_len,
+                                   heads, kv_heads, hd, strides, scale_log2,
+                                   causal, st);
+  return launch<T, 192, 192, 64>(fn, q, k, v, out, batch, s_len, t_len,
+                                 heads, kv_heads, hd, strides, scale_log2,
+                                 causal, st);
+}
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. q (B,S,H,hd), k and v (B,T,KV,hd)
-// bf16 on the device, 16-byte aligned, with a contiguous last dim and the
-// given element strides, each a multiple of 8 (strides[0..2] = q's b, s,
-// h; [3..5] = k's b, t, kv; [6..8] = v's); out (B,S,H,hd) contiguous bf16.
-// hd in {16, 32, 64, 128, 192}; H % KV == 0; 1 <= S, T < 2^31. scale_log2
-// = log2(e) / sqrt(hd). Returns the cudaError_t of the launch (0 =
-// launched), 1000 when the driver has no cuTensorMapEncodeTiled, or
-// 2000 + the CUresult when a tensor map is refused.
+// Plain C entry points, loaded with ctypes, one a type. q (B,S,H,hd), k
+// and v (B,T,KV,hd) bf16 (or f16) on the device, 16-byte aligned, with a
+// contiguous last dim and the given element strides, each a multiple of 8
+// (strides[0..2] = q's b, s, h; [3..5] = k's b, t, kv; [6..8] = v's); out
+// (B,S,H,hd) contiguous, of the same type. hd a multiple of 8 up to 192;
+// H % KV == 0; 1 <= S, T < 2^31. scale_log2 = log2(e) / sqrt(hd).
+// Returns the cudaError_t of the launch (0 = launched), 1000 when the
+// driver has no cuTensorMapEncodeTiled, or 2000 + the CUresult when a
+// tensor map is refused.
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* out,
                                           int64_t batch, int64_t s_len,
@@ -733,28 +695,19 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const int64_t* strides,
                                           float scale_log2, int causal,
                                           void* stream) {
-  if (batch <= 0 || s_len <= 0 || t_len <= 0 || heads <= 0 ||
-      kv_heads <= 0 || heads % kv_heads != 0 || s_len > 0x7fffffffLL ||
-      t_len > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  if (batch * heads > 0x7fffffffLL || (s_len + kBQ - 1) / kBQ > 65535)
-    return cudaErrorInvalidValue;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kNoEncoder;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16:
-    case 32:
-    case 64:
-      return launch<64, 128>(fn, q, k, v, out, batch, s_len, t_len, heads,
-                             kv_heads, hd, strides, scale_log2, causal, st);
-    case 128:
-      return launch<128, 96>(fn, q, k, v, out, batch, s_len, t_len, heads,
-                             kv_heads, hd, strides, scale_log2, causal, st);
-    case 192:
-      return launch<192, 64>(fn, q, k, v, out, batch, s_len, t_len, heads,
-                             kv_heads, hd, strides, scale_log2, causal, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch<__nv_bfloat16>(q, k, v, out, batch, s_len, t_len, heads,
+                                 kv_heads, hd, strides, scale_log2, causal,
+                                 stream);
+}
+
+extern "C" int repro_flash_attention_f16(const void* q, const void* k,
+                                         const void* v, void* out,
+                                         int64_t batch, int64_t s_len,
+                                         int64_t t_len, int64_t heads,
+                                         int64_t kv_heads, int64_t hd,
+                                         const int64_t* strides,
+                                         float scale_log2, int causal,
+                                         void* stream) {
+  return dispatch<__half>(q, k, v, out, batch, s_len, t_len, heads, kv_heads,
+                          hd, strides, scale_log2, causal, stream);
 }

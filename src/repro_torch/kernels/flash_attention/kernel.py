@@ -5,15 +5,15 @@ kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention/kernel.py``): q (B,S,H,hd), k/v
 (B,T,KV,hd) with H % KV == 0, one floating dtype, each with a
 contiguous last dim → (B,S,H,hd) in q's dtype. Two hand-written kernels
-serve it on the card, picked by dtype (any other dtype, float16
-included, raises there):
+serve it on the card, picked by dtype (any other dtype raises there):
 
-* bfloat16: ``csrc/flash_attention_bf16.cu``, the tensor-core kernel
-  (TMA, ``wgmma``, warp specialisation); hd in ``BF16_HEAD_DIMS``; q, k,
-  v 16-byte aligned with strides that are multiples of 8 elements (TMA's
-  rule), else ``ValueError``;
-* float32: ``csrc/flash_attention.cu``, on the CUDA cores; hd in
-  ``F32_HEAD_DIMS``.
+* bfloat16 and float16: ``csrc/flash_attention_bf16.cu``, the
+  tensor-core kernel (TMA, ``wgmma``, warp specialisation); hd a
+  multiple of 8 up to ``MAX_HEAD_DIM``; q, k, v 16-byte aligned with
+  strides that are multiples of 8 elements (TMA's rule), else
+  ``ValueError``;
+* float32: ``csrc/flash_attention.cu``, on the CUDA cores; any hd up to
+  ``MAX_HEAD_DIM``.
 
 On a CUDA tensor the wrapper launches the kernel for its dtype (building
 it on first use) or raises; on a CPU tensor it runs the plain version of
@@ -39,16 +39,18 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 # are not launches)
 LAUNCHES = {"flash_attention": 0}
 
-BF16_HEAD_DIMS = (16, 32, 64, 128, 192)
-F32_HEAD_DIMS = (16, 32, 64, 128)
-# dtype → (source, C entry point, head dims, query rows per block)
+# the widest head dim either kernel has an instance for
+MAX_HEAD_DIM = 192
+# dtype → (source, C entry point, head dim multiple, query rows per block);
+# the 16-bit types' head dim is a multiple of 8 (TMA: 16-byte strides)
+_TENSOR_CORE = _CSRC / "flash_attention_bf16.cu"
 _KERNELS = {
-    torch.bfloat16: (_CSRC / "flash_attention_bf16.cu",
-                     "repro_flash_attention_bf16", BF16_HEAD_DIMS, 128),
+    torch.bfloat16: (_TENSOR_CORE, "repro_flash_attention_bf16", 8, 128),
+    torch.float16: (_TENSOR_CORE, "repro_flash_attention_f16", 8, 128),
     torch.float32: (_CSRC / "flash_attention.cu",
-                    "repro_flash_attention_f32", F32_HEAD_DIMS, 64),
+                    "repro_flash_attention_f32", 1, 64),
 }
-SOURCES = tuple(source for source, *_ in _KERNELS.values())
+SOURCES = tuple(dict.fromkeys(source for source, *_ in _KERNELS.values()))
 _TMA_ALIGN = 16                         # bytes: base address and strides
 
 
@@ -97,24 +99,27 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What the kernel for q's dtype takes beyond the plain version."""
     if q.dtype not in _KERNELS:
         raise ValueError(f"flash_attention: no kernel takes {q.dtype} on "
-                         "the card (float32 or bfloat16); the plain "
-                         "version computes it on the CPU")
-    _, _, head_dims, rows = _KERNELS[q.dtype]
+                         "the card (float32, bfloat16 or float16); the "
+                         "plain version computes it on the CPU")
+    _, _, multiple, rows = _KERNELS[q.dtype]
     hd = q.shape[3]
-    if hd not in head_dims:
-        raise ValueError(f"flash_attention: head dim {hd} not in "
-                         f"{head_dims} for {q.dtype} on the card")
+    if hd > MAX_HEAD_DIM or hd % multiple:
+        raise ValueError(f"flash_attention: head dim {hd} on the card must "
+                         f"be at most {MAX_HEAD_DIM}"
+                         + (f" and a multiple of {multiple} for {q.dtype}"
+                            if multiple > 1 else ""))
     if q.shape[1] > 65535 * rows:       # gridDim.y x query rows per block
         raise ValueError(f"flash_attention: S = {q.shape[1]} exceeds "
                          f"{65535 * rows}")
-    if q.dtype == torch.bfloat16:
+    if multiple > 1:                    # the TMA kernel
         size = q.element_size()
         for name, x in (("q", q), ("k", k), ("v", v)):
             if x.data_ptr() % _TMA_ALIGN or any(
                     st * size % _TMA_ALIGN for st in x.stride()[:3]):
                 raise ValueError(
-                    f"flash_attention: bf16 {name} must be {_TMA_ALIGN}-byte "
-                    f"aligned with strides in multiples of {_TMA_ALIGN} "
+                    f"flash_attention: {q.dtype} {name} must be "
+                    f"{_TMA_ALIGN}-byte aligned with strides in "
+                    f"multiples of {_TMA_ALIGN} "
                     f"bytes (TMA), got strides {tuple(x.stride())} at "
                     f"{x.data_ptr() % _TMA_ALIGN} bytes past alignment")
 
@@ -141,9 +146,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
-    # the bf16 kernel takes exp2 of scores scaled by log2(e) / sqrt(hd)
+    # the tensor-core kernel takes exp2 of scores scaled by log2(e) /
+    # sqrt(hd)
     scale = 1.0 / math.sqrt(hd)
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         scale *= math.log2(math.e)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

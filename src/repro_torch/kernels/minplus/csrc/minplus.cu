@@ -13,7 +13,9 @@
 // Every term is one IEEE float add and the reduction is a minimum, which
 // is exact and order-free on the inputs these kernels take (non-negative
 // distances and +inf; never NaN or -inf). So the result is bit for bit
-// that of the plain versions and of the TPU kernels, whatever the tiling.
+// that of the plain versions and of the TPU kernels, whatever the tiling,
+// up to the sign of a zero: the kernels that take minima on int32 patterns
+// (DPX, atomicMin) return +0.0 where a plain version may return -0.0.
 // Out-of-range loads read +inf, the semiring zero, in place of the TPU
 // kernel's +inf padding to 128-blocks. Built with -fmad=false and no
 // fast-math. Min-plus has no tensor-core form: FP32 CUDA cores only.
@@ -57,12 +59,38 @@
 // consecutive quads, so a warp's stores cover 512 contiguous bytes. k is
 // padded to 4, 8, 16 or 32 with +inf terms.
 //
-// minplus_tiled — every other product (the squarings of a closure above
-// kClosureMaxQ, k > 32). Design: a 64 x 64 output tile per block of 256
-// threads, each thread a 4 x 4 register tile at a stride of 16 rows and
-// columns (conflict-free shared reads, coalesced writes); 16-deep
-// k-tiles of A and B staged through shared memory.
-//
+// minplus_tiled — every other product: the squarings of a closure above
+// kClosureMaxQ (stage B at q = 239 and at the NY-scale build's q = 448),
+// k > 32. Bound: operations, m k n (min, +) terms at the card's (min, +)
+// issue ceiling (minplus_peak.cu). What held the first design (one 64 x 64
+// tile a block walking all of k, 4 x 4 register tiles with fminf, 16-deep
+// k-tiles staged with two barriers and no loads in flight) at 2-30 % of
+// that bound: 16 blocks at q = 239 and 49 at q = 448 on 132 SMs, 2
+// instructions a term, and every load exposed. This design:
+//   * the launch's shape is picked per call (tiled_layout;
+//     repro_minplus_layout reports it): 64 x 64 or 128 x 128 output tiles,
+//     and k cut into 1-8 parts of whole 32-deep chunks, a cluster of that
+//     many blocks a tile, so that a tile's parts fill the SMs once (q =
+//     239: 64 x 64 tiles, 8 parts, 128 blocks; q = 448: 64 x 64, 2 parts,
+//     98 blocks; q = 1024: 128 x 128, 2 parts, 128 blocks);
+//   * a cluster folds its blocks' partial minima through distributed
+//     shared memory, each block a share of the tile: a minimum is exact
+//     and order-free, so there is no seeding copy, no atomic, and the
+//     result does not depend on the order of the fold;
+//   * FW phase 3's inner loop: a thread owns 8 rows x 8 (or 4) columns in
+//     4-wide groups half a tile apart; per 4 k, one float4 of A a row (A
+//     row-major in shared memory, rows padded to 36 floats: the two rows a
+//     warp reads land in other banks) and a float4 row of B per column
+//     group; two terms per DPX three-way minimum on the int32 patterns
+//     (2 FADD + 1 VIMNMX3 for two terms, against 2 FADD + 2 FMNMX): for
+//     non-negative floats and +inf IEEE order is the order of the
+//     patterns. -0.0, the one pattern that orders apart, reads as +0.0
+//     (plus_zero);
+//   * a two-stage cp.async ring of 32-deep chunks of A and B keeps the
+//     next chunk in flight while a chunk is computed (16-byte copies where
+//     k and n are multiples of 4, else 4-byte ones; +inf stored past the
+//     edges).
+
 // relax_tiles — stage A, one Bellman-Ford sweep over every district at
 // once: D is (S, V) with S = bmax (8) border rows, A the (V, V) dense
 // adjacency. Bound: bytes — each A element feeds only S terms. What held
@@ -106,71 +134,389 @@ __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 // ---- minplus_tiled ---------------------------------------------------------
 
-constexpr int kTile = 64;      // output tile edge
-constexpr int kDepth = 16;     // k-tile depth
-constexpr int kSide = 16;      // threads per tile edge (16 x 16 = 256)
-constexpr int kReg = kTile / kSide;  // 4 x 4 outputs per thread
+constexpr int kChunk = 32;             // k rows of a ring stage
+constexpr int kPitchA = kChunk + 4;    // floats a row of A takes in a stage
+constexpr int kMaxSplit = 8;           // blocks of a cluster (portable size)
+constexpr int kMaxDevices = 64;
+constexpr int kNegZero = static_cast<int>(0x80000000u);
 
-__global__ void __launch_bounds__(kSide * kSide)
+// a block owns a TILE x TILE output tile; its thread (tx, ty) owns 8 rows
+// (two 4-row halves TILE/2 apart) and kCols columns (one or two 4-column
+// groups, TILE/2 apart)
+template <int TILE>
+struct Tiled {
+  static constexpr int kCols = TILE == 128 ? 8 : 4;
+  static constexpr int kTX = TILE / kCols;               // 16
+  static constexpr int kThreads = kTX * (TILE / 8);      // 128 or 256
+  static constexpr int kStageFloats = TILE * kPitchA + kChunk * TILE;
+  static constexpr int kSmem = 2 * kStageFloats * 4;     // 34 or 68 KB
+  static_assert(TILE * TILE * 4 <= kSmem, "the fold reuses the ring");
+  static_assert(TILE * kChunk % (4 * kThreads) == 0, "whole copy rounds");
+};
+
+// the tile row (column) of a thread's entry i: 4-wide groups TILE/2 apart
+template <int TILE>
+__device__ __forceinline__ int own(int t, int i) {
+  return t * 4 + (i & 3) + (i >> 2) * (TILE / 2);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -0.0 reads as +0.0: the one pattern whose int32 order differs from its
+// float order. A minimum is -0.0 exactly when a term (-0.0) + (-0.0)
+// reaches it, so mapping the result gives what +0.0 on load would.
+__device__ __forceinline__ int plus_zero(int v) {
+  return v == kNegZero ? 0 : v;
+}
+
+// A thread's copies of a chunk: kW floats each (16-byte copies where VEC,
+// else 4-byte ones); of A, rows ar + l * kRowStep at column ak (threads
+// walk k within a row), of B, k rows bk + l * kKStep at column bc
+// (threads walk the columns of a k row), l < kCopies
+template <int TILE, bool VEC>
+struct ChunkCopy {
+  static constexpr int kW = VEC ? 4 : 1;
+  static constexpr int kThreads = Tiled<TILE>::kThreads;
+  static constexpr int kRowStep = kThreads / (kChunk / kW);
+  static constexpr int kKStep = kThreads / (TILE / kW);
+  static constexpr int kCopies = TILE * kChunk / kW / kThreads;
+  const float* ga;      // A[row0 + ar, ak]: chunk kc adds kc * kChunk
+  const float* gb;      // B[bk, col0 + bc]: chunk kc adds kc * kChunk rows
+  int64_t a_rows;       // rows of A left from row0 + ar
+  int64_t b_cols;       // columns of B left from col0 + bc
+  int sa, sb;           // this thread's first float in a stage's A, B
+
+  __device__ ChunkCopy(const float* a, const float* b, int64_t m, int64_t k,
+                       int64_t n, int64_t row0, int64_t col0) {
+    const int ar = threadIdx.x / (kChunk / kW);
+    const int ak = threadIdx.x % (kChunk / kW) * kW;
+    const int bk = threadIdx.x / (TILE / kW);
+    const int bc = threadIdx.x % (TILE / kW) * kW;
+    ga = a + (row0 + ar) * k + ak;
+    gb = b + bk * n + col0 + bc;
+    a_rows = m - row0 - ar;
+    b_cols = n - col0 - bc;
+    sa = ar * kPitchA + ak;
+    sb = TILE * kPitchA + bk * TILE + bc;
+  }
+
+  // chunk kc of A and B into a stage (A row-major with rows kPitchA
+  // floats apart, B row-major); +inf past m, k and n
+  __device__ __forceinline__ void issue(float* stage, int64_t k, int64_t n,
+                                        int kc) const {
+    const int64_t k0 = static_cast<int64_t>(kc) * kChunk;
+    const float inf = inf_f();
+    const bool a_in = k0 + sa % kPitchA < k;        // this column of A
+    const int64_t b_krows = k - k0 - (sb - TILE * kPitchA) / TILE;
+    const float* a0 = ga + k0;
+    const float* b0 = gb + k0 * n;
+#pragma unroll
+    for (int l = 0; l < kCopies; ++l) {
+      float* da = stage + sa + l * kRowStep * kPitchA;
+      if (a_in && l * kRowStep < a_rows) {
+        if constexpr (VEC) cp_async16(da, a0 + l * kRowStep * k);
+        else cp_async4(da, a0 + l * kRowStep * k);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kW; ++e) da[e] = inf;
+      }
+      float* db = stage + sb + l * kKStep * TILE;
+      if (b_cols > 0 && l * kKStep < b_krows) {
+        if constexpr (VEC) cp_async16(db, b0 + l * kKStep * n);
+        else cp_async4(db, b0 + l * kKStep * n);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kW; ++e) db[e] = inf;
+      }
+    }
+  }
+};
+
+// v[j] = row[own(tx, j)], j < C, from a row of the B stage
+template <int TILE, int C>
+__device__ __forceinline__ void load_cols(float (&v)[C], const float* row,
+                                          int tx) {
+#pragma unroll
+  for (int h = 0; h < C / 4; ++h) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(row + tx * 4 + h * (TILE / 2));
+    v[4 * h] = x.x; v[4 * h + 1] = x.y; v[4 * h + 2] = x.z;
+    v[4 * h + 3] = x.w;
+  }
+}
+
+// acc = min(acc, A (x) B) over the kChunk k of a stage: for every 4 k, one
+// float4 of A per row (broadcast within a row's threads), one row of B per
+// k; two terms per DPX three-way minimum on the int32 patterns
+template <int TILE>
+__device__ __forceinline__ void chunk_product(
+    int (&acc)[8][Tiled<TILE>::kCols], const float* as, const float* bs,
+    int tx, int ty) {
+  constexpr int C = Tiled<TILE>::kCols;
+#pragma unroll 2
+  for (int kk = 0; kk < kChunk; kk += 4) {
+    float4 a4[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a4[i] = *reinterpret_cast<const float4*>(
+          as + own<TILE>(ty, i) * kPitchA + kk);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float b0[C], b1[C];
+      load_cols<TILE>(b0, bs + (kk + 2 * h) * TILE, tx);
+      load_cols<TILE>(b1, bs + (kk + 2 * h + 1) * TILE, tx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x0 = h ? a4[i].z : a4[i].x;
+        const float x1 = h ? a4[i].w : a4[i].y;
+#pragma unroll
+        for (int j = 0; j < C; ++j)
+          acc[i][j] = __vimin3_s32(acc[i][j], __float_as_int(x0 + b0[j]),
+                                   __float_as_int(x1 + b1[j]));
+      }
+    }
+  }
+}
+
+// c[row, col0 + col .. + 3] from four int32 patterns (-0.0 as +0.0);
+// VEC: one 16-byte store where the four columns lie within n
+template <bool VEC>
+__device__ __forceinline__ void store4(float* __restrict__ c, int64_t n,
+                                       int64_t row, int64_t col,
+                                       const int (&v)[4]) {
+  float* dst = c + row * n + col;
+  if (VEC && col + 4 <= n) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(__int_as_float(plus_zero(v[0])),
+                    __int_as_float(plus_zero(v[1])),
+                    __int_as_float(plus_zero(v[2])),
+                    __int_as_float(plus_zero(v[3])));
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (col + e < n) dst[e] = __int_as_float(plus_zero(v[e]));
+}
+
+// One TILE x TILE output tile of one district, over the k-chunks of its
+// part of k: blockIdx.x = part + split * column tile (a cluster of `split`
+// blocks along x shares a tile, block rank = part), blockIdx.y: row tile,
+// blockIdx.z: district. A two-stage cp.async ring keeps the next chunk in
+// flight. With split > 1 each block leaves its partial minima in its
+// shared memory and folds 1/split of the tile's quads from all of the
+// cluster's blocks (distributed shared memory): a minimum is exact and
+// order-free, so the result is every block's, bit for bit.
+template <int TILE, bool VEC>
+__global__ void __launch_bounds__(Tiled<TILE>::kThreads, TILE == 128 ? 1 : 3)
 minplus_tiled(const float* __restrict__ a, const float* __restrict__ b,
-              float* __restrict__ c, int64_t m, int64_t k, int64_t n) {
-  __shared__ float as[kDepth][kTile + 1];   // as[kk][row], padded
-  __shared__ float bs[kDepth][kTile];       // bs[kk][col]
+              float* __restrict__ c, int64_t m, int64_t k, int64_t n,
+              int split, int per_part) {
+  using Tl = Tiled<TILE>;
+  constexpr int C = Tl::kCols;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int64_t z = blockIdx.z;
   a += z * m * k;
   b += z * k * n;
   c += z * m * n;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kTile;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int tx = threadIdx.x % kSide;
-  const int ty = threadIdx.x / kSide;
-  const float inf = inf_f();
+  const int part = static_cast<int>(blockIdx.x % split);
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x / split) * TILE;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * TILE;
+  const int tx = threadIdx.x % Tl::kTX, ty = threadIdx.x / Tl::kTX;
+  const int chunks = static_cast<int>((k + kChunk - 1) / kChunk);
+  const int c0 = min(chunks, part * per_part);
+  const int c1 = min(chunks, c0 + per_part);
 
-  float acc[kReg][kReg];
+  int acc[8][C];
 #pragma unroll
-  for (int i = 0; i < kReg; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < kReg; ++j) acc[i][j] = inf;
+    for (int j = 0; j < C; ++j) acc[i][j] = 0x7f800000;  // +inf
 
-  for (int64_t k0 = 0; k0 < k; k0 += kDepth) {
-#pragma unroll
-    for (int l = 0; l < kTile * kDepth / (kSide * kSide); ++l) {
-      const int idx = threadIdx.x + l * kSide * kSide;
-      // A tile: consecutive threads walk k within a row
-      const int ar = idx / kDepth, ak = idx % kDepth;
-      const int64_t gr = row0 + ar, gk = k0 + ak;
-      as[ak][ar] = (gr < m && gk < k) ? a[gr * k + gk] : inf;
-      // B tile: consecutive threads walk the columns of a k row
-      const int bk = idx / kTile, bc = idx % kTile;
-      const int64_t gk2 = k0 + bk, gc = col0 + bc;
-      bs[bk][bc] = (gk2 < k && gc < n) ? b[gk2 * n + gc] : inf;
-    }
+  const ChunkCopy<TILE, VEC> copy(a, b, m, k, n, row0, col0);
+  if (c0 < c1) copy.issue(smem, k, n, c0);
+  cp_async_commit();
+  if (c0 + 1 < c1) copy.issue(smem + Tl::kStageFloats, k, n, c0 + 1);
+  cp_async_commit();
+  for (int kc = c0; kc < c1; ++kc) {
+    cp_async_wait<1>();                  // chunk kc has landed
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float av[kReg], bv[kReg];
-#pragma unroll
-      for (int i = 0; i < kReg; ++i) av[i] = as[kk][ty + i * kSide];
-#pragma unroll
-      for (int j = 0; j < kReg; ++j) bv[j] = bs[kk][tx + j * kSide];
-#pragma unroll
-      for (int i = 0; i < kReg; ++i)
-#pragma unroll
-        for (int j = 0; j < kReg; ++j)
-          acc[i][j] = fminf(acc[i][j], av[i] + bv[j]);
-    }
-    __syncthreads();
+    float* stage = smem + ((kc - c0) & 1) * Tl::kStageFloats;
+    chunk_product<TILE>(acc, stage, stage + TILE * kPitchA, tx, ty);
+    __syncthreads();                     // the stage is spent
+    if (kc + 2 < c1) copy.issue(stage, k, n, kc + 2);
+    cp_async_commit();                   // (empty groups keep the count)
   }
+
+  if (split == 1) {
 #pragma unroll
-  for (int i = 0; i < kReg; ++i) {
-    const int64_t gr = row0 + ty + i * kSide;
-    if (gr >= m) continue;
+    for (int i = 0; i < 8; ++i) {
+      const int64_t row = row0 + own<TILE>(ty, i);
+      if (row >= m) continue;
 #pragma unroll
-    for (int j = 0; j < kReg; ++j) {
-      const int64_t gc = col0 + tx + j * kSide;
-      if (gc < n) c[gr * n + gc] = acc[i][j];
+      for (int h = 0; h < C / 4; ++h) {
+        const int v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]};
+        store4<VEC>(c, n, row, col0 + own<TILE>(tx, 4 * h), v);
+      }
+    }
+    return;
+  }
+
+  // the partial minima into this block's shared memory (the ring is
+  // spent: every thread passed the loop's last barrier) ...
+  cg::cluster_group cluster = cg::this_cluster();
+  int* part_min = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < C / 4; ++h)
+      *reinterpret_cast<int4*>(part_min + own<TILE>(ty, i) * TILE +
+                               own<TILE>(tx, 4 * h)) =
+          make_int4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                    acc[i][4 * h + 3]);
+  cluster.sync();                        // every partial written
+  // ... and this block's share of the quads folded over the cluster
+  for (int qd = part * Tl::kThreads + threadIdx.x; qd < TILE * TILE / 4;
+       qd += split * Tl::kThreads) {
+    int4 w[kMaxSplit];                   // every load in flight at once
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r)
+      if (r < split)
+        w[r] = *reinterpret_cast<const int4*>(
+            cluster.map_shared_rank(part_min, r) + qd * 4);
+    int v[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
+#pragma unroll
+    for (int r = 1; r < kMaxSplit; ++r)
+      if (r < split) {
+        v[0] = min(v[0], w[r].x);
+        v[1] = min(v[1], w[r].y);
+        v[2] = min(v[2], w[r].z);
+        v[3] = min(v[3], w[r].w);
+      }
+    const int64_t row = row0 + qd / (TILE / 4);
+    if (row < m) store4<VEC>(c, n, row, col0 + (qd % (TILE / 4)) * 4, v);
+  }
+  cluster.sync();                        // no block leaves while read
+}
+
+// the launch's shape: TILE x TILE tiles, k cut into `split` parts of
+// per_part chunks, `blocks` blocks; vec: 16-byte copies and stores
+struct TiledLayout {
+  int tile, split, per_part, vec;
+  int64_t blocks;
+};
+
+// The launch's shape: for each tile edge (128, then 64), k is cut into as
+// many parts (at most kMaxSplit, of whole chunks) as one block an SM
+// allows, so that every tile's parts run at once and no SM holds two
+// parts' fixed costs (the ring's first chunk, the fold) where one would
+// do; the edge whose busiest SM has the fewest terms (blocks round the
+// SMs, times a block's TILE^2 x its k) wins, the larger on a tie.
+TiledLayout tiled_layout(int64_t batch, int64_t m, int64_t k, int64_t n,
+                         int sms, bool vec) {
+  const int64_t chunks = (k + kChunk - 1) / kChunk;
+  TiledLayout best = {64, 1, 0, vec ? 1 : 0, 0};
+  double best_cost = -1.0;
+  for (int tile = 128; tile >= 64; tile /= 2) {
+    const int64_t gy = (m + tile - 1) / tile;
+    const int64_t tiles = batch * gy * ((n + tile - 1) / tile);
+    if (gy > 65535) continue;
+    const int64_t want = sms / tiles;
+    const int64_t s = want < 1 ? 1 : (want > kMaxSplit ? kMaxSplit : want);
+    const int64_t per = (chunks + s - 1) / s;
+    const int64_t parts = per > 0 ? (chunks + per - 1) / per : 1;
+    const int64_t blocks = tiles * parts;
+    const double cost = static_cast<double>((blocks + sms - 1) / sms) *
+                        static_cast<double>(tile) * tile * per;
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = {tile, static_cast<int>(parts), static_cast<int>(per),
+              vec ? 1 : 0, blocks};
     }
   }
+  return best;
+}
+
+// the SM count of `device`, read once per device
+int sm_count(int device) {
+  static std::atomic<int> cache[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return 0;
+  int sms = cache[device].load(std::memory_order_relaxed);
+  if (sms == 0 &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) ==
+          cudaSuccess)
+    cache[device].store(sms, std::memory_order_relaxed);
+  return sms;
+}
+
+// the current device (into *device) and its SM count, or 0
+int current_sm_count(int* device) {
+  return cudaGetDevice(device) == cudaSuccess ? sm_count(*device) : 0;
+}
+
+// one launch in clusters of L.split blocks along x; the instance's
+// shared memory (above 48 KB at TILE = 128) is allowed once per device
+template <int TILE, bool VEC>
+cudaError_t launch_tiled(const TiledLayout& L, int device, const float* a,
+                         const float* b, float* c, int64_t batch, int64_t m,
+                         int64_t k, int64_t n, cudaStream_t stream) {
+  static std::atomic<bool> ready[kMaxDevices] = {};
+  auto* fn = minplus_tiled<TILE, VEC>;
+  constexpr int bytes = Tiled<TILE>::kSmem;
+  if (!ready[device].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    ready[device].store(true, std::memory_order_release);
+  }
+  const int64_t gx = (n + TILE - 1) / TILE * L.split;
+  if (gx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(gx),
+                     static_cast<unsigned>((m + TILE - 1) / TILE),
+                     static_cast<unsigned>(batch));
+  cfg.blockDim = dim3(Tiled<TILE>::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(L.split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, fn, a, b, c, m, k, n,
+                                             L.split, L.per_part);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// 16-byte copies and stores: k and n multiples of 4, 16-byte aligned bases
+bool tiled_vec(const void* a, const void* b, const void* c, int64_t k,
+               int64_t n) {
+  return k % 4 == 0 && n % 4 == 0 &&
+         (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+          reinterpret_cast<uintptr_t>(c)) % 16 == 0;
 }
 
 // ---- minplus_closure --------------------------------------------------------
@@ -201,12 +547,6 @@ __host__ __device__ constexpr int closure_rows_per_thread(int q, int blocks) {
 
 __device__ __forceinline__ int min3_bits(int acc, float x0, float x1) {
   return __vimin3_s32(acc, __float_as_int(x0), __float_as_int(x1));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -428,24 +768,6 @@ minplus_closure(const float* __restrict__ w0, float* __restrict__ out, int q,
 }
 
 constexpr int kClosureBlocks = 16;      // blocks of the one cluster
-constexpr int kMaxDevices = 64;
-
-// the SM count of `device`, read once per device
-int sm_count(int device) {
-  static std::atomic<int> cache[kMaxDevices] = {};
-  if (device < 0 || device >= kMaxDevices) return 0;
-  int sms = cache[device].load(std::memory_order_relaxed);
-  if (sms == 0 &&
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) ==
-          cudaSuccess)
-    cache[device].store(sms, std::memory_order_relaxed);
-  return sms;
-}
-
-// the current device (into *device) and its SM count, or 0
-int current_sm_count(int* device) {
-  return cudaGetDevice(device) == cudaSuccess ? sm_count(*device) : 0;
-}
 
 // one launch of one cluster of kClosureBlocks blocks; the instance's
 // attributes (shared memory for q up to the cap, the non-portable cluster
@@ -685,22 +1007,53 @@ static_assert(kRows == 8, "the inner loop is written for 8 rows");
 // float32 on the device; batch <= 65535. Each returns the cudaError_t of
 // its launch (0 = launched). The output must be non-empty.
 
-// c (batch, m, n) = a (batch, m, k) (min,+) b (batch, k, n)
+// c (batch, m, n) = a (batch, m, k) (min,+) b (batch, k, n); one launch
+// of the tiled kernel in the shape tiled_layout picks on the current card
 extern "C" int repro_minplus(const void* a, const void* b, void* c,
                              int64_t batch, int64_t m, int64_t k, int64_t n,
                              void* stream) {
   if (batch <= 0 || batch > 65535 || m <= 0 || n <= 0 || k < 0)
     return cudaErrorInvalidValue;
-  const int64_t gy = (m + kTile - 1) / kTile;
-  const int64_t gx = (n + kTile - 1) / kTile;
-  if (gy > 65535 || gx > 0x7fffffffLL) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
-            static_cast<unsigned>(batch));
-  minplus_tiled<<<grid, kSide * kSide, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), m, k, n);
-  return cudaGetLastError();
+  int device = 0;
+  const int sms = current_sm_count(&device);
+  if (sms == 0) return cudaErrorInvalidDevice;
+  const bool vec = tiled_vec(a, b, c, k, n);
+  const TiledLayout L = tiled_layout(batch, m, k, n, sms, vec);
+  if (L.blocks == 0) return cudaErrorInvalidValue;
+  const auto* a_ = static_cast<const float*>(a);
+  const auto* b_ = static_cast<const float*>(b);
+  auto* c_ = static_cast<float*>(c);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (L.tile == 128)
+    return vec ? launch_tiled<128, true>(L, device, a_, b_, c_, batch, m, k,
+                                         n, st)
+               : launch_tiled<128, false>(L, device, a_, b_, c_, batch, m, k,
+                                          n, st);
+  return vec ? launch_tiled<64, true>(L, device, a_, b_, c_, batch, m, k, n,
+                                      st)
+             : launch_tiled<64, false>(L, device, a_, b_, c_, batch, m, k, n,
+                                       st);
+}
+
+// the shape repro_minplus launches for these operands on the current card:
+// out = {tile edge, k split (cluster size), chunks of 32 k a part, 16-byte
+// copies (1) or 4-byte (0), blocks}
+extern "C" int repro_minplus_layout(const void* a, const void* b,
+                                    const void* c, int64_t batch, int64_t m,
+                                    int64_t k, int64_t n, int64_t* out) {
+  if (batch <= 0 || batch > 65535 || m <= 0 || n <= 0 || k < 0)
+    return cudaErrorInvalidValue;
+  int device = 0;
+  const int sms = current_sm_count(&device);
+  if (sms == 0) return cudaErrorInvalidDevice;
+  const TiledLayout L =
+      tiled_layout(batch, m, k, n, sms, tiled_vec(a, b, c, k, n));
+  out[0] = L.tile;
+  out[1] = L.split;
+  out[2] = L.per_part;
+  out[3] = L.vec;
+  out[4] = L.blocks;
+  return L.blocks == 0 ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 // out (q, q) = w0 squared `steps` times (D <- D (min,+) D), in one launch of

@@ -5,7 +5,9 @@ package's Pallas kernels ``minplus_pallas`` and ``relax_pallas``
 (``src/repro/kernels/minplus/kernel.py``). They take an optional
 leading batch (district) axis:
 
-* ``minplus(a, b)``: C = A ⊗ B, a (..., m, k), b (..., k, n);
+* ``minplus(a, b)``: C = A ⊗ B, a (..., m, k), b (..., k, n), one
+  launch in the shape ``minplus_layout`` reports (tile edge, the k split
+  folded within a cluster);
 * ``minplus_kmajor(a_t, b)``: the same product with A given k-major,
   a_t (..., k, m) — stage C's operand as stage A leaves it, so no
   transpose is copied. k ≤ ``KMAJOR_MAX_K`` runs the k-major kernel;
@@ -65,6 +67,8 @@ def _lib() -> ctypes.CDLL:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.repro_minplus.argtypes = [p, p, p, i64, i64, i64, i64, p]
         lib.repro_minplus.restype = ctypes.c_int
+        lib.repro_minplus_layout.argtypes = [p, p, p, i64, i64, i64, i64, p]
+        lib.repro_minplus_layout.restype = ctypes.c_int
         lib.repro_relax.argtypes = [p, p, p, p, i64, i64, i64, p]
         lib.repro_relax.restype = ctypes.c_int
         lib.repro_minplus_kmajor.argtypes = [p, p, p, i64, i64, i64, i64, p]
@@ -128,6 +132,26 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _launch("minplus", fn, out, a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), batch, m, k, n)
     return out
+
+
+def minplus_layout(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The launch ``minplus(a, b)`` makes for two contiguous float32 CUDA
+    operands, as its C entry picks it on their card: the output tile
+    edge, the k split (the blocks of a cluster that share a tile), the
+    32-deep k chunks a part, whether copies and stores are 16-byte, and
+    the blocks."""
+    _check("minplus_layout", a, b)
+    _cuda_operands("minplus_layout", a, b)
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    batch = a.shape[0] if a.dim() == 3 else 1
+    out = (ctypes.c_int64 * 5)()
+    with torch.cuda.device(a.device):
+        err = _lib().repro_minplus_layout(a.data_ptr(), b.data_ptr(),
+                                          None, batch, m, k, n, out)
+    if err != 0:
+        raise ValueError(f"minplus_layout: no layout (CUDA error {err})")
+    return {"tile": out[0], "split": out[1], "chunks_per_part": out[2],
+            "vec16": bool(out[3]), "blocks": out[4]}
 
 
 def minplus_kmajor(a_t: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

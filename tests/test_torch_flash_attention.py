@@ -96,18 +96,38 @@ def test_hbm_bytes_per_call_matches_jax(q_shape, kv_shape, dtype_bytes):
         == rops.hbm_bytes_per_call(q_shape, kv_shape, dtype_bytes)
 
 
-@pytest.mark.parametrize("hd", [48, 192])
-def test_any_head_dim_on_cpu_matches_jax_ref_and_pallas(hd):
-    """The CPU path takes every head dim the JAX package takes: 48 (no
-    kernel on the card) and 192 (Nemotron-4-340B's, bf16 kernel only)."""
+# (hd, dtype, causal): 48 (a multiple of 8 the card runs in its 64-wide
+# instance), 192 (Nemotron-4-340B's) and HuBERT-XLarge's 80 in every
+# floating dtype the card's kernels take, causal and not
+HEAD_DIM_CASES = [(48, "float32", True), (192, "float32", True),
+                  *[(80, dtype, causal)
+                    for dtype in ("float32", "bfloat16", "float16")
+                    for causal in (True, False)]]
+# the JAX package's own bf16 tolerance; float16 as in the test below:
+# both sides compute in float32 on the same float16 inputs and round once
+HEAD_DIM_TOL = {"float32": 2e-4, "bfloat16": 3e-2, "float16": 2.0 ** -9}
+
+
+@pytest.mark.parametrize("hd,dtype,causal", HEAD_DIM_CASES)
+def test_any_head_dim_on_cpu_matches_jax_ref_and_pallas(hd, dtype, causal):
+    """The CPU path takes every head dim and floating dtype the JAX
+    package takes, as the card's kernels now do (hd a multiple of 8 up to
+    192 in bf16 / f16, any hd up to 192 in f32)."""
     q, k, v = _qkv(hd, 1, 40, 40, 4, 2, hd)
-    got = ops.flash_attention(_t(q), _t(k), _t(v)).numpy()
-    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
-    want = np.asarray(rattention_ref(jq, jk, jv))
-    pallas = np.asarray(flash_attention_pallas(jq, jk, jv, bq=16, bk=16,
-                                               interpret=True))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(got, pallas, rtol=2e-4, atol=2e-4)
+    tq, tk, tv = (_t(x, getattr(torch, dtype)) for x in (q, k, v))
+    before = dict(kernel.LAUNCHES)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert kernel.LAUNCHES == before and got.dtype == tq.dtype
+    jq, jk, jv = (jnp.asarray(x).astype(getattr(jnp, dtype))
+                  for x in (q, k, v))
+    tol = HEAD_DIM_TOL[dtype]
+    for want in (rattention_ref(jq, jk, jv, causal=causal),
+                 flash_attention_pallas(jq, jk, jv, causal=causal, bq=16,
+                                        bk=16, interpret=True)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=0 if dtype == "float16" else tol,
+                                   atol=tol)
 
 
 def test_float16_on_cpu_matches_jax_ref_and_pallas():

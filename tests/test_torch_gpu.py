@@ -321,20 +321,47 @@ def test_half_precision_tables_raise_on_the_card(cuda, dtype):
     assert kernel.LAUNCHES == before
 
 
-@pytest.mark.parametrize("batch,m,k,n", [(None, 1, 1, 1), (None, 93, 93, 93),
-                                         (None, 130, 70, 33),
-                                         (16, 256, 8, 93), (3, 37, 0, 5)])
-def test_minplus_kernel_matches_plain_version(cuda, batch, m, k, n):
+def _plus_zero_bits(x):
+    """int32 patterns with -0.0 read as +0.0 (the DPX kernels' rule)."""
+    bits = x.contiguous().view(torch.int32)
+    return torch.where(bits == -2 ** 31, torch.zeros_like(bits), bits)
+
+
+# (batch or None, m, k, n): unaligned shapes, stage B's squarings above
+# the fused closure's cap (q = 239, and 448 of the NY-scale build) and a
+# large one, stage C's, and shapes ragged around the tiled kernel's 64-
+# and 128-wide tiles and its 32-deep k parts; each dense (30 % +inf) and
+# sparse (90 % +inf), with a row of A and a column of B all +inf and a
+# -0.0 entry in each operand
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+@pytest.mark.parametrize("batch,m,k,n", [
+    (None, 1, 1, 1), (None, 93, 93, 93), (None, 130, 70, 33),
+    (16, 256, 8, 93), (3, 37, 0, 5), (None, 239, 239, 239),
+    (None, 448, 448, 448), (None, 1024, 1024, 1024), (3, 65, 33, 129),
+    (1, 1, 0, 5), (2, 130, 257, 64)])
+def test_minplus_kernel_matches_plain_version(cuda, batch, m, k, n, kind):
     from repro_torch.kernels.minplus import kernel as mp, ref as mp_ref
     rng = np.random.default_rng(m + k + n)
     lead = () if batch is None else (batch,)
-    a = torch.from_numpy(_rand_dist(rng, (*lead, m, k))).to(cuda)
-    b = torch.from_numpy(_rand_dist(rng, (*lead, k, n))).to(cuda)
+    a, b = _rand_dist(rng, (*lead, m, k)), _rand_dist(rng, (*lead, k, n))
+    if kind == "sparse":
+        a[rng.random(a.shape) < 0.9] = np.inf
+        b[rng.random(b.shape) < 0.9] = np.inf
+    a[..., m // 2, :] = np.inf
+    b[..., n // 2] = np.inf
+    if k:
+        a.reshape(-1)[0] = b.reshape(-1)[-1] = -0.0
+    a = torch.from_numpy(a).to(cuda)
+    b = torch.from_numpy(b).to(cuda)
+    layout = mp.minplus_layout(a, b)
+    assert 1 <= layout["split"] <= 8 and layout["tile"] in (64, 128)
     before = mp.LAUNCHES["minplus"]
     got = mp.minplus(a, b)
     torch.cuda.synchronize()
     assert mp.LAUNCHES["minplus"] == before + 1
-    assert torch.equal(got, mp_ref.minplus_ref(a, b))
+    assert torch.equal(_plus_zero_bits(got),
+                       _plus_zero_bits(mp_ref.minplus_ref(a, b)))
+    assert int((got.view(torch.int32) == -2 ** 31).sum()) == 0
 
 
 @pytest.mark.parametrize("batch,s,v", [(None, 1, 1), (None, 8, 33),
@@ -513,29 +540,39 @@ FLASH_CASES = [(1, 16, 16, 4, 4, 32, True, torch.float32),
                # OLMoE-1B-7B (MHA 16/16) and InternVL2-26B (GQA 48/8)
                (2, 300, 300, 16, 16, 128, True, torch.bfloat16),
                (1, 260, 260, 48, 8, 128, True, torch.bfloat16),
-               (1, 100, 100, 48, 8, 128, True, torch.float32)]
+               (1, 100, 100, 48, 8, 128, True, torch.float32)] + [
+    # head dims beside the instances' widths (48 in the 64 instance, 80
+    # HuBERT-XLarge's own, 96 in the 128 one, 192) in every dtype the
+    # card takes, causal and not, MHA 16/16 and GQA 48/8, S != T
+    (1, 200, 130, h, kv, hd, causal, dtype)
+    for hd in (48, 80, 96, 192)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32)
+    for causal in (True, False)
+    for h, kv in ((16, 16), (48, 8))]
 
 
-def _bf16_bound_ratio(got, q, k, v, causal: bool) -> float:
+def _half_bound_ratio(got, q, k, v, causal: bool) -> float:
     """Largest |got - want| over its bound, elementwise, where want is
-    the plain version in f32 on the same bf16 inputs and the bound is
+    the plain version in f32 on the same 16-bit inputs and the bound is
 
-        ulp_bf16(max(|got|, |want|)) + 2^-8 * attention(q, k, |v|) + 2e-5.
+        ulp(max(|got|, |want|)) + 2u * attention(q, k, |v|) + 2e-5,
 
-    The tensor-core kernel rounds each p to bf16 before P.V (relative
-    error <= 2^-9, bf16's unit roundoff) while l sums the unrounded p, so
-    its f32 result is off by at most 2^-9 * sum_j p_j |v_j| / l; the
+    ulp and u of the input type (u = 2^-9 in bf16, 2^-12 in f16: the
+    same form in both). The tensor-core kernel rounds each p to the input
+    type before P.V (relative error <= u) while l sums the unrounded p,
+    so its f32 result is off by at most u * sum_j p_j |v_j| / l; the
     bound allows twice that, plus the f32 order-of-sums bound (2e-5) and
-    one bf16 ulp for the output's one rounding."""
+    one ulp for the output's one rounding."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    mantissa = 7 if q.dtype == torch.bfloat16 else 10
     want = fa_ref.attention_ref(q.float(), k.float(), v.float(),
                                 causal=causal)
     mass = fa_ref.attention_ref(q.float(), k.float(), v.float().abs(),
                                 causal=causal)
     g = got.float()
     mag = torch.maximum(g.abs(), want.abs()).clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    bound = ulp + 2.0 ** -8 * mass + 2e-5
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - mantissa)
+    bound = ulp + 2.0 ** -(mantissa + 1) * mass + 2e-5
     return float(((g - want).abs() / bound).max())
 
 
@@ -543,8 +580,9 @@ def _bf16_bound_ratio(got, q, k, v, causal: bool) -> float:
 def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd,
                                             causal, dtype):
     """float32: within 2e-5 of the plain version (both f32; only the
-    order of the sums and the online rescaling differ). bf16: within the
-    bound of ``_bf16_bound_ratio`` (P rounded to bf16 before P.V)."""
+    order of the sums and the online rescaling differ). bf16 and f16:
+    within the bound of ``_half_bound_ratio`` (P rounded to the input
+    type before P.V)."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     gen = torch.Generator(device=cuda).manual_seed(s * 31 + hd)
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
@@ -559,7 +597,7 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd,
         want = fa_ref.attention_ref(q, k, v, causal=causal)
         assert float((got - want).abs().max()) <= 2e-5
     else:
-        assert _bf16_bound_ratio(got, q, k, v, causal) <= 1.0
+        assert _half_bound_ratio(got, q, k, v, causal) <= 1.0
 
 
 def test_flash_kernel_reads_strided_inputs(cuda):
@@ -587,7 +625,7 @@ def test_flash_bf16_kernel_reads_strided_inputs(cuda):
     got = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
-    assert _bf16_bound_ratio(got, q, k, v, True) <= 1.0
+    assert _half_bound_ratio(got, q, k, v, True) <= 1.0
 
 
 @pytest.mark.parametrize("what", ["base", "seq_stride"])
@@ -608,17 +646,21 @@ def test_flash_bf16_kernel_rejects_misaligned_inputs(cuda, what):
     assert fa.LAUNCHES == before
 
 
-@pytest.mark.parametrize("what", ["head_dim", "float16", "groups",
-                                  "head_dim_bf16", "head_dim_192_f32"])
+# what the card still refuses: a head dim above 192 (no instance), a
+# bf16 / f16 head dim that is not a multiple of 8 (TMA's 16-byte strides),
+# float64 (no kernel), and H not a multiple of KV
+@pytest.mark.parametrize("what", ["head_dim_256", "head_dim_bf16_36",
+                                  "head_dim_f16_20", "float64", "groups"])
 def test_flash_kernel_rejects_unsupported_inputs_on_cuda(cuda, what):
     from repro_torch.kernels.flash_attention import kernel as fa
-    shapes = {"head_dim": ((1, 8, 4, 48), (1, 8, 2, 48), torch.float32),
-              "float16": ((1, 8, 4, 32), (1, 8, 2, 32), torch.float16),
-              "groups": ((1, 8, 3, 32), (1, 8, 2, 32), torch.float32),
-              "head_dim_bf16": ((1, 8, 4, 48), (1, 8, 2, 48),
-                                torch.bfloat16),
-              "head_dim_192_f32": ((1, 8, 4, 192), (1, 8, 2, 192),
-                                   torch.float32)}
+    shapes = {"head_dim_256": ((1, 8, 4, 256), (1, 8, 2, 256),
+                               torch.float32),
+              "head_dim_bf16_36": ((1, 8, 4, 36), (1, 8, 2, 36),
+                                   torch.bfloat16),
+              "head_dim_f16_20": ((1, 8, 4, 20), (1, 8, 2, 20),
+                                  torch.float16),
+              "float64": ((1, 8, 4, 32), (1, 8, 2, 32), torch.float64),
+              "groups": ((1, 8, 3, 32), (1, 8, 2, 32), torch.float32)}
     qs, kvs, dtype = shapes[what]
     q = torch.zeros(qs, dtype=dtype, device=cuda)
     kv = torch.zeros(kvs, dtype=dtype, device=cuda)

@@ -297,6 +297,9 @@ FAMILIES = [("olmoe", "olmoe_1b_7b", {}),
             ("mamba2", "mamba2_1_3b", {}),
             ("zamba2", "zamba2_1_2b", {})]
 SSM_FAMILIES = [f for f in FAMILIES if f[0] in ("mamba2", "zamba2")]
+# HuBERT's smoke config at HuBERT-XLarge's head dim 80: its flash forward
+# is the one the card's tensor-core kernel serves in its hd-80 instance
+HUBERT_HD80 = ("hubert_hd80", "hubert_xlarge", {"head_dim": 80})
 
 
 def _family_cfgs(arch, overrides, **kw):
@@ -354,10 +357,11 @@ def test_family_init_params_and_cache_have_the_jax_trees(name, arch,
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])
-@pytest.mark.parametrize("name,arch,overrides", FAMILIES)
+@pytest.mark.parametrize("name,arch,overrides", FAMILIES + [HUBERT_HD80])
 def test_family_forward_matches_jax(name, arch, overrides, impl):
     """The hidden states of ``forward`` (patches and frames included)
-    within TOL in float32; MLA attends densely whatever the impl."""
+    within TOL in float32, the JAX package's flash through its Pallas
+    kernel in interpret mode; MLA attends densely whatever the impl."""
     cfg_j, cfg_t = _family_cfgs(arch, overrides, attention_impl=impl)
     params, ours = _params(cfg_j)
     bj, bt = _family_batch(cfg_j, 2, 24, seed=11)

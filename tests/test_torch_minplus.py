@@ -28,7 +28,8 @@ from repro_torch.kernels.sssp_relax.ref import multi_source_ref
 jax.config.update("jax_enable_x64", False)
 
 MINPLUS_SHAPES = [(8, 8, 8), (16, 32, 8), (130, 70, 33), (1, 128, 1),
-                  (37, 1, 53), (64, 0, 5), (93, 93, 93), (256, 8, 93)]
+                  (37, 1, 53), (64, 0, 5), (93, 93, 93), (256, 8, 93),
+                  (161, 161, 161), (239, 239, 239)]
 RELAX_SHAPES = [(4, 16), (8, 33), (33, 130), (1, 1)]
 BLOCKS = dict(bm=32, bn=32, bk=32, interpret=True)
 
@@ -78,13 +79,40 @@ def test_minplus_bf16_rounds_once_like_pallas(m, k, n):
                                   _np(widened.astype(jnp.bfloat16)))
 
 
-def test_minplus_batched_equals_each_district():
-    rng = np.random.default_rng(3)
-    a, b = _rand_dist(rng, (5, 40, 8)), _rand_dist(rng, (5, 8, 19))
+def _plus_zero_bits(x: np.ndarray) -> np.ndarray:
+    """int32 patterns with -0.0 read as +0.0: the card's DPX kernels
+    return +0.0 where a plain version may return -0.0."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.int32)
+    return np.where(bits == np.int32(-2 ** 31), np.int32(0), bits)
+
+
+# (batch, m, k, n): ragged around the card kernel's 64- and 128-wide
+# tiles and its 32-deep k parts, an empty contraction included
+BATCHED_SHAPES = [(5, 40, 8, 19), (3, 65, 33, 129), (1, 1, 0, 5),
+                  (2, 130, 257, 64)]
+
+
+@pytest.mark.parametrize("batch,m,k,n", BATCHED_SHAPES)
+def test_minplus_batched_equals_each_district(batch, m, k, n):
+    """Each district against the JAX package's reference and Pallas
+    kernel, with a row of A and a column of B all +inf and a -0.0 entry
+    in each operand."""
+    rng = np.random.default_rng(m + k + n)
+    a, b = _rand_dist(rng, (batch, m, k)), _rand_dist(rng, (batch, k, n))
+    a[:, m // 2] = np.inf
+    b[:, :, n // 2] = np.inf
+    if k:
+        a[0, 0, 0] = b[-1, 0, 0] = -0.0
     got = ops.minplus(torch.from_numpy(a), torch.from_numpy(b)).numpy()
-    for z in range(5):
-        np.testing.assert_array_equal(
-            got[z], _np(rminplus_ref(jnp.asarray(a[z]), jnp.asarray(b[z]))))
+    assert got.shape == (batch, m, n)
+    for z in range(batch):
+        if not k:
+            np.testing.assert_array_equal(got[z], np.inf)
+            continue
+        ja, jb = jnp.asarray(a[z]), jnp.asarray(b[z])
+        for want in (rminplus_ref(ja, jb), minplus_pallas(ja, jb, **BLOCKS)):
+            np.testing.assert_array_equal(_plus_zero_bits(got[z]),
+                                          _plus_zero_bits(_np(want)))
 
 
 @pytest.mark.parametrize("s,v", RELAX_SHAPES)
@@ -351,7 +379,7 @@ def test_cpu_calls_are_not_launches():
 
 # -- the fused closure and the k-major product (their plain versions) --------
 
-CLOSURE_QS = [1, 40, 93, 128, 129, 200]
+CLOSURE_QS = [1, 40, 93, 128, 129, 161, 200, 239]
 
 
 def _closure_input(q, kind, seed):
