@@ -22,18 +22,18 @@ width), and drives the port's eighteen paths:
   batch against Dijkstra and the deployed system's answers;
 * the sharded layouts at n = 4096 — ``ServingPolicy(engine="sharded")``
   on the deployed system for 4 and 8 logical shards on the card, B
-  replicated and row-sharded, float32 and uint16, each shard's sharded
-  kernel call held against its plain version and every answer against
-  the replicated engine's; then a ``RebalancePlanner`` plan from the
-  service's load and ``EdgeSystem.migrate``; and the row-sharded join at
-  the center's size (65 536 rule-3 queries over n = 102 400's B, 8
-  shards);
+  replicated and row-sharded, float32 and uint16, one sharded-kernel
+  launch a batch held against its plain version and every answer
+  against the replicated engine's; then a ``RebalancePlanner`` plan
+  from the service's load and ``EdgeSystem.migrate``; and the
+  row-sharded join at the center's size (65 536 rule-3 queries over
+  n = 102 400's B, 8 shards, one launch);
 * the scatter-gather read path at n = 4096 —
   ``ServingPolicy(engine="scatter_gather")`` on the deployed system (16
   edge servers, each a logical shard of the card) in float32 and
-  uint16, every server's partial launch held against its plain version
-  and the answers against the replicated and sharded engines and the
-  scalar loop; the plane's bytes, exchanges and the host split of a
+  uint16, one sharded-kernel launch a batch (uint16 dequantized in the
+  kernel) held against its plain version and the answers against the
+  replicated and sharded engines and the scalar loop; the plane's bytes, exchanges and the host split of a
   submit; three fault plans, each replayed twice byte for byte with no
   unflagged wrong answer; ``DistanceBatcher`` at 1024; the open-loop
   load harness at the reference benchmark's parameters (0.5x and 1.5x
@@ -1955,34 +1955,35 @@ SHARD_COUNTS = (4, 8)
 
 
 @contextlib.contextmanager
-def hold_sharded_calls(ops, held: list):
-    """While active, every call the path makes to the sharded kernel's
-    wrapper keeps copies of its tensors and its result in ``held`` (the
-    call itself launches once, as the path does)."""
-    real = ops.sharded_gather_join
+def hold_sharded_calls(mod, held: list):
+    """While active, every call the path makes to
+    ``mod.multi_shard_gather_join`` (the sharded kernel's wrapper) keeps
+    copies of its tensors and its result in ``held`` (the call itself
+    launches once, as the path does)."""
+    real = mod.multi_shard_gather_join
 
-    def call(block, border, owner, shard, rs, rt, **kw):
-        out = real(block, border, owner, shard, rs, rt, **kw)
-        held.append(([_clone(x) for x in (block, border, owner)], shard,
-                     [rs.clone(), rt.clone()], kw, out.clone()))
+    def call(blocks, borders, owner, rs, rt, **kw):
+        out = real(blocks, borders, owner, rs, rt, **kw)
+        held.append(([_clone(x) for x in blocks],
+                     [_clone(x) for x in borders],
+                     [_clone(x) for x in (owner, rs, rt)], kw, out.clone()))
         return out
 
-    ops.sharded_gather_join = call
+    mod.multi_shard_gather_join = call
     try:
         yield
     finally:
-        ops.sharded_gather_join = real
+        mod.multi_shard_gather_join = real
 
 
 def check_sharded_held(torch, held: list, errs: dict, what: str) -> int:
     """Each kept sharded-kernel result against the plain version on the
     same arguments, bit for bit; returns the count and empties ``held``."""
     from repro_torch.kernels.label_join import ref
-    for (block, border, owner), shard, (rs, rt), kw, out in held:
-        want = ref.sharded_gather_join_ref(block, border, owner, shard, rs,
-                                           rt, **kw)
-        check(torch.equal(out, want), f"{what}: shard {shard}'s kernel "
-              "differs from its plain version")
+    for blocks, borders, ids, kw, out in held:
+        want = ref.multi_shard_gather_join_ref(blocks, borders, *ids, **kw)
+        check(torch.equal(out, want), f"{what}: the sharded kernel "
+              f"({len(blocks)} shards) differs from its plain version")
         errs["label_join_sharded"] = max(errs["label_join_sharded"],
                                          max_abs_err(out, want))
     count = len(held)
@@ -2009,9 +2010,10 @@ def phase_sharded(torch, dev, state: dict, launches: dict,
                   errs: dict) -> tuple[dict, dict]:
     """``ServingPolicy(engine="sharded")`` on the deployed n = 4096
     system for E in SHARD_COUNTS logical shards on the card, B replicated
-    and row-sharded, float32 and uint16: bit for bit with the replicated
-    engine, every shard's kernel call with its plain version; then a
-    rebalance plan fed by the service's load and ``migrate``."""
+    and row-sharded, float32 and uint16: one sharded-kernel launch a
+    batch, bit for bit with the replicated engine and with its plain
+    version; then a rebalance plan fed by the service's load and
+    ``migrate``."""
     from repro_torch.core import dijkstra
     from repro_torch.edge import ShardedBatchedEngine, default_edge_mesh
     from repro_torch.kernels.label_join import kernel, ops
@@ -2059,8 +2061,8 @@ def phase_sharded(torch, dev, state: dict, launches: dict,
                       f"sharded E={e} border={border} {dtype} differs from "
                       "the replicated engine")
                 check(got.exact.all(), "sharded answers not flagged exact")
-                check(per_batch == e, f"{per_batch} launches a batch, "
-                      f"{e} shards")
+                check(per_batch == 1, f"{per_batch} launches a batch over "
+                      f"{e} shards, not 1")
                 item = 4 if dtype == "float32" else 2
                 d = eng.data
                 shard_bytes = {
@@ -2084,34 +2086,17 @@ def phase_sharded(torch, dev, state: dict, launches: dict,
                     "submit_host_ms": host_p50_ms(torch, lambda: svc.submit(
                         ss, ts, client_districts=client))})
                 if e == SHARD_COUNTS[-1]:
-                    owner, rs, rt = (torch.from_numpy(x).to(dev)
-                                     for x in eng.row_ids(ss, ts))
-                    quant = None if eng.quant is None else eng.quant.key()
-                    bt = eng.btables[0]
-                    if border:
-                        cross_base = eng.blocks[0].shape[0]
-                        bt = ops.assemble_border_rows(
-                            eng.btables, rs, rt, cross_base, mesh=eng.mesh,
-                            quant=quant)
-                        rs, rt = ops.assembled_row_ids(rs, rt, cross_base)
+                    ids = [torch.from_numpy(x).to(dev)
+                           for x in eng.row_ids(ss, ts)]
                     tag = "row" if border else "rep"
-                    shapes[f"sharded_e{e}_{tag}_{dtype}"] = (
-                        eng.blocks[0], bt, owner, 0, rs, rt, quant)
+                    shapes[f"sharded_e{e}_{tag}_{dtype}"] = multi_shape(
+                        "sharded", eng.blocks, eng.btables, ids,
+                        eng.btables[0].shape[0] if border else None,
+                        None if eng.quant is None else eng.quant.key(),
+                        False)
         spots = spot_check_dijkstra(g, ss, ts, got.distances, dijkstra, 4)
     # the path's launches: the checked submits (not the latency loops)
     launches["label_join_sharded"] = path_launches
-
-    # the MIN seam on this path: E answer partials of (Q,), and the
-    # row-sharded assembly's E partials of (2Q, q)
-    seam = {}
-    for e in SHARD_COUNTS:
-        mesh = default_edge_mesh(e, device=dev)
-        answers = [torch.rand(len(ss), device=dev) for _ in range(e)]
-        rows_ = [torch.rand(2 * len(ss), q, device=dev) for _ in range(e)]
-        seam[f"e{e}_answers_ms"] = event_ms(torch,
-                                            lambda: mesh.pmin(answers), 50)
-        seam[f"e{e}_assembly_ms"] = event_ms(torch,
-                                             lambda: mesh.pmin(rows_), 50)
 
     # rebalance: hot traffic on the first shard's districts, a plan from
     # the service's load, then migrate; the next batch routes anew
@@ -2150,7 +2135,7 @@ def phase_sharded(torch, dev, state: dict, launches: dict,
              "replicated_submit_host_ms": rep_latency, "rows": rows,
              "held_against_plain": held_count,
              "equals_replicated_engine": "bit for bit, every row",
-             "dijkstra_spot_pairs": spots, "seam_ms": seam,
+             "dijkstra_spot_pairs": spots,
              "rebalance": rebalance,
              "launches": {"label_join_sharded":
                           launches["label_join_sharded"]},
@@ -2158,7 +2143,7 @@ def phase_sharded(torch, dev, state: dict, launches: dict,
              "share of B (the reference's per-device formulas); "
              "whole_card_bytes: all E shards on the one card",
              "timer": "submit: host clock, device synchronised, 30 "
-             "submits; seam: CUDA events around 50 folds", "ok": True},
+             "submits", "ok": True},
             shapes)
 
 
@@ -2188,56 +2173,22 @@ def scrub_border_rows(system) -> None:
         srv._border_rows = {} if own is None else {srv.district_id: own}
 
 
-@contextlib.contextmanager
-def hold_join_calls(mod, held: list):
-    """While active, every call the path makes to ``mod.gather_join``
-    keeps copies of its tensors and its result in ``held`` (the call
-    itself launches once, as the path does)."""
-    real = mod.gather_join
-
-    def call(s_table, rs, t_table, rt, **kw):
-        out = real(s_table, rs, t_table, rt, **kw)
-        held.append(([_clone(x) for x in (s_table, rs, t_table, rt)], kw,
-                     out.clone()))
-        return out
-
-    mod.gather_join = call
-    try:
-        yield
-    finally:
-        mod.gather_join = real
-
-
-def check_join_held(torch, held: list, errs: dict, what: str) -> int:
-    """Each kept join result against the plain version on the same
-    arguments, bit for bit; returns the count and empties ``held``."""
-    from repro_torch.kernels.label_join import ref
-    for (s_table, rs, t_table, rt), kw, out in held:
-        want = ref.gather_join_ref(s_table, rs, t_table, rt, **kw)
-        check(torch.equal(out, want), f"{what}: the join kernel differs "
-              "from its plain version")
-        errs["label_join"] = max(errs["label_join"], max_abs_err(out, want))
-    count = len(held)
-    held.clear()
-    return count
-
-
 def scatter_host_split(torch, plane, ss, ts, reps: int = 30) -> dict:
     """Host clock of the plane's three steps on a warm batch, p50 of
-    ``reps``: the coordinator's routing (``prepare_queries``, the lanes
-    grouped by owner, the exchange check), the partial launches (the
-    row ids up once, one wrapper call a server; no wait), and the
-    consolidation (the partials concatenated, copied back — which waits
-    for the device — and put in lane order)."""
+    ``reps``: the coordinator's routing (``prepare_queries`` and the
+    exchange check over the cross lanes' owners), the launch (the row
+    ids up once in lane order, one wrapper call; no wait), and the
+    consolidation (the answers copied back, which waits for the
+    device)."""
     samples = {"route_ms": [], "launch_ms": [], "consolidate_ms": []}
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        groups, rs, rt = plane._route(ss, ts)
+        coords = plane._route(ss, ts)
         t1 = time.perf_counter()
-        lanes, parts = plane._launch(groups, rs, rt)
+        answers = plane._launch(*coords)
         t2 = time.perf_counter()
-        plane._consolidate(np.empty(len(ss), np.float32), lanes, parts)
+        plane._consolidate(answers)
         t3 = time.perf_counter()
         for key, dt in zip(samples, (t1 - t0, t2 - t1, t3 - t2)):
             samples[key].append(dt * 1e3)
@@ -2292,8 +2243,9 @@ def phase_scatter(torch, dev, state: dict, launches: dict,
                   errs: dict) -> tuple[dict, dict]:
     """``ServingPolicy(engine="scatter_gather")`` on the deployed n = 4096
     system, float32 and uint16: bit for bit with the replicated and
-    sharded engines and the scalar loop, every partial launch held
-    against its plain version; bytes, exchange stats and the host split
+    sharded engines and the scalar loop, one sharded-kernel launch a
+    batch (uint16 dequantized in the kernel) held against its plain
+    version; bytes, exchange stats and the host split
     of a submit; three fault plans replayed twice; the distance batcher;
     the open-loop harness on the replicated and scatter placements."""
     from repro_torch.core import dijkstra
@@ -2340,23 +2292,17 @@ def phase_scatter(torch, dev, state: dict, launches: dict,
         check(plane.data.btable is None and plane.data.district_table is None,
               "the coordinator holds a copy of B or of the district tables")
         before = dict(kernel.LAUNCHES)
-        holder = hold_sharded_calls(kernel, held) if dtype == "float32" \
-            else hold_join_calls(ops, held)
-        with holder:
+        with hold_sharded_calls(kernel, held):
             got = svc.submit(ss, ts, client_districts=client)
         per_batch = {k: kernel.LAUNCHES[k] - before[k] for k in before}
         for k, v in per_batch.items():
             path[k] += v
         held_count = check_sharded_held(torch, held, errs,
-                                        "scatter partial") \
-            if dtype == "float32" else check_join_held(
-                torch, held, errs, "scatter partial (uint16)")
-        owners = len(np.unique(part.assignment[ss]))
-        name = "label_join_sharded" if dtype == "float32" else "label_join"
-        check(per_batch[name] == owners and held_count == owners
-              and sum(per_batch.values()) == owners,
-              f"scatter {dtype}: {per_batch} launches a batch, {owners} "
-              "owning servers")
+                                        f"scatter ({dtype})")
+        check(per_batch["label_join_sharded"] == 1 and held_count == 1
+              and sum(per_batch.values()) == 1,
+              f"scatter {dtype}: {per_batch} launches a batch over {m} "
+              "servers, not 1")
         check(np.array_equal(got.distances, loop),
               f"scatter {dtype} differs from the engines and the loop")
         check(got.exact.all() and all(r is None for r in
@@ -2383,15 +2329,13 @@ def phase_scatter(torch, dev, state: dict, launches: dict,
                        "card_bytes": card, "submit_host_ms": submit,
                        "host_split_ms": split,
                        "dijkstra_spot_pairs": spots}
-        if dtype == "float32":
-            groups, rs, rt = plane._route(ss, ts)
-            d, sel = max(groups, key=lambda gr: len(gr[1]))
-            ids = torch.from_numpy(np.stack(
-                [np.full(len(sel), d), rs[sel], rt[sel]]).astype(
-                    np.int64)).to(dev)
-            shapes["scatter_partial_f32"] = (
-                plane._blocks[d], plane._bviews[d], ids[0].contiguous(), d,
-                ids[1].contiguous(), ids[2].contiguous(), None)
+        ids = [torch.from_numpy(x.astype(np.int64)).to(dev)
+               for x in plane._route(ss, ts)]
+        views = [plane._no_rows if v is None else v for v in plane._bviews]
+        quant = None if plane.quant is None else plane.quant.key()
+        shapes[f"scatter_m{m}_{dtype}"] = multi_shape(
+            "scatter", plane._blocks, views, ids, None, quant,
+            quant is not None)
 
     # faults: link drops (retries, forwarded via the center), an outage
     # storm (surviving-min reroutes, upper bounds), the center dark
@@ -2484,8 +2428,9 @@ def phase_sharded_center(torch, dev, center_shapes: dict, part,
                          errs: dict) -> tuple[dict, dict]:
     """65 536 rule-3 queries over n = 102 400's B (q = 96) row-sharded
     over CENTER_SHARDS logical shards, each with a one-row +inf district
-    block (no query reads it): bit for bit with the replicated rule-3
-    join, every shard's call with its plain version."""
+    block (no query reads it): one sharded-kernel launch reading B's
+    rows in place, bit for bit with the replicated rule-3 join and with
+    its plain version."""
     from repro_torch.edge import default_edge_mesh
     from repro_torch.kernels.label_join import ops
 
@@ -2513,15 +2458,12 @@ def phase_sharded_center(torch, dev, center_shapes: dict, part,
                                                    rt, mesh=mesh, quant=quant)
         count = check_sharded_held(torch, held, errs,
                                    f"center row-sharded {dtype}")
-        check(count == CENTER_SHARDS, f"{count} launches, {CENTER_SHARDS} "
-              "shards")
+        check(count == 1, f"{count} launches over {CENTER_SHARDS} shards, "
+              "not 1")
         check(np.array_equal(got.cpu().numpy(), want), "row-sharded rule-3 "
               f"{dtype} differs from the replicated join")
-        assembled = ops.assemble_border_rows(bshards, rs, rt, 1, mesh=mesh,
-                                             quant=quant)
-        shapes[f"center_e{CENTER_SHARDS}_row_{dtype}"] = (
-            blocks[0], assembled, owner, 0,
-            *ops.assembled_row_ids(rs, rt, 1), quant)
+        shapes[f"center_e{CENTER_SHARDS}_row_{dtype}"] = multi_shape(
+            "sharded", blocks, bshards, [owner, rs, rt], rpd, quant, False)
         out[dtype] = {
             "batch_ms": event_ms(torch, lambda: ops.join_sharded_border_gathered(
                 blocks, bshards, owner, rs, rt, mesh=mesh, quant=quant), 20),
@@ -2538,90 +2480,224 @@ def phase_sharded_center(torch, dev, center_shapes: dict, part,
              "host PLL limits the deployed stack to n = 4096, so each "
              "shard's district block is one +inf row no query reads",
              "timer": "batch_ms / replicated_join_ms: CUDA events around "
-             "20 back-to-back calls (wrapper, ragged assembly, 8 launches "
-             "and both seams; host ids to device and back included)",
+             "20 back-to-back calls (the wrapper and its one launch; host "
+             "ids to device and back included)",
              "ok": True}, shapes)
 
 
-def sharded_bound(torch, block, border, owner, shard, rs, rt):
-    """Bytes and operations one shard's launch needs on these inputs:
-    owner and both row ids of every lane once, the distinct rows its own
-    lanes read (block rows at W, border rows at q), the output; an add
-    and a min per lane folded."""
-    own = (owner == shard).cpu().numpy()
-    rs_, rt_ = rs.cpu().numpy()[own], rt.cpu().numpy()[own]
-    cross_base, w = block.shape[0], block.shape[1]
-    bw, item = border.shape[1], block.element_size()
-    qn = rs.shape[0]
-    blk = np.union1d(rs_[rs_ < cross_base], rt_[rt_ < cross_base])
-    brd = np.union1d(rs_[rs_ >= cross_base], rt_[rt_ >= cross_base])
-    nbytes = 28 * qn + (len(blk) * w + len(brd) * bw) * item
-    both_blk = (rs_ < cross_base) & (rt_ < cross_base)
-    ops_ = 2 * int(np.where(both_blk, w, bw).sum())
+def multi_shape(kind, blocks, borders, ids, rows_pd, quant,
+                dequant_first) -> dict:
+    """A whole-batch call of the sharded kernel as a path makes it
+    (``kind``: "sharded" engine or "scatter" plane), kept for
+    ``phase_sharded_times``."""
+    return {"kind": kind, "blocks": list(blocks), "borders": list(borders),
+            "ids": [x.contiguous() for x in ids],
+            "kw": {"rows_per_border_shard": rows_pd, "quant": quant,
+                   "dequant_first": dequant_first}}
+
+
+def multi_bound(shape) -> tuple[int, int]:
+    """Bytes and operations the whole batch needs on these inputs: owner
+    and both row ids of every lane once, the output, the distinct rows
+    the owned lanes read (block rows at W; border rows at q, per source:
+    a shard's copy of B or view, or B's row when row-sharded); an add
+    and a min per element folded."""
+    blocks, borders = shape["blocks"], shape["borders"]
+    owner, rs, rt = (x.cpu().numpy() for x in shape["ids"])
+    rows_pd = shape["kw"]["rows_per_border_shard"]
+    e, w, bw = len(blocks), blocks[0].shape[1], borders[0].shape[1]
+    item = blocks[0].element_size()
+    mine = (owner >= 0) & (owner < e)
+    o, a, c = owner[mine], rs[mine], rt[mine]
+    base = np.array([b.shape[0] for b in blocks])[o]
+    both = np.concatenate([np.stack([o, a, a < base], 1),
+                           np.stack([o, c, c < base], 1)])
+    both[:, 1] -= np.where(both[:, 2] == 1, 0, np.concatenate([base, base]))
+    blk = both[both[:, 2] == 1][:, :2]
+    brd = both[both[:, 2] == 0][:, :2]
+    if rows_pd is not None:
+        brd = brd[:, 1:]                # one B row, whichever lane reads it
+    rows = (len(np.unique(blk, axis=0)) * w
+            + len(np.unique(brd, axis=0)) * bw)
+    nbytes = 28 * len(owner) + rows * item
+    ops_ = 2 * int(np.where((a < base) & (c < base), w, bw).sum())
     return nbytes, ops_
 
 
-def time_sharded_shape(torch, kernel, ref, name, block, border, owner,
-                       shard, rs, rt, quant) -> dict:
-    """One shard's launch at a path's shape: device ms from CUDA-graph
-    replays cycling through copies of its inputs, against its bound, its
-    plain version and the ``amin`` of the gathered sums."""
-    nbytes, ops_ = sharded_bound(torch, block, border, owner, shard, rs, rt)
+def gathered_rows(torch, ref, blocks, borders, owner, rs, rt, rows_pd,
+                  quant, dequant_first):
+    """Every lane's two rows as the plain version gathers them from its
+    owner's tables (float32; codes dequantized first where the path
+    dequantizes), for the library call."""
+    if rows_pd is not None:
+        whole = torch.cat([ref.storage16(b) for b in borders])
+        borders = [whole] * len(blocks)
+    s_rows = t_rows = None
+    for d, (block, border) in enumerate(zip(blocks, borders)):
+        mine = owner == d
+        s_d, t_d = ref.sharded_gather_rows(
+            block, border, torch.where(mine, rs, 0), torch.where(mine, rt, 0),
+            quant=quant)
+        if dequant_first:
+            s_d, t_d = (ref.dequantize_ref(x, quant) for x in (s_d, t_d))
+        if s_rows is None:
+            s_rows, t_rows = s_d, t_d
+        else:
+            s_rows = torch.where(mine[:, None], s_d, s_rows)
+            t_rows = torch.where(mine[:, None], t_d, t_rows)
+    return s_rows.contiguous(), t_rows.contiguous()
+
+
+def per_shard_path(torch, kernel, ops, ref, shape, dev):
+    """The design the whole-batch launch replaces, on the same inputs:
+    for the sharded engine E one-entry launches over the batch and the
+    ``torch.minimum`` fold (after the ragged assembly and its fold for a
+    row-sharded B); for the scatter plane one launch a server over its
+    own lanes (the uint16 rows gathered, dequantized and joined by the
+    dense kernel) and the concatenation. Returns (fn, extra, order):
+    ``fn`` takes ``extra(inputs)``, the per-copy setup, and answers the
+    lanes in ``order`` (None: lane order)."""
+    from repro_torch.edge import default_edge_mesh
+    e = len(shape["blocks"])
+    kw = shape["kw"]
+    quant, rows_pd = kw["quant"], kw["rows_per_border_shard"]
+    if shape["kind"] == "sharded":
+        mesh = default_edge_mesh(e, device=dev)
+
+        def fn(*x):
+            blocks, borders, (owner, rs, rt) = x[:e], x[e:2 * e], x[2 * e:]
+            if rows_pd is not None:
+                cross_base = blocks[0].shape[0]
+                border = ops.assemble_border_rows(list(borders), rs, rt,
+                                                  cross_base, mesh=mesh,
+                                                  quant=quant)
+                rs, rt = ops.assembled_row_ids(rs, rt, cross_base)
+                borders = [border] * e
+            return mesh.pmin([kernel.sharded_gather_join(
+                blocks[d], borders[d], owner, d, rs, rt, quant=quant)
+                for d in range(e)])
+        return fn, lambda x: x, None
+    owner = shape["ids"][0].cpu().numpy()
+    order = torch.from_numpy(np.argsort(owner, kind="stable")).to(dev)
+    counts = np.bincount(owner, minlength=e)
+    cuts = np.concatenate([[0], np.cumsum(counts)])
+
+    def extra(x):
+        return (*x[:2 * e], *(i[order].contiguous() for i in x[2 * e:]))
+
+    def fn(*x):
+        blocks, borders, (owner, rs, rt) = x[:e], x[e:2 * e], x[2 * e:]
+        parts = []
+        for d in np.nonzero(counts)[0]:
+            lo, hi = int(cuts[d]), int(cuts[d + 1])
+            o, a, c = owner[lo:hi], rs[lo:hi], rt[lo:hi]
+            if quant is None:
+                parts.append(kernel.sharded_gather_join(
+                    blocks[d], borders[d], o, int(d), a, c))
+            else:
+                s_rows, t_rows = ref.sharded_gather_rows(
+                    blocks[d], borders[d], a, c, quant=quant)
+                parts.append(ops.join_partial_gathered(
+                    ref.dequantize_ref(s_rows, quant),
+                    ref.dequantize_ref(t_rows, quant)))
+        return torch.cat(parts)
+    return fn, extra, order
+
+
+def time_sharded_shape(torch, kernel, ops, ref, name, shape, dev) -> dict:
+    """The whole batch's launch at a path's shape: device ms from
+    CUDA-graph replays cycling through copies of its inputs, against its
+    bound, its plain version, the ``amin`` of the gathered sums and the
+    per-shard path it replaces."""
+    blocks, borders, ids = shape["blocks"], shape["borders"], shape["ids"]
+    kw = shape["kw"]
+    e = len(blocks)
+    nbytes, ops_ = multi_bound(shape)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops_ / PEAK_F32_OPS_PER_S * 1e3
-    cold, from_hbm = cold_inputs((block, border, owner, rs, rt), nbytes)
+    args = (*blocks, *borders, *ids)
+    cold, from_hbm = cold_inputs(args, nbytes)
 
-    def launch(b, bt, o, a, c):
-        return kernel.sharded_gather_join(b, bt, o, shard, a, c, quant=quant)
+    def split(x):
+        return list(x[:e]), list(x[e:2 * e]), x[2 * e:]
 
-    def plain(b, bt, o, a, c):
-        return ref.sharded_gather_join_ref(b, bt, o, shard, a, c,
-                                           quant=quant)
+    def launch(*x):
+        b, bt, (o, a, c) = split(x)
+        return kernel.multi_shard_gather_join(b, bt, o, a, c, **kw)
 
+    def plain(*x):
+        b, bt, (o, a, c) = split(x)
+        return ref.multi_shard_gather_join_ref(b, bt, o, a, c, **kw)
+
+    path, extra, order = per_shard_path(torch, kernel, ops, ref, shape, dev)
     before = dict(kernel.LAUNCHES)
+    want = plain(*args)
+    check(torch.equal(launch(*args), want), f"{name}: the kernel differs "
+          "from its plain version")
+    check(torch.equal(path(*extra(args)),
+                      want if order is None else want[order]),
+          f"{name}: the per-shard path differs from the kernel")
     kernel_ms = device_ms(torch, launch, cold)
-    warm_ms = device_ms(torch, launch, [(block, border, owner, rs, rt)])
-    call_ms = event_ms(torch, lambda: launch(block, border, owner, rs, rt),
-                       200)
+    warm_ms = device_ms(torch, launch, [args])
+    call_ms = event_ms(torch, lambda: launch(*args), 200)
+    path_inputs = [extra(x) for x in cold]
+    path_ms = device_ms(torch, path, path_inputs)
+    path_call_ms = event_ms(torch, lambda: path(*path_inputs[0]), 50)
+    del path_inputs
     kernel.LAUNCHES.update(before)      # timing launches are not the path's
-    vec, lanes = kernel.sharded_join_layout(block, border, rs.shape[0])
-    plain_ms = device_ms(torch, plain, cold)
+    vec, lanes = kernel.multi_shard_join_layout(blocks, borders,
+                                                ids[0].shape[0])
+    plain_ms = device_ms(torch, plain, cold, calls=4, replays=5)
     library_ms = None
-    if quant is None:
-        # the rows the plain version gathers, pads and selects, per copy
-        rows = [ref.sharded_gather_rows(b, bt, a, c)
-                for b, bt, _, a, c in cold]
+    if kw["quant"] is None or kw["dequant_first"]:
+        rows = [gathered_rows(torch, ref, *split(x)[:2], *split(x)[2],
+                              kw["rows_per_border_shard"], kw["quant"],
+                              kw["dequant_first"]) for x in cold]
         library_ms = device_ms(torch, lambda s_, t_: torch.amin(s_ + t_, 1),
                                rows)
         del rows
     copies = len(cold)
     del cold
     bound_ms = max(bytes_ms, ops_ms)
+    owner = ids[0]
     return {"shape": name, "kernel": "label_join_sharded",
-            "q": int(rs.shape[0]), "w": int(block.shape[1]),
-            "border_w": int(border.shape[1]), "itemsize": block.element_size(),
-            "owned_lanes": int((owner == shard).sum()),
+            "path": shape["kind"], "shards": e, "q": int(owner.shape[0]),
+            "w": int(blocks[0].shape[1]), "border_w": int(borders[0].shape[1]),
+            "itemsize": blocks[0].element_size(),
+            "row_sharded": kw["rows_per_border_shard"] is not None,
+            "dequant_first": kw["dequant_first"],
+            "owned_lanes": int(((owner >= 0) & (owner < e)).sum()),
             "bytes": nbytes, "ops": ops_, "copies": copies,
             "rows_from_hbm": from_hbm, "vec_bytes": vec, "lanes": lanes,
             "kernel_ms": kernel_ms, "l2_warm_ms": warm_ms,
             "wrapper_call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "share_of_bound": bound_ms / kernel_ms if from_hbm else None}
+            "share_of_bound": bound_ms / kernel_ms if from_hbm else None,
+            "per_shard_path_ms": path_ms,
+            "per_shard_path_call_ms": path_call_ms}
 
 
-def phase_sharded_times(torch, shapes: dict) -> dict:
-    from repro_torch.kernels.label_join import kernel, ref
-    rows = [time_sharded_shape(torch, kernel, ref, name, *args)
-            for name, args in shapes.items()]
-    return {"phase": "sharded_times", "timer": "device ms per shard launch "
-            "from CUDA-graph replays timed with CUDA events, cycling through "
-            "copies of the inputs so rows come from HBM (rows_from_hbm); "
-            "bound: owner + row ids of every lane, the distinct rows the "
-            "shard's own lanes read, the output, at 3.35 TB/s; library: "
-            "torch.amin of the sums of the rows the plain version gathers "
-            "(every lane, gathered beforehand; float32 only)", "rows": rows,
-            "ok": True}
+def phase_sharded_times(torch, dev, shapes: dict) -> dict:
+    from repro_torch.kernels.label_join import kernel, ops, ref
+    rows = [time_sharded_shape(torch, kernel, ops, ref, name, shape, dev)
+            for name, shape in shapes.items()]
+    return {"phase": "sharded_times", "timer": "device ms of the whole "
+            "batch's launch from CUDA-graph replays timed with CUDA events, "
+            "cycling through copies of the inputs so rows come from HBM "
+            "(rows_from_hbm); l2_warm_ms: the same inputs every call; "
+            "wrapper_call_ms: back-to-back wrapper calls; bound: owner + "
+            "row ids of every lane, the distinct rows the owned lanes read, "
+            "the output, at 3.35 TB/s; library: torch.amin of the sums of "
+            "the rows the plain version gathers (every lane, gathered and "
+            "dequantized beforehand; null where the codes are joined, then "
+            "scaled); per_shard_path_ms: the design it replaces on the same "
+            "inputs, the same replays (sharded: E one-entry launches + the "
+            "torch.minimum fold, after the ragged assembly for a row-sharded "
+            "B; scatter: one launch a server over its own lanes, uint16 "
+            "gathered, dequantized and joined by the dense kernel, + the "
+            "concatenation); per_shard_path_call_ms: its back-to-back calls, "
+            "host included", "rows": rows, "ok": True}
 
 
 def phase_times(torch, state: dict, shapes: dict) -> dict:
@@ -4911,8 +4987,8 @@ def main() -> int:
         torch, dev, center_shapes, repair_ctx["partition"], errs)
     emit(sharded_center)
     sharded_times = phase_sharded_times(
-        torch, {**sharded_shapes, **center_sharded_shapes,
-                **scatter_shapes})
+        torch, dev, {**sharded_shapes, **center_sharded_shapes,
+                     **scatter_shapes})
     emit(sharded_times)
     del sharded_shapes, center_sharded_shapes, scatter_shapes
     cap, cap_states = phase_closure_cap(torch, dev, errs, launches)

@@ -25,24 +25,25 @@ server d's district block (``kmax`` rows of the packed layout) and the
 border rows it holds are device tensors of its own. The rows it holds
 live in its *view*, an (n, q) tensor in the storage dtype, allocated the
 first time the server needs a border row; an exchange copies the newly
-held rows into it once, and they persist. A batch uploads only its row
-ids (once, grouped by owning server). Server d's partial is one launch:
-
-* float32 storage — the sharded join kernel over [block; view]
-  (``kernel.sharded_gather_join``): a row id below kmax reads the
-  block, any other row r reads row r − kmax of the view, and a border
-  row's lanes past q are the reference's +inf padding (never the min);
-* quantized storage — the rows are gathered and dequantized on the card
-  with ``QuantSpec.dequantize``'s arithmetic (one float32 multiply,
-  sentinel → +inf), then joined in float32 by the dense join
-  (``ops.join_partial_gathered``), as the reference dequantizes before
-  its join: bit for bit with it under a lossy spec too.
+held rows into it once, and they persist. A batch uploads its row ids
+once, in lane order, and ONE launch of the sharded join kernel
+(``kernel.multi_shard_gather_join``) computes every server's partial:
+each server is an entry of the kernel's shard table — its block and its
+view (a server without one: a one-row min-identity tensor) — and a lane
+joins on its owner's entry: a row id below kmax reads the block, any
+other row r reads row r − kmax of the view, and a border row's lanes
+past q are the reference's +inf padding (never the min). Float32
+storage joins the rows as they are; quantized storage dequantizes each
+code in the kernel before the add (``dequant_first``:
+``QuantSpec.dequantize``'s one float32 multiply, sentinel → +inf), as
+the reference dequantizes before its join — bit for bit with it under a
+lossy spec too.
 
 Each lane is owned by exactly one server, so the coordinator's
-consolidation is the partials concatenated on the card and put back in
-lane order: the same bits as the reference's MIN over m full-batch
-partials. The plane implements the ``QueryPlane`` protocol; select it
-with ``ServingPolicy(engine="scatter_gather")``. Latency consequences
+consolidation is the answer vector copied back: the same bits as the
+reference's MIN over m full-batch partials. The plane implements the
+``QueryPlane`` protocol; select it with
+``ServingPolicy(engine="scatter_gather")``. Latency consequences
 are modeled in ``edge/simulator.py`` and ``serve/loadgen.py``
 (cross-district requests pay ``Topology.peer_rtt_ms()`` instead of
 ``forward_rtt_ms()``).
@@ -73,7 +74,6 @@ from ..core.quantize import QuantSpec
 from ..device import resolve_device
 from ..kernels.label_join import kernel as lj_kernel
 from ..kernels.label_join import ops as lj
-from ..kernels.label_join.ref import sharded_gather_rows, storage16
 from .server import EdgeServer
 from .sharded_oracle import pack_tables, prepare_queries
 
@@ -81,19 +81,6 @@ if TYPE_CHECKING:                                   # pragma: no cover
     from .router import EdgeSystem
 
 INF = np.float32(np.inf)
-
-
-def dequantize(codes: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """``QuantSpec.dequantize`` on a device: 16-bit codes (uint16 stored
-    as int16 bits) → float32 ``code · scale`` (one float32 multiply),
-    the sentinel → +inf."""
-    c = storage16(codes).to(torch.int32)
-    if spec.sentinel == 0xFFFF:
-        c = c & 0xFFFF
-    # a float32 tensor times a Python float multiplies in float32 with
-    # the scalar rounded to float32 first, as ``np.float32(scale)``
-    out = c.to(torch.float32) * float(np.float32(spec.scale))
-    return torch.where(c == spec.sentinel, float("inf"), out)
 
 
 @dataclass
@@ -135,8 +122,8 @@ class ScatterGatherPlane:
     exactness_codes: np.ndarray | None = field(default=None, repr=False)
     degraded: np.ndarray | None = field(default=None, repr=False)
     # set ⇒ the district blocks and the per-server views hold
-    # core.quantize codes (2 bytes/entry on every server); rows are
-    # dequantized per batch before the join, so a lossless spec keeps
+    # core.quantize codes (2 bytes/entry on every server); the join
+    # dequantizes each code before its add, so a lossless spec keeps
     # the plane bit-for-bit with the engines
     quant: QuantSpec | None = field(default=None, repr=False)
 
@@ -243,71 +230,51 @@ class ScatterGatherPlane:
             self._install_rows(d, verts, rows)
             held.add(j)
 
-    def _partial(self, d: int, owner: torch.Tensor, rs: torch.Tensor,
-                 rt: torch.Tensor) -> torch.Tensor:
-        """Server ``d``'s answers on the lanes it owns (row ids of the
-        block, or kmax + vertex for a held border row): one launch."""
-        block = self._blocks[d]
-        view = self._bviews[d] if self._bviews[d] is not None \
-            else self._no_rows
-        if self.quant is None:
-            return lj_kernel.sharded_gather_join(block, view, owner, d, rs,
-                                                 rt)
-        s_rows, t_rows = sharded_gather_rows(block, view, rs, rt,
-                                             quant=self.quant.key())
-        return lj.join_partial_gathered(dequantize(s_rows, self.quant),
-                                        dequantize(t_rows, self.quant))
-
     def _route(self, ss: np.ndarray, ts: np.ndarray
-               ) -> tuple[list, np.ndarray, np.ndarray]:
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The clean path's coordinator pass: each lane's owner and row
-        ids, the lanes grouped by owner, and the peer exchanges their
-        cross lanes need. Returns (groups, rs, rt)."""
+        ids, and the peer exchanges the cross lanes need (the lanes are
+        grouped by owner only to decide those). Returns (owner, rs, rt)
+        in lane order."""
         coords = prepare_queries(self.data, ss, ts)
         owner, rs, rt = coords["owner"], coords["rs"], coords["rt"]
         kmax = self.data.kmax
-        groups = []
-        for d in np.unique(owner):
+        cross = rt >= kmax
+        for d in np.unique(owner[cross]):
             d = int(d)
-            sel = np.nonzero(owner == d)[0]
-            rt_d = rt[sel]
-            cross_t = rt_d >= kmax
-            if cross_t.any():
-                # a cross lane reads the server's OWN B row on the
-                # s-side and the peer district's on the t-side
-                self._ensure_rows(d, np.append(
-                    self.data.assignment[rt_d[cross_t] - kmax], d))
-            groups.append((d, sel))
-        return groups, rs, rt
+            # a cross lane reads the server's OWN B row on the s-side
+            # and the peer district's on the t-side
+            rt_d = rt[cross & (owner == d)]
+            self._ensure_rows(d, np.append(
+                self.data.assignment[rt_d - kmax], d))
+        return owner, rs, rt
 
-    def _launch(self, groups: list[tuple[int, np.ndarray]],
-                rs: np.ndarray, rt: np.ndarray
-                ) -> tuple[np.ndarray, list[torch.Tensor]]:
-        """Every server's partial over its lanes: ``groups`` lists
-        (server, lane indices). The row ids go up once, grouped by
-        server, and one launch a server joins its group. Returns the
-        lanes in group order and the partials, still on the device."""
-        lanes = np.concatenate([sel for _, sel in groups])
-        owner = np.repeat([d for d, _ in groups],
-                          [len(sel) for _, sel in groups])
-        ids = torch.from_numpy(np.stack(
-            [owner, rs[lanes], rt[lanes]]).astype(np.int64)).to(self.device)
-        parts, a = [], 0
-        for d, sel in groups:
-            b = a + len(sel)
-            parts.append(self._partial(d, ids[0, a:b], ids[1, a:b],
-                                       ids[2, a:b]))
-            a = b
-        return lanes, parts
+    def _launch(self, owner: np.ndarray, rs: np.ndarray,
+                rt: np.ndarray) -> torch.Tensor:
+        """Every server's partial over the lanes given, in one launch a
+        ``MAX_SHARDS`` servers: the ids go up once, in lane order, and
+        each server is an entry of the kernel's table (its block, its
+        view). Returns the lanes' answers, still on the device."""
+        ids = torch.from_numpy(np.stack([owner, rs, rt]).astype(
+            np.int64)).to(self.device)
+        views = [self._no_rows if v is None else v for v in self._bviews]
+        quant = None if self.quant is None else self.quant.key()
+        step = lj_kernel.MAX_SHARDS
+        out = None
+        for base in range(0, len(self._blocks), step):
+            own = ids[0] if base == 0 else ids[0] - base
+            part = lj_kernel.multi_shard_gather_join(
+                self._blocks[base:base + step], views[base:base + step],
+                own, ids[1], ids[2], quant=quant,
+                dequant_first=quant is not None)
+            out = part if out is None else torch.minimum(out, part)
+        return out
 
     @staticmethod
-    def _consolidate(out: np.ndarray, lanes: np.ndarray,
-                     parts: list[torch.Tensor]) -> np.ndarray:
+    def _consolidate(answers: torch.Tensor) -> np.ndarray:
         """The coordinator's gather: one server owns each lane, so the
-        partials, concatenated on the device and copied back once, are
-        the answers of ``lanes``."""
-        out[lanes] = torch.cat(parts).cpu().numpy()
-        return out
+        answer vector, copied back once, is the batch's answers."""
+        return answers.cpu().numpy()
 
     # -- QueryPlane ----------------------------------------------------------
 
@@ -326,9 +293,7 @@ class ScatterGatherPlane:
             return np.zeros(0, dtype=np.float32)
         if self.faults is not None:
             return self._execute_faulted(ss, ts)
-        groups, rs, rt = self._route(ss, ts)
-        return self._consolidate(np.empty(qn, dtype=np.float32),
-                                 *self._launch(groups, rs, rt))
+        return self._consolidate(self._launch(*self._route(ss, ts)))
 
     query = execute
     __call__ = execute
@@ -522,7 +487,9 @@ class ScatterGatherPlane:
                 groups.append((d, sel))
                 live[sel] = False
         if groups:
-            self._consolidate(out, *self._launch(groups, rs, rt))
+            lanes = np.concatenate([sel for _, sel in groups])
+            out[lanes] = self._consolidate(self._launch(
+                owner[lanes], rs[lanes], rt[lanes]))
         self.exactness_codes = codes
         self.degraded = reasons
         return out

@@ -47,23 +47,45 @@
 // A row id outside its table yields +inf instead of a fault (the Python
 // wrapper rejects such ids before launching).
 //
-// sharded_join_kernel is one logical edge shard's half of the sharded
-// serving join: it replaces join_pallas as the JAX package runs it under
-// shard_map in kernels/label_join/ops.py (join_sharded_gathered and
-// join_sharded_border_gathered), with the gathers, the pad to W and the
-// select in front of it; the MIN over the shards stays outside. It reads
-// from two sources of different widths: a row id r < block_rows is row r
-// of the shard's district block (pitch W), any other row id a row of the
-// border table (pitch bw <= W), row r - block_rows (for the row-sharded
-// B the caller assembles the touched rows into a (2Q, bw) buffer and
-// points query i's ids at its rows i and Q + i). Lanes >= bw of a border
-// row are the reference's padding (+inf, or the sentinel), which never
-// win the min, so the fold runs over W lanes when both rows come from the
-// block and over the first bw lanes otherwise: bit for bit the padded
-// join. A query whose owner is another shard is +inf and loads no row.
-// Same memory bound, same group-of-lanes design as gather_join_kernel;
-// the vector width is the widest that both pitches and both base
-// addresses allow.
+// multi_shard_join_kernel is the sharded serving join of a whole batch
+// in one launch. It replaces join_pallas as the JAX package runs it
+// under shard_map in kernels/label_join/ops.py (join_sharded_gathered,
+// join_sharded_border_gathered): per shard the gathers, the pad to W, the
+// select, the join and the owner mask, then the pmin over the shards.
+// Every logical shard (or edge server) on the card is one entry of a
+// shard table passed by value as a __grid_constant__ parameter (32 bytes
+// an entry, at most 64 entries: 2 KB of the 4 KB parameter space), so no
+// lane pays a dependent load to find its shard's tables. A lane loads its
+// owner and its two row ids (three independent loads: one latency) and
+// takes entry owner - owner_base. A row id r below the entry's
+// block_rows is row r of its district block (pitch W); any other is
+// border row v = r - block_rows: row v of the entry's own border source
+// (B replicated, or a scatter-gather server's view), or, with row-sharded
+// B (rows_pd > 0), row v % rows_pd of entry v / rows_pd's slice, read in
+// place. Each B row lives in one shard, so that is the row the
+// reference's ragged gather and pmin assemble, bit for bit. Lanes >= bw
+// of a border row are the reference's padding (+inf, or the sentinel),
+// which never win the min, so the fold runs over W lanes when both rows
+// come from the block and over the first bw lanes otherwise. One shard
+// owns each lane, so the pmin over the shards is the owner's value: the
+// lane writes it to out[lane] and no seam runs. An owner outside the
+// table, or a row id outside its source, gives +inf and loads no row.
+// Three arithmetics (MODE): float32 rows; 16-bit codes joined in code
+// units and scaled once (as gather_join_kernel; the sharded engine's
+// uint16 path); 16-bit codes dequantized per element before the add,
+// code * scale in one float32 multiply with the sentinel +inf, which is
+// the scatter-gather plane's dequantize-then-join. Under a lossy scale
+// (a + b)·s and a·s + b·s differ; each mode matches its own reference.
+// What bounds it is what bounds gather_join_kernel: 2·W elements read a
+// lane and 2 operations on each, memory latency at the engine's 4096
+// lanes (rows L2-resident) and bytes at the center's 65 536. The design
+// answer is the launch structure: one grid over all Q lanes fills the 132
+// SMs (a launch a shard would spend (E - 1) / E of its groups on lanes
+// that only load ids, and leave E - 1 seams), and the vector width and
+// the lanes a query are picked once for the batch, over both pitches and
+// every base address in the table. The owner's entry (and, row-sharded,
+// the slice's) is one dependent lookup in the parameter bank between the
+// ids and the rows.
 
 #include <atomic>
 #include <cstdint>
@@ -117,11 +139,13 @@ __device__ __forceinline__ float element(const VT& v, int e) {
 // before its first min. A code table's sentinel (its type's largest
 // code) stands for +inf, so a sum with one never lowers acc: such a sum
 // is skipped, and max(a, b) is the sentinel exactly when either is.
-template <typename T, bool WITH_LB, int V>
+// DEQ dequantizes each code before the add: a·scale + b·scale, two
+// rounded multiplies and one rounded add (never contracted).
+template <typename T, bool WITH_LB, int V, bool DEQ = false>
 __device__ __forceinline__ void fold_rows(
     const typename VecOf<V>::type* __restrict__ srow,
     const typename VecOf<V>::type* __restrict__ trow, int nvec, int lane,
-    int group, float& acc, float& smin, float& tmin) {
+    int group, float scale, float& acc, float& smin, float& tmin) {
   using VT = typename VecOf<V>::type;
   constexpr int kElems = V / static_cast<int>(sizeof(T));
   constexpr bool kCodes = !std::is_same<T, float>::value;
@@ -145,7 +169,10 @@ __device__ __forceinline__ void fold_rows(
         const float a = element<T>(sv[x], e);
         const float b = element<T>(tv[x], e);
         if (kCodes) {
-          if (fmaxf(a, b) != sentinel) acc = fminf(acc, a + b);
+          if (fmaxf(a, b) != sentinel)
+            acc = fminf(acc, DEQ ? __fadd_rn(__fmul_rn(a, scale),
+                                             __fmul_rn(b, scale))
+                                 : a + b);
         } else {
           acc = fminf(acc, a + b);
           if (WITH_LB) {
@@ -160,8 +187,9 @@ __device__ __forceinline__ void fold_rows(
 
 // The butterfly over the group's lanes (every lane of the warp takes
 // part; xor offsets < group stay inside the group), then the group's
-// first lane writes query `query`'s answer.
-template <typename T, bool WITH_LB>
+// first lane writes query `query`'s answer (times scale with SCALE).
+template <typename T, bool WITH_LB,
+          bool SCALE = !std::is_same<T, float>::value>
 __device__ __forceinline__ void reduce_store(float acc, float smin, float tmin,
                                              int group, int lane,
                                              int64_t query, int64_t q,
@@ -176,9 +204,8 @@ __device__ __forceinline__ void reduce_store(float acc, float smin, float tmin,
     }
   }
   if (lane == 0 && query < q) {
-    constexpr bool kCodes = !std::is_same<T, float>::value;
-    out[query] = kCodes ? acc * scale : acc;
-    if (WITH_LB) lb[query] = kCodes ? (smin + tmin) * scale : smin + tmin;
+    out[query] = SCALE ? acc * scale : acc;
+    if (WITH_LB) lb[query] = SCALE ? (smin + tmin) * scale : smin + tmin;
   }
 }
 
@@ -208,23 +235,61 @@ gather_join_kernel(const T* __restrict__ s_table,
     const VT* tvec = reinterpret_cast<const VT*>(t_table);
     if (r_s >= 0 && r_s < s_rows && r_t >= 0 && r_t < t_rows)
       fold_rows<T, WITH_LB, V>(svec + r_s * nvec, tvec + r_t * nvec, nvec,
-                               lane, group, acc, smin, tmin);
+                               lane, group, scale, acc, smin, tmin);
   }
   reduce_store<T, WITH_LB>(acc, smin, tmin, group, lane, query, q, scale, out,
                            lb);
 }
 
-// Shard `shard`'s half of the sharded join (see the header). Block b
-// serves queries b * (kThreads >> group_log2) onward, one a group of
+constexpr int kMaxShards = 64;
+
+// One logical shard's tables, as a lane of the sharded join reads them.
+struct JoinShard {
+  const void* block;      // (block_rows, w) district block
+  const void* border;     // (border_rows, bw) border source
+  int64_t block_rows;
+  int64_t border_rows;
+};
+
+struct ShardTable {
+  JoinShard shard[kMaxShards];
+};
+
+// the arithmetic of multi_shard_join_kernel
+constexpr int kFloatRows = 0, kJoinThenScale = 1, kDequantFirst = 2;
+
+// Row id r of a lane that entry e owns, as a vector pointer (see the
+// header); null where r lies outside its source.
+template <typename VT>
+__device__ __forceinline__ const VT* shard_row(const ShardTable& table,
+                                               int shards, const JoinShard& e,
+                                               int64_t r, int wvec, int bvec,
+                                               int64_t rows_pd) {
+  if (r < 0) return nullptr;
+  if (r < e.block_rows) return static_cast<const VT*>(e.block) + r * wvec;
+  int64_t v = r - e.block_rows;
+  const JoinShard* src = &e;
+  if (rows_pd > 0) {            // row-sharded B: the owning slice, in place
+    const int64_t j = v / rows_pd;
+    if (j >= shards) return nullptr;
+    src = &table.shard[j];
+    v -= j * rows_pd;
+  }
+  return v < src->border_rows ? static_cast<const VT*>(src->border) + v * bvec
+                              : nullptr;
+}
+
+// The sharded join of a whole batch (see the header). Block b serves
+// queries b * (kThreads >> group_log2) onward, one a group of
 // 1 << group_log2 lanes.
-template <typename T, int V>
+template <typename T, int MODE, int V>
 __global__ void __launch_bounds__(kThreads)
-sharded_join_kernel(const T* __restrict__ block, int64_t block_rows,
-                    int64_t w, const T* __restrict__ border,
-                    int64_t border_rows, int64_t bw,
-                    const int64_t* __restrict__ owner, int64_t shard,
-                    const int64_t* __restrict__ rs,
-                    const int64_t* __restrict__ rt, int64_t q, int group_log2, float scale, float* __restrict__ out) {
+multi_shard_join_kernel(const __grid_constant__ ShardTable table, int shards,
+                        int64_t owner_base, int64_t rows_pd, int64_t w,
+                        int64_t bw, const int64_t* __restrict__ owner,
+                        const int64_t* __restrict__ rs,
+                        const int64_t* __restrict__ rt, int64_t q,
+                        int group_log2, float scale, float* __restrict__ out) {
   using VT = typename VecOf<V>::type;
   constexpr int kElems = V / static_cast<int>(sizeof(T));
   const int group = 1 << group_log2;
@@ -237,22 +302,24 @@ sharded_join_kernel(const T* __restrict__ block, int64_t block_rows,
   float acc = inf, smin = inf, tmin = inf;
   if (query < q) {
     // three independent loads: one memory latency before the rows
-    const int64_t own = owner[query];
+    const int64_t slot = owner[query] - owner_base;
     const int64_t r_s = rs[query];
     const int64_t r_t = rt[query];
-    const bool s_blk = r_s < block_rows, t_blk = r_t < block_rows;
-    const int64_t b_s = r_s - block_rows, b_t = r_t - block_rows;
-    const VT* bvecs = reinterpret_cast<const VT*>(block);
-    const VT* rvecs = reinterpret_cast<const VT*>(border);
-    if (own == shard && r_s >= 0 && r_t >= 0 &&
-        (s_blk || b_s < border_rows) && (t_blk || b_t < border_rows))
-      fold_rows<T, false, V>(s_blk ? bvecs + r_s * wvec : rvecs + b_s * bvec,
-                             t_blk ? bvecs + r_t * wvec : rvecs + b_t * bvec,
-                             s_blk && t_blk ? wvec : bvec, lane, group, acc,
-                             smin, tmin);
+    if (slot >= 0 && slot < shards) {
+      const JoinShard& e = table.shard[slot];
+      const VT* srow = shard_row<VT>(table, shards, e, r_s, wvec, bvec,
+                                     rows_pd);
+      const VT* trow = shard_row<VT>(table, shards, e, r_t, wvec, bvec,
+                                     rows_pd);
+      if (srow != nullptr && trow != nullptr)
+        fold_rows<T, false, V, MODE == kDequantFirst>(
+            srow, trow,
+            r_s < e.block_rows && r_t < e.block_rows ? wvec : bvec, lane,
+            group, scale, acc, smin, tmin);
+    }
   }
-  reduce_store<T, false>(acc, smin, tmin, group, lane, query, q, scale, out,
-                         nullptr);
+  reduce_store<T, false, MODE == kJoinThenScale>(
+      acc, smin, tmin, group, lane, query, q, scale, out, nullptr);
 }
 
 constexpr int kMaxDevices = 64;
@@ -305,14 +372,14 @@ Launch pick(int vec) {
 }
 
 // The widest vector (16, 8, 4 bytes, or 2 for 16-bit codes) dividing
-// every pitch and base address given; 0 where none does.
+// every pitch and each of the `count` base addresses; 0 where none does.
 int widest_vec(int64_t item, std::initializer_list<int64_t> pitches,
-               std::initializer_list<const void*> bases) {
+               const void* const* bases, int count) {
   for (int v : {16, 8, 4, 2}) {
     bool fits = v >= item;
     for (int64_t p : pitches) fits = fits && p % v == 0;
-    for (const void* b : bases)
-      fits = fits && reinterpret_cast<uintptr_t>(b) % v == 0;
+    for (int i = 0; fits && i < count; ++i)
+      fits = reinterpret_cast<uintptr_t>(bases[i]) % v == 0;
     if (fits) return v;
   }
   return 0;
@@ -351,45 +418,61 @@ bool lanes_for(int64_t pitch, int vec, int64_t q, int lanes, int sms,
 bool layout(int64_t item, const void* s_table, const void* t_table,
             int64_t w, int64_t q, int lanes, int sms, int* vec, int* group) {
   const int64_t pitch = w * item;
-  *vec = widest_vec(item, {pitch}, {s_table, t_table});
+  const void* bases[] = {s_table, t_table};
+  *vec = widest_vec(item, {pitch}, bases, 2);
   return *vec != 0 && lanes_for(pitch, *vec, q, lanes, sms, group);
 }
 
-using ShardedLaunch = cudaError_t (*)(const void*, int64_t, int64_t,
-                                      const void*, int64_t, int64_t,
-                                      const int64_t*, int64_t, const int64_t*,
-                                      const int64_t*, int64_t, int, float,
-                                      float*, cudaStream_t);
-
-template <typename T, int V>
-cudaError_t launch_sharded(const void* block, int64_t block_rows, int64_t w,
-                           const void* border, int64_t border_rows,
-                           int64_t bw, const int64_t* owner, int64_t shard,
-                           const int64_t* rs, const int64_t* rt, int64_t q,
-                           int group_log2, float scale, float* out,
-                           cudaStream_t stream) {
+template <typename T, int MODE, int V>
+cudaError_t launch_multi(const ShardTable& table, int shards,
+                         int64_t owner_base, int64_t rows_pd, int64_t w,
+                         int64_t bw, const int64_t* owner, const int64_t* rs,
+                         const int64_t* rt, int64_t q, int group_log2,
+                         float scale, float* out, cudaStream_t stream) {
   const int64_t per_block = kThreads >> group_log2;
   const int64_t blocks = (q + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  sharded_join_kernel<T, V>
+  multi_shard_join_kernel<T, MODE, V>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          static_cast<const T*>(block), block_rows, w,
-          static_cast<const T*>(border), border_rows, bw, owner, shard, rs,
-          rt, q, group_log2, scale, out);
+          table, shards, owner_base, rows_pd, w, bw, owner, rs, rt, q,
+          group_log2, scale, out);
   return cudaGetLastError();
 }
 
-template <typename T>
-ShardedLaunch pick_sharded(int vec) {
+using MultiLaunch = cudaError_t (*)(const ShardTable&, int, int64_t, int64_t,
+                                    int64_t, int64_t, const int64_t*,
+                                    const int64_t*, const int64_t*, int64_t,
+                                    int, float, float*, cudaStream_t);
+
+template <typename T, int MODE>
+MultiLaunch pick_multi(int vec) {
   switch (vec) {
-    case 16: return launch_sharded<T, 16>;
-    case 8: return launch_sharded<T, 8>;
-    case 4: return launch_sharded<T, 4>;
+    case 16: return launch_multi<T, MODE, 16>;
+    case 8: return launch_multi<T, MODE, 8>;
+    case 4: return launch_multi<T, MODE, 4>;
     case 2:
-      if constexpr (sizeof(T) == 2) return launch_sharded<T, 2>;
+      if constexpr (sizeof(T) == 2) return launch_multi<T, MODE, 2>;
       return nullptr;
     default: return nullptr;
   }
+}
+
+// the instance for (dtype code, mode, vector bytes); null where none
+MultiLaunch pick_multi(int dtype, int mode, int vec) {
+  if (dtype == 0) {
+    return mode == kFloatRows ? pick_multi<float, kFloatRows>(vec) : nullptr;
+  }
+  if (mode == kJoinThenScale) {
+    return dtype == 1   ? pick_multi<uint16_t, kJoinThenScale>(vec)
+           : dtype == 2 ? pick_multi<int16_t, kJoinThenScale>(vec)
+                        : nullptr;
+  }
+  if (mode == kDequantFirst) {
+    return dtype == 1   ? pick_multi<uint16_t, kDequantFirst>(vec)
+           : dtype == 2 ? pick_multi<int16_t, kDequantFirst>(vec)
+                        : nullptr;
+  }
+  return nullptr;
 }
 
 // the SM count of the current device
@@ -399,12 +482,16 @@ int current_sms() {
   return sm_count(device);
 }
 
-// The sharded join's layout on the current device: the widest vector
-// both sources allow, the lanes of a block row (the longest fold).
-bool sharded_layout(int64_t item, const void* block, const void* border,
-                    int64_t w, int64_t bw, int64_t q, int* vec, int* group) {
+// The sharded join's layout on the current device, once for the batch:
+// the widest vector both pitches and every entry's two base addresses
+// allow, and the lanes a query for a block row (the longest fold).
+bool multi_layout(int64_t item, int shards, const void* const* blocks,
+                  const void* const* borders, int64_t w, int64_t bw,
+                  int64_t q, int* vec, int* group) {
   const int sms = current_sms();
-  *vec = widest_vec(item, {w * item, bw * item}, {block, border});
+  const int a = widest_vec(item, {w * item, bw * item}, blocks, shards);
+  const int b = widest_vec(item, {w * item, bw * item}, borders, shards);
+  *vec = a < b ? a : b;         // both powers of two: the smaller divides
   return sms > 0 && *vec != 0 && lanes_for(w * item, *vec, q, 0, sms, group);
 }
 
@@ -471,48 +558,60 @@ extern "C" int repro_label_join_layout(int dtype, const void* s_table,
   return 0;
 }
 
-// One logical shard's half of the sharded join (sharded_join_kernel).
+// The sharded join of a whole batch (multi_shard_join_kernel).
 //   dtype, sentinel, scale: as repro_label_join
-//   block: (block_rows, w) district block; border: (border_rows, bw) border
-//          table, bw <= w; owner, rs, rt: q int64 each; shard: this shard
+//   mode: 0 float32 rows; 1 codes joined, then scaled; 2 codes
+//         dequantized (code * scale, sentinel +inf) before the add
+//   shards: entries in the table, 1 to 64; entry s is blocks[s], a
+//           (block_rows[s], w) district block, and borders[s], a
+//           (border_rows[s], bw) border source, bw <= w
+//   rows_pd: 0, or with row-sharded B the rows of each border slice:
+//            border row v is row v % rows_pd of entry v / rows_pd's
+//            source (owner_base must then be 0)
+//   owner_base: lane i takes entry owner[i] - owner_base
+//   owner, rs, rt: q int64 each; out: q float32, every lane written
 // Returns the cudaError_t of the launch (0 = launched). q must be > 0.
-extern "C" int repro_label_join_sharded(int dtype, const void* block,
-                                        int64_t block_rows,
-                                        int64_t w, const void* border,
-                                        int64_t border_rows, int64_t bw,
-                                        const void* owner, int64_t shard,
-                                        const void* rs, const void* rt,
-                                        int64_t q, int sentinel, float scale,
-                                        void* out, void* stream) {
+extern "C" int repro_label_join_multi(
+    int dtype, int mode, int shards, const void* const* blocks,
+    const int64_t* block_rows, const void* const* borders,
+    const int64_t* border_rows, int64_t w, int64_t bw, int64_t rows_pd,
+    int64_t owner_base, const void* owner, const void* rs, const void* rt,
+    int64_t q, int sentinel, float scale, void* out, void* stream) {
   const int64_t item = dtype == 0 ? 4 : 2;
-  if (q <= 0 || w < 0 || w > 0x7fffffffLL || bw < 0 || bw > w ||
+  if (q <= 0 || shards < 1 || shards > kMaxShards || w < 0 ||
+      w > 0x7fffffffLL || bw < 0 || bw > w || rows_pd < 0 ||
+      (rows_pd > 0 && owner_base != 0) ||
       (dtype == 1 && sentinel != 0xFFFF) || (dtype == 2 && sentinel != 0x7FFF))
     return cudaErrorInvalidValue;
+  ShardTable table = {};
+  for (int s = 0; s < shards; ++s) {
+    if (block_rows[s] < 0 || border_rows[s] < 0) return cudaErrorInvalidValue;
+    table.shard[s] = {blocks[s], borders[s], block_rows[s], border_rows[s]};
+  }
   int vec = 0, group = 0;
-  if (!sharded_layout(item, block, border, w, bw, q, &vec, &group))
+  if (!multi_layout(item, shards, blocks, borders, w, bw, q, &vec, &group))
     return cudaErrorInvalidValue;
-  ShardedLaunch fn = dtype == 0   ? pick_sharded<float>(vec)
-                     : dtype == 1 ? pick_sharded<uint16_t>(vec)
-                     : dtype == 2 ? pick_sharded<int16_t>(vec)
-                                  : nullptr;
+  const MultiLaunch fn = pick_multi(dtype, mode, vec);
   if (fn == nullptr) return cudaErrorInvalidValue;
   int group_log2 = 0;
   while ((1 << group_log2) < group) ++group_log2;
-  return fn(block, block_rows, w, border, border_rows, bw,
-            static_cast<const int64_t*>(owner), shard,
+  return fn(table, shards, owner_base, rows_pd, w, bw,
+            static_cast<const int64_t*>(owner),
             static_cast<const int64_t*>(rs), static_cast<const int64_t*>(rt),
             q, group_log2, scale, static_cast<float*>(out),
             static_cast<cudaStream_t>(stream));
 }
 
-// The layout repro_label_join_sharded picks for these arguments on the
+// The layout repro_label_join_multi picks for these arguments on the
 // current device, as repro_label_join_layout reports it.
-extern "C" int repro_label_join_sharded_layout(int dtype, const void* block,
-                                               const void* border, int64_t w,
-                                               int64_t bw, int64_t q,
-                                               int* layout_out) {
-  if (!sharded_layout(dtype == 0 ? 4 : 2, block, border, w, bw, q,
-                      layout_out, layout_out + 1))
+extern "C" int repro_label_join_multi_layout(int dtype, int shards,
+                                             const void* const* blocks,
+                                             const void* const* borders,
+                                             int64_t w, int64_t bw, int64_t q,
+                                             int* layout_out) {
+  if (shards < 1 || shards > kMaxShards ||
+      !multi_layout(dtype == 0 ? 4 : 2, shards, blocks, borders, w, bw, q,
+                    layout_out, layout_out + 1))
     return cudaErrorInvalidValue;
   return 0;
 }

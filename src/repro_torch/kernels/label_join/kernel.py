@@ -8,21 +8,27 @@ It replaces the JAX package's Pallas kernels ``join_pallas`` and
 ``join_lb_pallas`` (``src/repro/kernels/label_join/kernel.py``) together
 with the XLA gathers in front of them.
 
-``sharded_gather_join`` is the wrapper of the same file's sharded
-kernel: one logical edge shard's half of the sharded serving join, over
-its district block and a border table of another width, lanes of other
-shards masked to +inf. It replaces ``join_pallas`` as the JAX package
-runs it under ``shard_map`` (``src/repro/kernels/label_join/ops.py``,
-``join_sharded_gathered`` and ``join_sharded_border_gathered``).
+``multi_shard_gather_join`` is the wrapper of the same file's sharded
+kernel: the sharded serving join of a whole batch in one launch, over
+every logical edge shard (or scatter-gather server) on the card — each
+shard's district block and border source of another width, B
+replicated or row-sharded (read in place), float32 rows or 16-bit codes
+joined then scaled or dequantized first. It replaces ``join_pallas`` as
+the JAX package runs it under ``shard_map``
+(``src/repro/kernels/label_join/ops.py``, ``join_sharded_gathered`` and
+``join_sharded_border_gathered``), the ``pmin`` over the shards
+included. ``sharded_gather_join`` is its one-entry call: one shard's
+half, lanes of other shards +inf.
 
 On a CUDA tensor a wrapper launches its kernel (building it on first
 use) or raises; on a CPU tensor it runs the plain version of ``ref.py``.
 There is no other path. The C entry picks the kernel's vector width
 and lanes per query from the row pitch, the tables' base alignment and
-the batch; ``join_layout`` reports its pick. The kernel takes float32
-tables and 16-bit codes; the plain version also takes bfloat16 and
-float16 tables, as the JAX package's ``join`` / ``join_with_bound``
-do. ``LAUNCHES`` counts kernel launches per kernel.
+the batch; ``join_layout`` and ``multi_shard_join_layout`` report its
+pick. The kernel takes float32 tables and 16-bit codes; the plain
+version also takes bfloat16 and float16 tables, as the JAX package's
+``join`` / ``join_with_bound`` do. ``LAUNCHES`` counts kernel launches
+per kernel.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from pathlib import Path
 import torch
 
 from .. import build
-from .ref import (FLOAT_DTYPES, gather_join_ref, sharded_gather_join_ref,
+from .ref import (FLOAT_DTYPES, gather_join_ref,
+                  multi_shard_gather_join_ref, sharded_gather_join_ref,
                   storage16)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "label_join.cu"
@@ -43,6 +50,11 @@ LAUNCHES = {"label_join": 0, "label_join_lb": 0,
             "label_join_sharded": 0}
 
 _DTYPE_FLOAT32, _DTYPE_UINT16, _DTYPE_INT16 = 0, 1, 2
+# the sharded kernel's arithmetic: float32 rows, codes joined then
+# scaled, codes dequantized before the add
+_MODE_FLOAT, _MODE_JOIN_THEN_SCALE, _MODE_DEQUANT_FIRST = 0, 1, 2
+# entries of the sharded kernel's shard table (its C entry's limit)
+MAX_SHARDS = 64
 _SENTINELS = {0xFFFF: _DTYPE_UINT16, 0x7FFF: _DTYPE_INT16}
 _CODE_DTYPES = tuple(d for d in (torch.int16, getattr(torch, "uint16", None))
                      if d is not None)
@@ -59,13 +71,14 @@ def _lib() -> ctypes.CDLL:
         lib.repro_label_join_layout.argtypes = [i32, p, p, i64, i64, i32,
                                                 i32, p]
         lib.repro_label_join_layout.restype = ctypes.c_int
-        lib.repro_label_join_sharded.argtypes = [
-            i32, p, i64, i64, p, i64, i64, p, i64, p, p, i64, i32,
-            ctypes.c_float, p, p]
-        lib.repro_label_join_sharded.restype = ctypes.c_int
-        lib.repro_label_join_sharded_layout.argtypes = [
-            i32, p, p, i64, i64, i64, p]
-        lib.repro_label_join_sharded_layout.restype = ctypes.c_int
+        pp, p64 = ctypes.POINTER(p), ctypes.POINTER(i64)
+        lib.repro_label_join_multi.argtypes = [
+            i32, i32, i32, pp, p64, pp, p64, i64, i64, i64, i64, p, p, p,
+            i64, i32, ctypes.c_float, p, p]
+        lib.repro_label_join_multi.restype = ctypes.c_int
+        lib.repro_label_join_multi_layout.argtypes = [
+            i32, i32, pp, pp, i64, i64, i64, p]
+        lib.repro_label_join_multi_layout.restype = ctypes.c_int
     return lib
 
 
@@ -88,21 +101,42 @@ def join_layout(s_table: torch.Tensor, t_table: torch.Tensor, q: int,
     return out[0], out[1]
 
 
-def sharded_join_layout(block: torch.Tensor, border: torch.Tensor,
-                        q: int) -> tuple[int, int]:
+def _shard_table(blocks, borders):
+    """The C entry's table arguments: each entry's two base addresses and
+    row counts (uint16 codes as their int16 bits)."""
+    e = len(blocks)
+    ptr, rows = ctypes.c_void_p * e, ctypes.c_int64 * e
+    return (ptr(*(storage16(b).data_ptr() for b in blocks)),
+            rows(*(b.shape[0] for b in blocks)),
+            ptr(*(storage16(b).data_ptr() for b in borders)),
+            rows(*(b.shape[0] for b in borders)))
+
+
+def multi_shard_join_layout(blocks: list[torch.Tensor],
+                            borders: list[torch.Tensor],
+                            q: int) -> tuple[int, int]:
     """The (vector bytes, lanes a query) the sharded kernel takes for
-    ``q`` queries over a CUDA district block and border table on their
-    card, as its C entry picks them."""
-    code = _DTYPE_FLOAT32 if block.dtype == torch.float32 else _DTYPE_INT16
+    ``q`` queries over these CUDA blocks and border sources on their
+    card, as its C entry picks them: once for the batch, over both
+    widths and every base address."""
+    code = _DTYPE_FLOAT32 if blocks[0].dtype == torch.float32 \
+        else _DTYPE_INT16
+    b_ptr, _, r_ptr, _ = _shard_table(blocks, borders)
     out = (ctypes.c_int * 2)()
-    with torch.cuda.device(block.device):
-        err = _lib().repro_label_join_sharded_layout(
-            code, block.data_ptr(), border.data_ptr(), block.shape[1],
-            border.shape[1], q, out)
+    with torch.cuda.device(blocks[0].device):
+        err = _lib().repro_label_join_multi_layout(
+            code, len(blocks), b_ptr, r_ptr, blocks[0].shape[1],
+            borders[0].shape[1], q, out)
     if err != 0:
-        raise ValueError(f"sharded_join_layout: no layout (CUDA error "
+        raise ValueError(f"multi_shard_join_layout: no layout (CUDA error "
                          f"{err})")
     return out[0], out[1]
+
+
+def sharded_join_layout(block: torch.Tensor, border: torch.Tensor,
+                        q: int) -> tuple[int, int]:
+    """The layout of ``sharded_gather_join``: its one entry's."""
+    return multi_shard_join_layout([block], [border], q)
 
 
 def _check_codes(tables, quant) -> None:
@@ -193,26 +227,113 @@ def gather_join(s_table: torch.Tensor, rs: torch.Tensor,
     return (out, lb) if with_lb else out
 
 
-def _check_sharded(block, border, owner, rs, rt, quant) -> None:
-    dev = block.device
-    if any(x.device != dev for x in (border, owner, rs, rt)):
-        raise ValueError("sharded_gather_join: tables and ids must share a "
-                         "device")
-    if block.dim() != 2 or border.dim() != 2 \
-            or border.shape[1] > block.shape[1]:
-        raise ValueError("sharded_gather_join: a 2-D block and a 2-D "
-                         "border table no wider than it, got "
-                         f"{tuple(block.shape)} and {tuple(border.shape)}")
+def _check_multi(blocks, borders, owner, rs, rt, rows_pd, quant,
+                 dequant_first, what) -> None:
+    if not blocks or len(blocks) != len(borders):
+        raise ValueError(f"{what}: one border source a block, at least one "
+                         f"shard; got {len(blocks)} and {len(borders)}")
+    if len(blocks) > MAX_SHARDS:
+        raise ValueError(f"{what}: at most {MAX_SHARDS} shards a call, got "
+                         f"{len(blocks)}")
+    dev = blocks[0].device
+    if any(x.device != dev for x in (*blocks, *borders, owner, rs, rt)):
+        raise ValueError(f"{what}: tables and ids must share a device")
+    if any(x.dim() != 2 for x in (*blocks, *borders)):
+        raise ValueError(f"{what}: blocks and border sources must be 2-D")
+    w, bw = blocks[0].shape[1], borders[0].shape[1]
+    if any(b.shape[1] != w for b in blocks) \
+            or any(b.shape[1] != bw for b in borders) or bw > w:
+        raise ValueError(f"{what}: the blocks must share a width W and the "
+                         "border sources a width no wider than it, got "
+                         f"{sorted({tuple(b.shape) for b in blocks})} and "
+                         f"{sorted({tuple(b.shape) for b in borders})}")
+    if rows_pd is not None and (rows_pd < 1 or any(
+            b.shape[0] != rows_pd for b in borders)):
+        raise ValueError(f"{what}: each border slice of a row-sharded B "
+                         f"must hold rows_per_border_shard = {rows_pd} rows")
     if any(x.dim() != 1 or x.shape != rs.shape or x.dtype != torch.int64
            for x in (owner, rs, rt)):
-        raise ValueError("sharded_gather_join: owner and row ids must be "
-                         "three int64 vectors of one length")
+        raise ValueError(f"{what}: owner and row ids must be three int64 "
+                         "vectors of one length")
+    tables = (*blocks, *borders)
     if quant is None:
-        if block.dtype != torch.float32 or border.dtype != torch.float32:
-            raise ValueError("sharded_gather_join: float tables must be "
-                             "float32")
+        if dequant_first:
+            raise ValueError(f"{what}: dequant_first needs code tables "
+                             "(quant)")
+        if any(x.dtype != torch.float32 for x in tables):
+            raise ValueError(f"{what}: float tables must be float32")
     else:
-        _check_codes((block, border), quant)
+        _check_codes(tables, quant)
+
+
+def _launch_multi(blocks, borders, owner, rs, rt, *, rows_pd, owner_base,
+                  quant, dequant_first, what) -> torch.Tensor:
+    """One launch of the sharded kernel over the table of ``blocks`` /
+    ``borders`` (CUDA tensors, checked); float32 ``(Q,)`` out."""
+    dev = blocks[0].device
+    for name, group in (("blocks", blocks), ("borders", borders),
+                        ("ids", (owner, rs, rt))):
+        if not all(x.is_contiguous() for x in group):
+            raise ValueError(f"{what}: {name} must be contiguous")
+    q = rs.shape[0]
+    fn = _lib().repro_label_join_multi if q else None
+    out = torch.empty(q, dtype=torch.float32, device=dev)
+    if not q:
+        return out
+    if quant is None:
+        code, mode, sentinel, scale = _DTYPE_FLOAT32, _MODE_FLOAT, 0, 1.0
+    else:
+        sentinel, scale = quant
+        code = _SENTINELS[sentinel]
+        mode = _MODE_DEQUANT_FIRST if dequant_first \
+            else _MODE_JOIN_THEN_SCALE
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(code, mode, len(blocks), *_shard_table(blocks, borders),
+                 blocks[0].shape[1], borders[0].shape[1], rows_pd or 0,
+                 int(owner_base), owner.data_ptr(), rs.data_ptr(),
+                 rt.data_ptr(), q, int(sentinel), float(scale),
+                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"label_join_sharded kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["label_join_sharded"] += 1
+    return out
+
+
+def multi_shard_gather_join(blocks: list[torch.Tensor],
+                            borders: list[torch.Tensor], owner: torch.Tensor,
+                            rs: torch.Tensor, rt: torch.Tensor, *,
+                            rows_per_border_shard: int | None = None,
+                            quant: tuple[int, float] | None = None,
+                            dequant_first: bool = False) -> torch.Tensor:
+    """The sharded serving join of a whole batch, one launch over every
+    shard: lane i, owned by shard ``d = owner[i]`` (another value: +inf),
+    joins its two rows — a row id r below ``blocks[d].shape[0]`` reads
+    ``blocks[d][r]``, any other border row ``v = r - blocks[d].shape[0]``,
+    which is ``borders[d][v]`` (B replicated, or a server's view) or,
+    with ``rows_per_border_shard = rpd`` (row-sharded B),
+    ``borders[v // rpd][v % rpd]``. Border rows are narrower than the
+    blocks; their missing lanes are the min identity. ``quant =
+    (sentinel, scale)`` marks 16-bit code tables, joined in code units
+    and scaled once, or with ``dequant_first`` dequantized element by
+    element (``code * scale``, the sentinel +inf) before the add.
+    Every tensor on one device; at most ``MAX_SHARDS`` shards. Float32
+    ``(Q,)`` out, in lane order."""
+    what = "multi_shard_gather_join"
+    _check_multi(blocks, borders, owner, rs, rt, rows_per_border_shard,
+                 quant, dequant_first, what)
+    dev = blocks[0].device
+    if dev.type == "cpu":
+        return multi_shard_gather_join_ref(
+            blocks, borders, owner, rs, rt,
+            rows_per_border_shard=rows_per_border_shard, quant=quant,
+            dequant_first=dequant_first)
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return _launch_multi(blocks, borders, owner, rs, rt,
+                         rows_pd=rows_per_border_shard, owner_base=0,
+                         quant=quant, dequant_first=dequant_first, what=what)
 
 
 def sharded_gather_join(block: torch.Tensor, border: torch.Tensor,
@@ -220,42 +341,20 @@ def sharded_gather_join(block: torch.Tensor, border: torch.Tensor,
                         rt: torch.Tensor, *,
                         quant: tuple[int, float] | None = None
                         ) -> torch.Tensor:
-    """Shard ``shard``'s half of the sharded serving join: query i, if
-    ``owner[i] == shard``, joins its two rows — row id r below
-    ``block.shape[0]`` reads ``block[r]``, any other the border table
-    (row ``r - block.shape[0]``) — and every other query is +inf. ``quant = (sentinel, scale)`` marks 16-bit code
+    """Shard ``shard``'s half of the sharded serving join, the sharded
+    kernel's one-entry call: query i, if ``owner[i] == shard``, joins its
+    two rows — row id r below ``block.shape[0]`` reads ``block[r]``, any
+    other the border table (row ``r - block.shape[0]``) — and every
+    other query is +inf. ``quant = (sentinel, scale)`` marks 16-bit code
     tables. Float32 ``(Q,)`` out."""
-    _check_sharded(block, border, owner, rs, rt, quant)
+    what = "sharded_gather_join"
+    _check_multi([block], [border], owner, rs, rt, None, quant, False, what)
     dev = block.device
     if dev.type == "cpu":
         return sharded_gather_join_ref(block, border, owner, shard, rs, rt,
                                        quant=quant)
     if dev.type != "cuda":
-        raise ValueError(f"sharded_gather_join: unsupported device {dev}")
-    for name, x in (("block", block), ("border", border), ("owner", owner),
-                    ("rs", rs), ("rt", rt)):
-        if not x.is_contiguous():
-            raise ValueError(f"sharded_gather_join: {name} must be "
-                             "contiguous")
-    q = rs.shape[0]
-    fn = _lib().repro_label_join_sharded if q else None
-    out = torch.empty(q, dtype=torch.float32, device=dev)
-    if q:
-        if quant is None:
-            code, sentinel, scale = _DTYPE_FLOAT32, 0, 1.0
-        else:
-            sentinel, scale = quant
-            code = _SENTINELS[sentinel]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(code, storage16(block).data_ptr(), block.shape[0],
-                     block.shape[1], storage16(border).data_ptr(),
-                     border.shape[0], border.shape[1], owner.data_ptr(),
-                     int(shard), rs.data_ptr(), rt.data_ptr(), q,
-                     int(sentinel), float(scale),
-                     out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"label_join_sharded kernel launch failed: "
-                               f"CUDA error {err}")
-        LAUNCHES["label_join_sharded"] += 1
-    return out
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return _launch_multi([block], [border], owner, rs, rt, rows_pd=None,
+                         owner_base=shard, quant=quant, dequant_first=False,
+                         what=what)

@@ -14,12 +14,15 @@ path of the port (anchors refer to PAPER.md / the source paper):
   (Definition 5) pass that certifies Theorem 3.
 * ``join_sharded_gathered`` — the mesh-sharded §4.2 dispatch: district
   blocks sharded over the logical shards of an ``EdgeMesh``, the border
-  table replicated at its natural width q; one launch of the sharded
-  kernel a shard, then the mesh's MIN seam over the shards' partials.
+  table replicated at its natural width q. Where every shard lies on
+  one device (``default_edge_mesh``), one launch of the sharded kernel
+  serves the batch and writes the answers in lane order; across devices
+  one launch a shard, then the mesh's MIN seam over the partials.
 * ``join_sharded_border_gathered`` — the fully-sharded variant: B itself
-  is row-sharded; the touched rows are assembled by a ragged gather
-  (plain torch, as the reference's XLA) and the MIN seam, then joined
-  like the replicated case.
+  is row-sharded. On one device the kernel reads each touched B row in
+  place in its owning slice; across devices the touched rows are
+  assembled first by a ragged gather (plain torch, as the reference's
+  XLA) and the MIN seam, then joined like the replicated case.
 * ``join_partial_gathered`` — one edge server's scatter-gather partial:
   the dense join over rows the server assembled on its device (district
   block rows, own and peer border rows), float32 answers left there.
@@ -41,7 +44,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernel import gather_join, sharded_gather_join
+from .kernel import (MAX_SHARDS, gather_join, multi_shard_gather_join,
+                     sharded_gather_join)
 from .ref import INF_I32, join_sparse_ref, pad_value, storage16
 
 __all__ = ["INF_I32", "join", "join_with_bound", "join_quantized",
@@ -181,6 +185,13 @@ def bound_gathered(border_dist, ss: np.ndarray,
     return lb.cpu().numpy()
 
 
+def _one_call(mesh) -> bool:
+    """Whether one launch can serve a batch on ``mesh``: every shard on
+    one device (a kernel cannot read another card's tables) and no more
+    shards than the kernel's table holds."""
+    return len(set(mesh.devices)) == 1 and mesh.size <= MAX_SHARDS
+
+
 def join_sharded_gathered(blocks: list[torch.Tensor],
                           btables: list[torch.Tensor], owner: torch.Tensor,
                           rs: torch.Tensor, rt: torch.Tensor, *, mesh,
@@ -190,13 +201,20 @@ def join_sharded_gathered(blocks: list[torch.Tensor],
     d's slice of the district tables (width W) and ``btables[d]`` its
     copy of the border table at its natural width q ≤ W, both on
     ``mesh.devices[d]``; ``owner``/``rs``/``rt`` are the host routing
-    pass's coordinates (row ids ≥ ``blocks[d].shape[0]`` read B). Each
-    shard joins the lanes it owns — one sharded-kernel launch — and the
-    mesh's MIN seam (``mesh.pmin``, the reference's ``pmin`` over the
-    axis) assembles the float32 answer vector.
+    pass's coordinates (row ids ≥ ``blocks[d].shape[0]`` read B). With
+    every shard on one device, one launch of the sharded kernel joins
+    each lane on its owner's tables and writes the answer vector in lane
+    order (the reference's ``pmin`` over the axis: one shard owns each
+    lane). Across devices each shard joins the lanes it owns — one
+    launch a shard — and the mesh's MIN seam (``mesh.pmin``) assembles
+    the answers.
 
     With ``quant=(sentinel, scale)`` the tables hold ``core.quantize``
     codes; the answers are float32 either way."""
+    if _one_call(mesh):
+        dev = blocks[0].device
+        return multi_shard_gather_join(blocks, btables, owner.to(dev),
+                                       rs.to(dev), rt.to(dev), quant=quant)
     partials = []
     for d, (block, btable) in enumerate(zip(blocks, btables)):
         dev = block.device
@@ -263,10 +281,20 @@ def join_sharded_border_gathered(blocks: list[torch.Tensor],
     the border table is ROW-SHARDED too — ``bshards[d]`` is shard d's
     ``ceil(n/E)`` row-slice of B at natural width q. Row ids keep the
     replicated convention (≥ ``blocks[d].shape[0]`` means "row v of B").
-    The touched B rows are assembled first (``assemble_border_rows``:
-    ragged gather + the MIN seam) and the ids pointed at them
-    (``assembled_row_ids``); then one sharded-kernel launch a shard
-    joins its lanes against them, and the seam assembles the answers."""
+    With every shard on one device, one launch of the sharded kernel
+    reads row v in place, row ``v % ceil(n/E)`` of slice
+    ``v // ceil(n/E)`` — the row the reference's ragged gather and
+    ``pmin`` assemble — and writes the answers in lane order. Across
+    devices the touched B rows are assembled first
+    (``assemble_border_rows``: ragged gather + the MIN seam) and the ids
+    pointed at them (``assembled_row_ids``); then one sharded-kernel
+    launch a shard joins its lanes against them, and the seam assembles
+    the answers."""
+    if _one_call(mesh):
+        dev = blocks[0].device
+        return multi_shard_gather_join(
+            blocks, bshards, owner.to(dev), rs.to(dev), rt.to(dev),
+            rows_per_border_shard=bshards[0].shape[0], quant=quant)
     cross_base = blocks[0].shape[0]
     assembled = assemble_border_rows(bshards, rs, rt, cross_base,
                                      mesh=mesh, quant=quant)

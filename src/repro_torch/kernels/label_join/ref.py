@@ -107,6 +107,21 @@ def gather_join_ref(s_table: torch.Tensor, rs: torch.Tensor,
         else out.to(s_table.dtype)
 
 
+def dequantize_ref(codes: torch.Tensor,
+                   quant: tuple[int, float]) -> torch.Tensor:
+    """``QuantSpec.dequantize`` on tensors: 16-bit codes (uint16 stored as
+    int16 bits when the sentinel is 65535) → float32 ``code · scale``
+    (one float32 multiply), the sentinel → +inf."""
+    sentinel, scale = quant
+    c = storage16(codes).to(torch.int32)
+    if sentinel == 0xFFFF:
+        c = c & 0xFFFF
+    # a float32 tensor times a Python float multiplies in float32 with
+    # the scalar rounded to float32 first, as ``np.float32(scale)``
+    out = c.to(torch.float32) * float(np.float32(scale))
+    return torch.where(c == sentinel, float("inf"), out)
+
+
 def pad_value(quant: tuple[int, float] | None, like: torch.Tensor
               ) -> torch.Tensor:
     """The min identity of a table's storage as a 0-d tensor: +inf for
@@ -161,3 +176,43 @@ def sharded_gather_join_ref(block: torch.Tensor, border: torch.Tensor,
         ans = join_quantized_ref(s_rows, t_rows, sentinel=quant[0],
                                  scale=quant[1])
     return torch.where(owner == shard, ans, float("inf"))
+
+
+def multi_shard_gather_join_ref(blocks: list[torch.Tensor],
+                                borders: list[torch.Tensor],
+                                owner: torch.Tensor, rs: torch.Tensor,
+                                rt: torch.Tensor, *,
+                                rows_per_border_shard: int | None = None,
+                                quant: tuple[int, float] | None = None,
+                                dequant_first: bool = False
+                                ) -> torch.Tensor:
+    """Plain version of the sharded kernel's whole-batch call, step for
+    step as the JAX package's sharded ops: every shard d gathers, pads
+    and selects the rows of the batch (``sharded_gather_rows`` over its
+    block and its border source; with a row-sharded B the slices in
+    order, so that border row v is row v % rpd of slice v // rpd), joins
+    them (in code units then scaled, or, with ``dequant_first``,
+    dequantized first as ``dequantize_ref``), masks the lanes it does
+    not own to +inf, and the MIN over the shards gives the answers. A
+    lane another shard owns reads row 0 here (the reference reads its
+    own ids, clamped), which its mask drops. Float32 ``(Q,)`` out."""
+    inf = _inf(rs.shape[0], rs)
+    out = inf
+    if rows_per_border_shard is not None:
+        whole = torch.cat([storage16(b) for b in borders])
+        borders = [whole] * len(blocks)
+    for d, (block, border) in enumerate(zip(blocks, borders)):
+        mine = owner == d
+        s_rows, t_rows = sharded_gather_rows(
+            block, border, torch.where(mine, rs, 0), torch.where(mine, rt, 0),
+            quant=quant)
+        if quant is None:
+            ans = join_ref(s_rows, t_rows)
+        elif dequant_first:
+            ans = join_ref(dequantize_ref(s_rows, quant),
+                           dequantize_ref(t_rows, quant))
+        else:
+            ans = join_quantized_ref(s_rows, t_rows, sentinel=quant[0],
+                                     scale=quant[1])
+        out = torch.minimum(out, torch.where(mine, ans, inf))
+    return out

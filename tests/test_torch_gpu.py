@@ -285,6 +285,177 @@ def test_sharded_layout_fits_both_sources(cuda, storage, w, bw, offset, vec):
     assert kernel.sharded_join_layout(block, border, 4096)[0] == vec
 
 
+# the sharded kernel's three arithmetics: (storage, dequant_first)
+MULTI_MODES = [("float32", False), ("uint16", False), ("uint16", True),
+               ("int16", False), ("int16", True)]
+# (item bytes, W, bw) → the widest vector both pitches allow: 16, 8, 4,
+# and 2 (16-bit codes only)
+MULTI_WIDTHS = {4: [(256, 96, 16), (96, 94, 8), (96, 93, 4)],
+                2: [(256, 96, 16), (96, 92, 8), (96, 94, 4), (96, 93, 2)]}
+MULTI_SHARDS = (1, 3, 8, 16, 64)
+MULTI_BORDER_ROWS = 300
+
+
+def _codes(rng, shape, storage):
+    npdt = np.uint16 if storage == "uint16" else np.int16
+    sentinel = int(np.iinfo(npdt).max)
+    x = rng.integers(0, sentinel + 1, shape).astype(npdt)
+    x[rng.random(shape) < 0.3] = sentinel
+    return x.view(np.int16)
+
+
+def _multi_inputs(cuda, rng, storage, dequant, e, nq, w, bw, offset,
+                  row_sharded):
+    """E shards on the card: blocks of 20 + 3d rows (shard 0's table
+    ``offset`` elements off its alignment), each shard's own border
+    source (replicated: a copy with other values; every fifth shard a
+    server without a view, one min-identity row, whose lanes read only
+    its block) or B's row slices; lanes of every shard but shard 1
+    (owning none where E > 2) and a few outside the table."""
+    quant = None
+    if storage != "float32":
+        sentinel = 0xFFFF if storage == "uint16" else 0x7FFF
+        quant = (sentinel, 0.0731)      # lossy: (a + b)s != as + bs
+    dtype = torch.float32 if quant is None else torch.int16
+    make = (lambda shape: _rand_dist(rng, shape)) if quant is None \
+        else (lambda shape: _codes(rng, shape, storage))
+    rows = [20 + 3 * d for d in range(e)]
+    blocks = []
+    for d in range(e):
+        blk = _table_at(cuda, dtype, rows[d], w, offset if d == 0 else 0)
+        blk.copy_(torch.from_numpy(make((rows[d], w))))
+        blocks.append(blk)
+    n = MULTI_BORDER_ROWS
+    rpd = -(-n // e)
+    if row_sharded:
+        whole = make((rpd * e, bw))
+        borders = [torch.from_numpy(whole[d * rpd:(d + 1) * rpd]).to(cuda)
+                   for d in range(e)]
+    else:
+        fill = float("inf") if quant is None else \
+            int(np.array(quant[0], np.uint16).view(np.int16))
+        borders = [torch.full((1, bw), fill, dtype=dtype, device=cuda)
+                   if d % 5 == 2 else torch.from_numpy(make((n, bw))).to(cuda)
+                   for d in range(e)]
+    owner = rng.integers(0, e, nq)
+    if e > 2:
+        owner[owner == 1] = 0
+    owner[::29] = -1
+    owner[1::31] = e
+    own_rows = np.array(rows + [1, 1])[owner]
+    viewless = (owner % 5 == 2) & (owner < e) & (not row_sharded)
+    kind = rng.integers(0, 3, nq)
+    kind[viewless] = 0
+    rs = np.where(kind == 1, own_rows + rng.integers(0, n, nq),
+                  rng.integers(0, 20, nq))
+    rt = np.where(kind >= 1, own_rows + rng.integers(0, n, nq),
+                  rng.integers(0, 20, nq))
+    ids = [torch.from_numpy(x.astype(np.int64)).to(cuda)
+           for x in (owner, rs, rt)]
+    kw = dict(rows_per_border_shard=rpd if row_sharded else None,
+              quant=quant, dequant_first=dequant)
+    return blocks, borders, ids, kw
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("row_sharded", [False, True])
+@pytest.mark.parametrize("storage,dequant,w,bw,vec", [
+    (st, dq, w, bw, vec) for st, dq in MULTI_MODES
+    for w, bw, vec in MULTI_WIDTHS[4 if st == "float32" else 2]])
+def test_multi_shard_kernel_matches_plain_version(cuda, storage, dequant, w,
+                                                  bw, vec, row_sharded,
+                                                  offset):
+    """The whole-batch sharded join against its plain version, bit for
+    bit: each arithmetic, B replicated (servers without views among
+    them) and row-sharded, widths that force each vector width, shard
+    0's table off its alignment, E = 1 to 64 with empty shards, one
+    launch a call."""
+    if offset:
+        vec = 4 if storage == "float32" else 2
+    rng = np.random.default_rng(w + bw + 7 * offset + 3 * row_sharded)
+    for e in MULTI_SHARDS:
+        for nq in (45, 4096):
+            blocks, borders, (owner, rs, rt), kw = _multi_inputs(
+                cuda, rng, storage, dequant, e, nq, w, bw, offset,
+                row_sharded)
+            assert kernel.multi_shard_join_layout(blocks, borders,
+                                                  nq)[0] == vec
+            before = kernel.LAUNCHES["label_join_sharded"]
+            got = kernel.multi_shard_gather_join(blocks, borders, owner, rs,
+                                                 rt, **kw)
+            torch.cuda.synchronize()
+            assert kernel.LAUNCHES["label_join_sharded"] == before + 1
+            want = ref.multi_shard_gather_join_ref(blocks, borders, owner,
+                                                   rs, rt, **kw)
+            assert torch.equal(got, want), (e, nq)
+            outside = (owner < 0) | (owner >= e)
+            assert torch.isinf(got[outside]).all()
+            assert torch.isfinite(got[~outside]).any()
+
+
+@pytest.mark.parametrize("storage,dequant", MULTI_MODES)
+@pytest.mark.parametrize("row_sharded", [False, True])
+def test_multi_shard_kernel_ids_outside_their_source_give_inf(
+        cuda, storage, dequant, row_sharded):
+    """A row id past its source, or a negative one, is +inf and loads
+    no row; every other lane is the plain version's."""
+    rng = np.random.default_rng(11)
+    e, nq = 8, 4096
+    blocks, borders, (owner, rs, rt), kw = _multi_inputs(
+        cuda, rng, storage, dequant, e, nq, 96, 93, 0, row_sharded)
+    bad = torch.zeros(nq, dtype=torch.bool, device=cuda)
+    bad[5::13] = True
+    far = 20 + 3 * e + MULTI_BORDER_ROWS + 10 ** 6
+    rs_bad = torch.where(bad, torch.full_like(rs, far), rs)
+    rt_bad = rt.clone()
+    rt_bad[7::41] = -3
+    bad[7::41] = True
+    got = kernel.multi_shard_gather_join(blocks, borders, owner, rs_bad,
+                                         rt_bad, **kw)
+    want = ref.multi_shard_gather_join_ref(
+        blocks, borders, torch.where(bad, -1, owner), rs, rt, **kw)
+    torch.cuda.synchronize()
+    assert torch.isinf(got[bad]).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("what", [
+    "too_many_shards", "widths_differ", "border_wider", "devices",
+    "contiguity", "bfloat16", "dequant_without_codes", "slice_rows",
+    "no_shards"])
+def test_multi_shard_kernel_refuses_what_it_does_not_take(cuda, what):
+    f32 = dict(dtype=torch.float32, device=cuda)
+    blocks = [torch.zeros((4, 8), **f32) for _ in range(3)]
+    borders = [torch.zeros((5, 6), **f32) for _ in range(3)]
+    ids = torch.zeros(7, dtype=torch.int64, device=cuda)
+    kw = {}
+    if what == "too_many_shards":
+        blocks = [blocks[0]] * (kernel.MAX_SHARDS + 1)
+        borders = [borders[0]] * (kernel.MAX_SHARDS + 1)
+    elif what == "widths_differ":
+        blocks[1] = torch.zeros((4, 9), **f32)
+    elif what == "border_wider":
+        borders = [torch.zeros((5, 9), **f32) for _ in range(3)]
+    elif what == "devices":
+        borders[2] = borders[2].cpu()
+    elif what == "contiguity":
+        blocks[1] = torch.zeros((8, 4), **f32).t()
+    elif what == "bfloat16":
+        blocks = [b.bfloat16() for b in blocks]
+        borders = [b.bfloat16() for b in borders]
+    elif what == "dequant_without_codes":
+        kw = dict(dequant_first=True)
+    elif what == "slice_rows":
+        borders[1] = torch.zeros((4, 6), **f32)
+        kw = dict(rows_per_border_shard=5)
+    else:
+        blocks, borders = [], []
+    before = dict(kernel.LAUNCHES)
+    with pytest.raises(ValueError):
+        kernel.multi_shard_gather_join(blocks, borders, ids, ids, ids, **kw)
+    assert kernel.LAUNCHES == before
+
+
 def test_card_serves_sharded_as_the_host_does(cuda):
     from repro_torch.edge import ShardedBatchedEngine, default_edge_mesh
     csr, part = synthetic_continent((2, 2), (8, 8), seed=3)
@@ -302,8 +473,13 @@ def test_card_serves_sharded_as_the_host_does(cuda):
             for dtype in ("float32", "uint16"):
                 svc = on_card.service(ServingPolicy(
                     engine="sharded", shard_border=border, label_dtype=dtype))
+                svc.submit(ss, ts)
+                before = dict(kernel.LAUNCHES)
                 np.testing.assert_array_equal(svc.submit(ss, ts).distances,
                                               want)
+                assert kernel.LAUNCHES["label_join_sharded"] == \
+                    before["label_join_sharded"] + 1
+                assert kernel.LAUNCHES["label_join"] == before["label_join"]
                 eng = svc.plan(ss, ts).plane
                 assert isinstance(eng, ShardedBatchedEngine)
                 assert all(b.is_cuda for b in eng.blocks + eng.btables)
@@ -849,8 +1025,8 @@ def _scatter_spec(system, storage):
 def test_card_scatter_plane_equals_host_and_runs_no_plain_join(
         cuda, monkeypatch, storage):
     """The scatter plane on the card answers as the same plane on the
-    CPU (float32, uint16 and a lossy int16 spec), with one kernel launch
-    a server a batch and no plain join."""
+    CPU (float32, uint16 and a lossy int16 spec), with one sharded-kernel
+    launch a batch and no plain join."""
     from repro_torch.edge import ScatterGatherPlane
     g, on_host, on_card = _scatter_pair(cuda)
     rng = np.random.default_rng(4)
@@ -865,15 +1041,15 @@ def test_card_scatter_plane_equals_host_and_runs_no_plain_join(
 
     monkeypatch.setattr(kernel, "gather_join_ref", no_plain)
     monkeypatch.setattr(kernel, "sharded_gather_join_ref", no_plain)
+    monkeypatch.setattr(kernel, "multi_shard_gather_join_ref", no_plain)
     plane = ScatterGatherPlane.from_system(
         on_card, quant=_scatter_spec(on_card, storage))
-    name = "label_join_sharded" if storage == "float32" else "label_join"
-    before = kernel.LAUNCHES[name]
+    before = dict(kernel.LAUNCHES)
     got = plane.execute(ss, ts)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got, want)
-    owners = len(np.unique(on_card.partition.assignment[ss]))
-    assert kernel.LAUNCHES[name] - before == owners
+    assert {k: kernel.LAUNCHES[k] - before[k] for k in before} == {
+        **{k: 0 for k in before}, "label_join_sharded": 1}
     assert all(b.is_cuda for b in plane._blocks)
     assert all(v.is_cuda for v in plane._bviews if v is not None)
     assert plane.size_bytes() == host_plane.size_bytes()

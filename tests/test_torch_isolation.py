@@ -234,16 +234,25 @@ def test_cuda_tensor_launches_or_raises_never_falls_back_sharded(
         raise AssertionError("plain version ran for a CUDA tensor")
 
     monkeypatch.setattr(kernel, "sharded_gather_join_ref", no_fallback)
+    monkeypatch.setattr(kernel, "multi_shard_gather_join_ref", no_fallback)
     monkeypatch.setattr(kernel.build, "_LOADED", {})
     monkeypatch.setenv("PATH", "")           # no nvcc on this host anyway
     dtype = torch.int16 if codes else torch.float32
     block = torch.zeros((6, 4), dtype=dtype).as_subclass(_CudaLooking)
     border = torch.zeros((6, 3), dtype=dtype).as_subclass(_CudaLooking)
     ids = torch.arange(3).as_subclass(_CudaLooking)
+    quant = (0xFFFF, 0.5) if codes else None
     before = dict(kernel.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc"):
         kernel.sharded_gather_join(block, border, ids, 0, ids, ids,
-                                   quant=(0xFFFF, 0.5) if codes else None)
+                                   quant=quant)
+    # the whole-batch wrapper: B replicated, row-sharded, and (codes)
+    # dequantized first
+    for kw in ({}, {"rows_per_border_shard": 6},
+               *([{"dequant_first": True}] if codes else [])):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            kernel.multi_shard_gather_join([block, block], [border, border],
+                                           ids, ids, ids, quant=quant, **kw)
     assert kernel.LAUNCHES == before
 
 

@@ -33,8 +33,8 @@ import repro_torch.edge as tedge
 import repro_torch.serve as tserve
 import repro_torch.topo as ttopo
 from repro_torch.convert import index_to_numpy, system_from_numpy
-from repro_torch.edge.scatter_gather import dequantize
 from repro_torch.kernels.label_join import ops as tops
+from repro_torch.kernels.label_join.ref import dequantize_ref
 
 STORAGES = ("float32", "uint16", "int16_lossy")
 SCATTER = dict(engine="scatter_gather")
@@ -134,6 +134,88 @@ def test_plane_answers_match_reference_engines_and_loop(pair, storage):
         *args, mesh=tedge.default_edge_mesh(m, device="cpu"), quant=tspec)
     np.testing.assert_array_equal(got, shd.query(ss, ts))
     np.testing.assert_array_equal(got, tsys.query_loop(ss, ts))
+
+
+@pytest.mark.parametrize("storage", STORAGES + ("uint16_lossy",))
+def test_plane_makes_one_join_call_a_batch(pair, storage, monkeypatch):
+    """One call of the sharded kernel's wrapper a batch over every
+    server (codes dequantized in it: no other join, no per-server
+    gather), bit for bit with the reference's plane — under a lossy
+    uint16 spec whose codes reach 0x8000 and above too."""
+    from repro_torch.kernels.label_join import kernel
+    from repro_torch.kernels.label_join import ref as tref
+    g, rsys, tsys = pair
+    ss, ts = _batch(g, 23)
+    _scrub(rsys)
+    _scrub(tsys)
+    if storage == "uint16_lossy":
+        rspec, tspec = (_lossy_uint16(pkg, system) for pkg, system in
+                        ((rcore, rsys), (tcore, tsys)))
+    else:
+        rspec, tspec = _spec(rcore, rsys, storage), _spec(tcore, tsys,
+                                                          storage)
+    calls = []
+    multi = kernel.multi_shard_gather_join
+
+    def count(*a, **k):
+        calls.append(k)
+        return multi(*a, **k)
+
+    def no_other(*a, **k):
+        raise AssertionError("another join ran for the plane")
+
+    monkeypatch.setattr(kernel, "multi_shard_gather_join", count)
+    monkeypatch.setattr(kernel, "gather_join", no_other)
+    monkeypatch.setattr(kernel, "sharded_gather_join", no_other)
+    monkeypatch.setattr(tref, "sharded_gather_join_ref", no_other)
+    tplane = tedge.ScatterGatherPlane.from_system(tsys, quant=tspec)
+    want = redge.ScatterGatherPlane.from_system(rsys,
+                                                quant=rspec).execute(ss, ts)
+    for _ in range(2):
+        np.testing.assert_array_equal(tplane.execute(ss, ts), want)
+    assert len(calls) == 2
+    assert all(k["dequant_first"] == (tspec is not None) for k in calls)
+
+
+@pytest.mark.parametrize("storage", ("float32", "int16_lossy"))
+def test_plane_over_more_servers_than_one_call_takes(pair8, storage,
+                                                     monkeypatch):
+    """Past the kernel's table size the plane makes one call a
+    ``MAX_SHARDS`` servers (each with its lanes' owners rebased) and
+    folds them; here 8 servers at 3 a call."""
+    from repro_torch.kernels.label_join import kernel
+    g, rsys, tsys = pair8
+    ss, ts = _batch(g, 29)
+    _scrub(rsys)
+    _scrub(tsys)
+    rspec, tspec = _spec(rcore, rsys, storage), _spec(tcore, tsys, storage)
+    calls = []
+    multi = kernel.multi_shard_gather_join
+
+    def count(blocks, *a, **k):
+        calls.append(len(blocks))
+        return multi(blocks, *a, **k)
+
+    monkeypatch.setattr(kernel, "MAX_SHARDS", 3)
+    monkeypatch.setattr(kernel, "multi_shard_gather_join", count)
+    got = tedge.ScatterGatherPlane.from_system(tsys, quant=tspec).execute(
+        ss, ts)
+    np.testing.assert_array_equal(got, redge.ScatterGatherPlane.from_system(
+        rsys, quant=rspec).execute(ss, ts))
+    assert calls == [3, 3, 2]
+
+
+def _lossy_uint16(pkg, system):
+    btable = system.center.border_labels.table
+    vmax = max(float(btable[np.isfinite(btable)].max(initial=0.0)),
+               *(float(li.dense_table()[np.isfinite(li.dense_table())].max())
+                 for li in (srv.augmented for srv in system.servers)))
+    spec = pkg.QuantSpec(vmax / 65000.0, np.uint16, lossless=False)
+    codes = np.concatenate([spec.quantize(li.dense_table()).ravel()
+                            for li in (srv.augmented
+                                       for srv in system.servers)])
+    assert codes[codes != spec.sentinel].max() >= 0x8000
+    return spec
 
 
 @pytest.mark.parametrize("storage", STORAGES)
@@ -335,5 +417,5 @@ def test_dequantize_matches_quantspec(dtype, lossless):
                              lossless=False)
     rspec = rcore.QuantSpec(spec.scale, dtype, lossless=spec.lossless)
     codes = spec.quantize(values)
-    got = dequantize(tops.upload(codes, "cpu"), spec)
+    got = dequantize_ref(tops.upload(codes, "cpu"), spec.key())
     np.testing.assert_array_equal(got.numpy(), rspec.dequantize(codes))
