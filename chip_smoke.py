@@ -10,7 +10,7 @@ rate beside the issue ceiling its instructions allow (phase
 bounds), holds each kernel against its plain PyTorch version on the
 card (``relax`` with and without its occupancy map; the fused closure
 on each side of its cap; the k-major product; the join at every vector
-width), and drives the port's eighteen paths:
+width), and drives the port's twenty-one paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -65,9 +65,10 @@ width), and drives the port's eighteen paths:
 * the dense-LM serving path at the full width of Qwen3-4B (random
   weights from a seed) — ``make_prefill_step`` through the flash-
   attention kernel (36 layers, bf16, 2 x 4096 tokens) against the dense
-  prefill, an f32 4-layer check of flash against dense and of
-  ``decode_step`` against the forward pass, and ``BatchedDecoder``
-  answering 8 requests;
+  prefill, an f32 4-layer check of flash against dense, of the card
+  against the host (forward and ``decode_step``) and of ``decode_step``
+  against the forward pass, and ``BatchedDecoder`` answering 8
+  requests;
 * DIMACS ingest at the vertex count of USA-road-d.NY — a synthetic
   continent (262 144 vertices, 64 districts) written as a gzip ``.gr``
   file, streamed back through ``load_gr_csr`` (held against the
@@ -110,6 +111,16 @@ width), and drives the port's eighteen paths:
   ``BatchedDecoder`` at batch 4 and a decode profile; a float32 check
   at 6 layers (one shared application) on the card against the host,
   and 3 train steps at full depth;
+* the three other dense configs, each as Qwen3-4B above (flash prefill
+  against dense, one flash launch a layer; ``BatchedDecoder`` and a
+  decode profile; the f32 card-vs-host check) at its published width:
+  StarCoder2-7B at full depth (32 layers, 36 / 4 heads: a group of 9,
+  GELU; 2 x 4096 tokens), then 3 train steps at 8 layers and a float32
+  train step at 2 layers against the host; DeepSeek-67B cut to 24 of 95
+  layers (2 x 4096 tokens); Nemotron-4-340B cut to 4 of 96 layers (96 /
+  8 heads at hd 192 through the bf16 kernel's hd-192 instance, squared
+  ReLU; 1 x 2048 tokens; its f32 check at 1 layer and a vocabulary of
+  32 768);
 * the launch and sharding tooling — the roofline (``launch/roofline.py``:
   fake-tensor probes, H100 constants) of each LM path timed above,
   beside its measured seconds and MFU; a 2-layer Qwen3-4B flash prefill
@@ -2758,7 +2769,18 @@ FLASH_SHAPES = [(1, 16, 16, 4, 4, 32, True, "float32"),
                 (2, 300, 260, 48, 8, 80, False, "float32"),
                 (2, 500, 500, 16, 4, 192, True, "float32"),
                 (1, 4096, 4096, 16, 16, 80, False, "bfloat16"),
-                (1, 4096, 4096, 16, 16, 80, False, "float16")]
+                (1, 4096, 4096, 16, 16, 80, False, "float16"),
+                # groups of 9 (StarCoder2-7B, 36 / 4) and 12
+                # (Nemotron-4-340B, 96 / 8) at hd 128 and 192, ragged, then
+                # the three prefills' own shapes (DeepSeek-67B's group: 8)
+                (1, 1000, 1000, 36, 4, 128, True, "bfloat16"),
+                (1, 300, 260, 36, 4, 128, False, "bfloat16"),
+                (1, 200, 200, 36, 4, 192, True, "bfloat16"),
+                (1, 260, 260, 96, 8, 128, True, "bfloat16"),
+                (1, 300, 260, 96, 8, 192, False, "bfloat16"),
+                (2, 4096, 4096, 36, 4, 128, True, "bfloat16"),
+                (2, 4096, 4096, 64, 8, 128, True, "bfloat16"),
+                (1, 2048, 2048, 96, 8, 192, True, "bfloat16")]
 # (B, S, H, KV, hd): q, k, v as the head-split views of one fused (B, S,
 # H + 2 KV, hd) projection, strided in the sequence and head axes
 FLASH_STRIDED = [(2, 1000, 32, 8, 128)]
@@ -2851,14 +2873,14 @@ def phase_flash_kernels(torch, dev, errs: dict) -> dict:
             "ok": True}
 
 
-# -- phase 7: the dense-LM serving path at Qwen3-4B's full width -------------
+# -- phase 7: the dense-LM serving path at published widths -----------------
 
 LM_ARCH = "qwen3_4b"
 LM_PREFILL = (2, 4096)                  # batch, tokens per sequence
-LM_TIGHT = (4, 2, 256)                  # layers, batch, tokens (float32)
-# f32 throughout (TF32 off): flash and dense attention, and decode over
-# the cache against the full forward, differ only in the order of sums
-# and the online rescaling, ~1e-6 relative per operation
+# f32 throughout (TF32 off): flash and dense attention, the card and the
+# host, and decode over the cache against the full forward, differ only
+# in the order of sums and the online rescaling, ~1e-6 relative per
+# operation
 LM_TIGHT_REL = 1e-4
 # bf16 flash prefill against bf16 dense prefill at full depth: the dense
 # path rounds its scores to bf16 before the softmax and its weights
@@ -2870,6 +2892,71 @@ LM_TIGHT_REL = 1e-4
 # beside it
 LM_BF16_REL = 0.1
 LM_SERVER = dict(batch=4, max_len=128, requests=8, prompt=(8, 32), new=16)
+# the f32 check of Qwen3-4B and StarCoder2-7B: 4 layers at full width, 2
+# sequences of 256 tokens; the host computes the first 64 positions'
+# forward and 3 decode steps
+LM_TIGHT = dict(layers=4, batch=2, tokens=256, host_tokens=64, host_steps=3,
+                vocab=None)
+# StarCoder2-7B's training depth: f32 params, grads and AdamW's two
+# moments take 16 B a parameter; 8 of its 32 layers and the untied
+# embedding and head are 2.19 B parameters, 35 GB
+STARCODER2_TRAIN = dict(layers=8, batch=1, tokens=512, steps=3, peak_lr=1e-3)
+
+# the dense configs' serving phases. published: (layers, d_model, heads,
+# kv heads, head dim, d_ff, vocab, mlp) of the config file; layers: the
+# depth run (None: the published one); init: "cast" draws float32
+# weights and casts them to bf16 (the serving path's cast), "bf16" draws
+# them in bf16 where float32 would not fit; tight: the float32 check of
+# the card against the host (vocab: a cut of the vocabulary for that
+# check alone, or None); launches: the key its main prefill's flash
+# launches are counted under; train: StarCoder2's training (the first
+# card training of a GELU MLP)
+DENSE_LM = {
+    "lm_qwen3_4b": dict(
+        arch=LM_ARCH, published=(36, 2560, 32, 8, 128, 9728, 151936,
+                                 "swiglu"),
+        layers=None, prefill=LM_PREFILL, init="cast",
+        tight={**LM_TIGHT, "seed": 0}, launches="flash_attention", seed=1,
+        server_seed=13, reduced=["f32 card-vs-host check at 4 of 36 layers"]),
+    "lm_starcoder2_7b": dict(
+        arch="starcoder2_7b", published=(32, 4608, 36, 4, 128, 18432, 49152,
+                                         "gelu"),
+        layers=None, prefill=(2, 4096), init="cast",
+        tight={**LM_TIGHT, "seed": 61}, launches="flash_attention_starcoder2",
+        seed=62, server_seed=63, train=STARCODER2_TRAIN,
+        reduced=["f32 card-vs-host check at 4 of 32 layers",
+                 "training at 8 of 32 layers: f32 params, grads and AdamW's "
+                 "two moments (16 B a parameter) of 2.19 B parameters are "
+                 "35 GB; the f32 card-vs-host train step at 2 layers",
+                 "no biases, LayerNorm or 4096-token sliding window (the "
+                 "config models none; full causal attention over 4096)"]),
+    "lm_deepseek_67b": dict(
+        arch="deepseek_67b", published=(95, 8192, 64, 8, 128, 22016, 102400,
+                                        "swiglu"),
+        layers=24, prefill=(2, 4096), init="bf16",
+        tight=dict(layers=2, batch=2, tokens=128, host_tokens=32,
+                   host_steps=3, vocab=None, seed=71),
+        launches="flash_attention_deepseek67b", seed=72, server_seed=73,
+        reduced=["depth 95 -> 24 layers: 24 x 1.38 GB + 3.36 GB of "
+                 "embedding and head = 36.6 GB in bf16, which leaves room "
+                 "for the dense yardstick's f32 scores (8.6 GB a layer at 2 "
+                 "x 4096 x 64 heads, with its softmax copies ~22 GB)",
+                 "f32 card-vs-host check at 2 layers"]),
+    "lm_nemotron_4_340b": dict(
+        arch="nemotron_4_340b", published=(96, 18432, 96, 8, 192, 73728,
+                                           256000, "squared_relu"),
+        layers=4, prefill=(1, 2048), init="bf16",
+        tight=dict(layers=1, batch=1, tokens=16, host_tokens=16,
+                   host_steps=3, vocab=32768, seed=81),
+        launches="flash_attention_nemotron", seed=82, server_seed=83,
+        reduced=["depth 96 -> 4 layers: 4 x 6.91 GB + 18.9 GB of embedding "
+                 "and head = 46.5 GB in bf16 (8 layers would be 74 GB); "
+                 "drawn in bf16 (4 layers in f32 would be 93 GB)",
+                 "f32 card-vs-host check at 1 layer and vocabulary 32 768 "
+                 "of 256 000 (forward returns hidden states and the "
+                 "embedding's rows are independent): 18.6 GB in f32 on the "
+                 "card and as much on the host"]),
+}
 
 
 def rel_diff(a, b) -> float:
@@ -2891,21 +2978,26 @@ def timed(torch, fn, reps: int) -> tuple[object, list]:
     return out, secs
 
 
-def lm_tight_check(torch, dev) -> dict:
-    """Full width, 4 layers, float32: flash prefill against dense, and
-    decode_step fed the same tokens one at a time against the forward
-    pass (flash) at every position."""
+def lm_tight_check(torch, dev, arch: str, t: dict) -> dict:
+    """Full width, ``t["layers"]`` layers, float32: the flash prefill
+    against the dense one on the card; the card's forward (flash)
+    against the host's (dense) at the first ``t["host_tokens"]``
+    positions (attention is causal: they see the same keys); and
+    decode_step on the card, fed the same tokens one at a time, against
+    the card's forward at every position, its first ``t["host_steps"]``
+    steps also against decode_step on the host."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import (decode_step, forward, init_cache,
                                        init_params, lm_head_weight)
     from repro_torch.train.train_step import make_prefill_step
-    layers, b, s = LM_TIGHT
-    cfg = replace(get_config(LM_ARCH), num_layers=layers,
-                  compute_dtype="float32")
+    b, s, n = t["batch"], t["tokens"], t["host_tokens"]
+    cfg = replace(get_config(arch), num_layers=t["layers"],
+                  compute_dtype="float32",
+                  **({"vocab_size": t["vocab"]} if t["vocab"] else {}))
     flash = replace(cfg, attention_impl="flash")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(t["seed"])
     params = init_params(cfg, gen, dev)
     tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                         device=dev)
@@ -2913,25 +3005,57 @@ def lm_tight_check(torch, dev) -> dict:
     want = make_prefill_step(cfg)(params, {"tokens": tok})
     prefill_rel = rel_diff(got, want)
     check(prefill_rel <= LM_TIGHT_REL,
-          f"f32 flash prefill vs dense: {prefill_rel} > {LM_TIGHT_REL}")
+          f"f32 {arch} flash prefill vs dense: {prefill_rel} > "
+          f"{LM_TIGHT_REL}")
     full = forward(params, flash, {"tokens": tok}) \
         @ lm_head_weight(params, flash)
+    host = _copy_tree(params, "cpu")
+    t0 = time.perf_counter()
+    on_host = forward(host, cfg, {"tokens": tok[:, :n].cpu()}) \
+        @ lm_head_weight(host, cfg)
+    host_s = time.perf_counter() - t0
+    host_rel = rel_diff(full[:, :n].cpu(), on_host)
+    check(host_rel <= LM_TIGHT_REL, f"f32 {arch} forward on the card vs "
+          f"the host: {host_rel} > {LM_TIGHT_REL}")
+    del on_host
     cache = init_cache(cfg, b, s, dev)
+    host_cache = init_cache(cfg, b, t["host_steps"], "cpu")
     rels = torch.empty(s, dtype=torch.float64, device=dev)
+    host_rels = []
     for i in range(s):
         logits, cache = decode_step(params, cfg, cache, tok[:, i:i + 1], i)
         d = (logits[:, 0] - full[:, i]).double()
         rels[i] = d.abs().max() / full[:, i].double().abs().max()
+        if i < t["host_steps"]:
+            on_host, host_cache = decode_step(host, cfg, host_cache,
+                                              tok[:, i:i + 1].cpu(), i)
+            host_rels.append(rel_diff(logits.cpu(), on_host))
     decode_rel = float(rels.max())
     check(decode_rel <= LM_TIGHT_REL,
-          f"f32 decode vs forward: {decode_rel} > {LM_TIGHT_REL}")
-    return {"layers": layers, "batch": b, "tokens": s,
+          f"f32 {arch} decode vs forward: {decode_rel} > {LM_TIGHT_REL}")
+    check(max(host_rels) <= LM_TIGHT_REL, f"f32 {arch} decode on the card "
+          f"vs the host: {host_rels} > {LM_TIGHT_REL}")
+    del params, host, cache, host_cache, full
+    return {"layers": t["layers"], "batch": b, "tokens": s,
+            "vocab": cfg.vocab_size,
             "prefill_flash_vs_dense_rel": prefill_rel,
+            "forward_card_vs_host_rel": host_rel, "host_positions": n,
+            "host_forward_s": host_s,
             "decode_vs_forward_rel_max": decode_rel,
-            "tolerance_rel": LM_TIGHT_REL}
+            "decode_card_vs_host_rel": host_rels,
+            "tolerance_rel": LM_TIGHT_REL,
+            "measure": "max |a-b| / max |b| over the logits; the card "
+            "attends through the f32 flash kernel, the host densely"}
 
 
-def phase_lm(torch, dev, launches: dict) -> dict:
+def phase_lm_dense(torch, dev, launches: dict, name: str) -> dict:
+    """The dense config ``DENSE_LM[name]`` at its published width (bf16
+    weights, random from a seed), after its float32 card-vs-host check:
+    the main path (one flash prefill through ``make_prefill_step``, its
+    launches read: one a layer; a decode step, which launches none;
+    ``BatchedDecoder`` answering ``LM_SERVER``'s requests and a decode
+    profile), then two timed flash prefills and the dense prefill as
+    the bf16 yardstick; StarCoder2-7B then trains."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -2940,34 +3064,45 @@ def phase_lm(torch, dev, launches: dict) -> dict:
                                        init_params)
     from repro_torch.train.train_step import make_prefill_step
 
-    tight = lm_tight_check(torch, dev)
+    spec = DENSE_LM[name]
+    full = get_config(spec["arch"])
+    check((full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+           full.resolved_head_dim, full.d_ff, full.vocab_size, full.mlp_type)
+          == spec["published"], f"not the published config: {full}")
+    tight = lm_tight_check(torch, dev, spec["arch"], spec["tight"])
     torch.cuda.empty_cache()
 
-    cfg = get_config(LM_ARCH)
+    cfg = replace(full, num_layers=spec["layers"] or full.num_layers)
+    if spec["init"] == "bf16":
+        cfg = replace(cfg, param_dtype="bfloat16")
     flash = replace(cfg, attention_impl="flash")
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
     t0 = time.perf_counter()
-    params = cast_params(init_params(cfg, gen, dev), cfg)   # f32 freed
+    params = init_params(cfg, gen, dev)
+    if spec["init"] == "cast":
+        params = cast_params(params, cfg)       # f32 freed
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     w_gb = weight_gb(params)
     w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    b, s = LM_PREFILL
+    n_params = sum(t.numel() for t in _leaves(params))
+    b, s = spec["prefill"]
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                      generator=gen, device=dev)}
     prefill = make_prefill_step(flash)
+    key = spec["launches"]
 
     # the main path: one flash prefill, read its launches, then decode
     torch.cuda.reset_peak_memory_stats()
     reset_launches(fa)
     logits, first = timed(torch, lambda: prefill(params, batch), 1)
-    launches["flash_attention"] = fa.LAUNCHES["flash_attention"]
-    check(launches["flash_attention"] == cfg.num_layers,
-          f"flash prefill launched {launches['flash_attention']} times, "
-          f"not {cfg.num_layers}")
+    launches[key] = fa.LAUNCHES["flash_attention"]
+    check(launches[key] == cfg.num_layers,
+          f"{name}: flash prefill launched {launches[key]} times, not "
+          f"{cfg.num_layers}")
     check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "prefill logits")
+          and bool(torch.isfinite(logits).all()), f"{name} prefill logits")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cache = init_cache(cfg, b, 8, dev)
     before = fa.LAUNCHES["flash_attention"]
@@ -2975,43 +3110,63 @@ def phase_lm(torch, dev, launches: dict) -> dict:
                                  batch["tokens"][:, :1], 0)
     sync(torch, dev)
     check(fa.LAUNCHES["flash_attention"] == before,
-          "decode_step launched the flash kernel")
-    check(bool(torch.isfinite(step_logits).all()), "decode logits")
+          f"{name}: decode_step launched the flash kernel")
+    check(bool(torch.isfinite(step_logits).all()), f"{name} decode logits")
+    del cache
 
-    server = serve_requests(torch, cfg, params, dev, seed=13)
+    server = serve_requests(torch, cfg, params, dev, seed=spec["server_seed"])
     decode_profile = profile_decode(torch, params, cfg, dev)
 
-    # timed prefills: flash (each +36 launches), then the dense yardstick
+    # timed prefills: flash (each + num_layers launches), then the dense
+    # yardstick (its first run a warm-up)
     before = fa.LAUNCHES["flash_attention"]
     _, flash_s = timed(torch, lambda: prefill(params, batch), 2)
     check(fa.LAUNCHES["flash_attention"] - before == 2 * cfg.num_layers,
-          "a timed flash prefill did not launch once per layer")
+          f"{name}: a timed flash prefill did not launch once per layer")
     dense_prefill = make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
     dense_logits, dense_s = timed(
         torch, lambda: dense_prefill(params, batch), 3)
+    dense_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     bf16_rel = rel_diff(logits, dense_logits)
-    check(bool(torch.isfinite(dense_logits).all()), "dense prefill logits")
+    check(bool(torch.isfinite(dense_logits).all()),
+          f"{name} dense prefill logits")
     check(bf16_rel <= LM_BF16_REL,
-          f"bf16 flash prefill vs dense: {bf16_rel} > {LM_BF16_REL}")
-    del params, cache
-    return {"phase": "lm_qwen3_4b", "arch": LM_ARCH,
-            "layers": cfg.num_layers, "d_model": cfg.d_model,
-            "heads": [cfg.num_heads, cfg.num_kv_heads],
-            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-            "vocab": cfg.vocab_size, "weights_gb_bf16": w_gb,
-            "weights_bytes": w_bytes, "init_s": init_s, "tight_f32": tight,
-            "prefill": {"batch": b, "tokens": b * s,
-                        "flash_first_s": first[0], "flash_s": flash_s,
-                        "flash_tokens_per_s": b * s / min(flash_s),
-                        "dense_s": dense_s[1:],
-                        "dense_tokens_per_s": b * s / min(dense_s[1:]),
-                        "flash_vs_dense_rel_bf16": bf16_rel,
-                        "tolerance_rel_bf16": LM_BF16_REL,
-                        "peak_memory_gb_flash": peak_gb,
-                        "flash_launches": launches["flash_attention"],
-                        "timer": "host clock between synchronisations"},
-            "server": server, "decode_profile": decode_profile,
-            "decode_launches_flash": 0, "ok": True}
+          f"{name}: bf16 flash prefill vs dense: {bf16_rel} > {LM_BF16_REL}")
+    del params
+    torch.cuda.empty_cache()
+    out = {"phase": name, "arch": spec["arch"],
+           "layers": cfg.num_layers, "published_layers": full.num_layers,
+           "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "mlp": cfg.mlp_type, "rope_theta": cfg.rope_theta,
+           "norm_eps": cfg.norm_eps, "vocab": cfg.vocab_size,
+           "params_in_tree": n_params, "param_count": cfg.param_count(),
+           "weights_gb_bf16": w_gb, "weights_bytes": w_bytes,
+           "weights_drawn_in": "bf16" if spec["init"] == "bf16"
+           else "f32, cast to bf16", "init_s": init_s,
+           "reduced": spec["reduced"], "tight_f32": tight,
+           "prefill": {"batch": b, "tokens": b * s,
+                       "flash_first_s": first[0], "flash_s": flash_s,
+                       "flash_tokens_per_s": b * s / min(flash_s),
+                       "dense_s": dense_s[1:],
+                       "dense_tokens_per_s": b * s / min(dense_s[1:]),
+                       "flash_vs_dense_rel_bf16": bf16_rel,
+                       "tolerance_rel_bf16": LM_BF16_REL,
+                       "peak_memory_gb_flash": peak_gb,
+                       "peak_memory_gb_dense": dense_peak_gb,
+                       "flash_launches": launches[key],
+                       "timer": "host clock between synchronisations"},
+           "server": server, "decode_profile": decode_profile,
+           "decode_launches_flash": 0}
+    if "train" in spec:
+        out["train_tight_f32"] = lm_train_tight(torch, dev, spec["arch"])
+        torch.cuda.empty_cache()
+        out["train"] = train_full_depth(torch, dev, spec["arch"],
+                                        spec["train"], seed=64,
+                                        layers=spec["train"]["layers"])
+    return {**out, "ok": True}
 
 
 def serve_requests(torch, cfg, params, dev, seed: int) -> dict:
@@ -3127,8 +3282,10 @@ def ptxas_usage(log: str) -> dict:
 
 # (row name, (B, S, H, KV, hd), causal, dtype): the LM paths' flash
 # shapes in bf16 (the causal prefills and HuBERT-XLarge's non-causal
-# forward), HuBERT's in float16, and Nemotron-4-340B's heads (96 / 8, hd
-# 192) in float32; the first is the kernels line's
+# forward), HuBERT's in float16, Nemotron-4-340B's heads (96 / 8, hd
+# 192) in float32, and the prefills of StarCoder2-7B (a group of 9),
+# DeepSeek-67B and Nemotron-4-340B (the bf16 hd-192 instance); the
+# first is the kernels line's
 FLASH_TIMED = [("flash_b2_s4096", (2, 4096, 32, 8, 128), True, "bfloat16"),
                ("flash_olmoe_b2_s4096", (2, 4096, 16, 16, 128), True,
                 "bfloat16"),
@@ -3141,7 +3298,13 @@ FLASH_TIMED = [("flash_b2_s4096", (2, 4096, 32, 8, 128), True, "bfloat16"),
                ("flash_hubert_f16_b1_s4096", (1, 4096, 16, 16, 80), False,
                 "float16"),
                ("flash_f32_hd192_b1_s2048", (1, 2048, 96, 8, 192), True,
-                "float32")]
+                "float32"),
+               ("flash_starcoder2_b2_s4096", (2, 4096, 36, 4, 128), True,
+                "bfloat16"),
+               ("flash_deepseek67b_b2_s4096", (2, 4096, 64, 8, 128), True,
+                "bfloat16"),
+               ("flash_nemotron_b1_s2048", (1, 2048, 96, 8, 192), True,
+                "bfloat16")]
 
 
 def phase_flash_times(torch, dev, logs: dict) -> dict:
@@ -3458,9 +3621,10 @@ def _rel2(torch, a, b) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def lm_train_tight(torch, dev) -> dict:
-    """One float32 train step at full width and 2 layers on the card and
-    on the host through the port, from the same params and batch."""
+def lm_train_tight(torch, dev, arch: str = LM_ARCH) -> dict:
+    """One float32 train step of ``arch`` at full width and 2 layers on
+    the card and on the host through the port, from the same params and
+    batch."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -3469,7 +3633,7 @@ def lm_train_tight(torch, dev) -> dict:
     from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
     t = LM_TRAIN_TIGHT
-    cfg = replace(get_config(LM_ARCH), num_layers=t["layers"],
+    cfg = replace(get_config(arch), num_layers=t["layers"],
                   compute_dtype="float32")
     host = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     card = _copy_tree(host, dev)
@@ -3649,17 +3813,22 @@ def lm_train_loop(torch, dev) -> dict:
             "restore_checkpoint (hash check, read, upload)"}
 
 
-def train_full_depth(torch, dev, arch: str, tr: dict, seed: int) -> dict:
-    """``tr["steps"]`` train steps at full depth and width (float32
-    params, bf16 compute, per-layer remat, dense attention) on one batch
-    drawn from ``seed``: the first loss is near ln V and the loss falls;
-    step, forward + backward and AdamW times, peak memory."""
+def train_full_depth(torch, dev, arch: str, tr: dict, seed: int,
+                     layers: int | None = None) -> dict:
+    """``tr["steps"]`` train steps at full width and depth, or at
+    ``layers`` (float32 params, bf16 compute, per-layer remat, dense
+    attention) on one batch drawn from ``seed``: the first loss is near
+    ln V and the loss falls; step, forward + backward and AdamW times,
+    peak memory."""
+    from dataclasses import replace
+
     from repro_torch.configs import get_config
     from repro_torch.models.lm import init_params
     from repro_torch.train import train_step as tts
     from repro_torch.train.data import DataConfig, synthetic_batch, to_device
     from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
     cfg = get_config(arch)
+    cfg = replace(cfg, num_layers=layers or cfg.num_layers)
     check(cfg.remat and cfg.param_dtype == "float32"
           and cfg.compute_dtype == "bfloat16"
           and cfg.attention_impl == "dense", f"train config: {cfg}")
@@ -3699,7 +3868,8 @@ def train_full_depth(torch, dev, arch: str, tr: dict, seed: int) -> dict:
           f"{arch}: first loss {losses[0]} is not near ln(V) = {ln_v}")
     check(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses}")
     warm = float(np.median(step_s[1:]))
-    return {"layers": cfg.num_layers, "params_in_tree": n_params,
+    return {"layers": cfg.num_layers, "published_layers":
+            get_config(arch).num_layers, "params_in_tree": n_params,
             "init_s": init_s, "state_gb": state_gb, "batch": tr["batch"],
             "tokens": tr["tokens"], "peak_lr": tr["peak_lr"],
             "losses": losses, "ln_vocab": ln_v, "step_s": step_s,
@@ -4621,38 +4791,49 @@ LAUNCH_WALL_LIMIT_S = 30.0
 
 def roofline_rows(measured: list) -> list:
     """For each measured path, the roofline of the work it does, from
-    the port's probe on fake tensors at that path's shape on one card,
-    with the path's gather embedding: stub attention plus flash's
-    analytic add-back where the model attends (the reference's
-    optimized probe), the bound, and mfu = model_flops / (measured_s ·
-    bf16 peak). memory_s counts the eager program's traffic, every aten
-    op's inputs and outputs: what the port's unfused steps move."""
+    the port's probe on fake tensors at that path's shape and depth
+    (None: the published one) on one card, with the path's gather
+    embedding: stub attention plus flash's analytic add-back where the
+    model attends (the reference's optimized probe), the bound, and mfu
+    = model_flops / (measured_s · bf16 peak); flops_share is the same
+    with the FLOPs the step runs (the probe's count plus flash's), which
+    model_flops (2 or 6 · params · tokens) exceeds where the embedding
+    and the head are a large share of a cut model (a gather, and the
+    head at one position a prefill). memory_s counts the eager program's
+    traffic, every aten op's inputs and outputs: what the port's unfused
+    steps move."""
+    from dataclasses import replace
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import roofline
     from repro_torch.launch.mesh import AbstractMesh
     one = AbstractMesh(*ONE_CARD)
     rows = []
-    for path, arch, (kind, b, s), secs in measured:
+    for path, arch, layers, (kind, b, s), secs in measured:
         shape = ShapeSpec(f"{kind}_{b}x{s}", s, b, kind)
         cfg = get_config(arch)
+        cfg = replace(cfg, num_layers=layers or cfg.num_layers)
         flash = bool(cfg.num_heads) and not cfg.use_mla
         over = {"onehot_embed": False, **(
             {"attention_impl": "stub"} if flash else {})}
-        probe = roofline.probe_shape(arch, shape, over, one)
-        add = roofline.flash_attention_cost(arch, shape, chips=1) \
+        probe = roofline.probe_shape(cfg, shape, over, one)
+        add = roofline.flash_attention_cost(cfg, shape, chips=1) \
             if flash else (0.0, 0.0)
         probe["hlo_flops"] += add[0]
         probe["hlo_bytes"] += add[1]
         t = roofline.roofline_terms(probe, chips=1)
         rows.append({
-            "path": path, "arch": arch, "shape": shape.name,
+            "path": path, "arch": arch, "layers": cfg.num_layers,
+            "shape": shape.name,
             "hlo_flops": t["hlo_flops"], "hlo_bytes": t["hlo_bytes"],
             "flash_flops_added": add[0], "flash_bytes_added": add[1],
             "compute_s": t["compute_s"], "memory_s": t["memory_s"],
             "dominant": t["dominant"], "bound_s": t["step_time_bound_s"],
             "model_flops": t["model_flops"], "measured_s": secs,
             "mfu": t["model_flops"] / (secs * PEAK_BF16_TENSOR_FLOPS_PER_S),
+            "flops_share": t["hlo_flops"]
+            / (secs * PEAK_BF16_TENSOR_FLOPS_PER_S),
             "bound_share": t["step_time_bound_s"] / secs})
     return rows
 
@@ -4904,7 +5085,9 @@ KERNEL_PATHS = {"flash_attention": {
     "lm_olmoe_1b_7b": "flash_attention_olmoe",
     "lm_frontends_internvl2": "flash_attention_internvl2",
     "lm_frontends_hubert": "flash_attention_hubert",
-    "lm_zamba2_1_2b": "flash_attention_zamba2"}}
+    "lm_zamba2_1_2b": "flash_attention_zamba2",
+    **{name: spec["launches"] for name, spec in DENSE_LM.items()
+       if name != "lm_qwen3_4b"}}}
 
 
 def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
@@ -5018,7 +5201,7 @@ def main() -> int:
     emit(builder_times)
     torch.cuda.empty_cache()
     emit(phase_flash_kernels(torch, dev, errs))
-    lm = phase_lm(torch, dev, launches)
+    lm = phase_lm_dense(torch, dev, launches, "lm_qwen3_4b")
     emit(lm)
     torch.cuda.empty_cache()
     flash_times = phase_flash_times(torch, dev, logs)
@@ -5035,18 +5218,32 @@ def main() -> int:
     emit(mamba)
     zamba = phase_lm_zamba2(torch, dev, launches)
     emit(zamba)
+    dense = {}
+    for name in ("lm_starcoder2_7b", "lm_deepseek_67b",
+                 "lm_nemotron_4_340b"):
+        dense[name] = phase_lm_dense(torch, dev, launches, name)
+        emit(dense[name])
+        torch.cuda.empty_cache()
+    starcoder2 = dense["lm_starcoder2_7b"]
     emit(phase_launch_roofline(torch, dev, smi, lm, [
-        ("lm_qwen3_4b prefill", LM_ARCH, ("prefill", *LM_PREFILL),
+        ("lm_qwen3_4b prefill", LM_ARCH, None, ("prefill", *LM_PREFILL),
          min(lm["prefill"]["flash_s"])),
-        ("lm_train_qwen3_4b step", LM_ARCH,
+        ("lm_train_qwen3_4b step", LM_ARCH, None,
          ("train", LM_TRAIN["batch"], LM_TRAIN["tokens"]),
          lm_train["ms_per_step"] / 1e3),
-        ("lm_olmoe_1b_7b prefill", OLMOE_ARCH, ("prefill", *OLMOE_PREFILL),
-         min(olmoe["prefill"]["flash_s"])),
-        ("lm_mamba2_1_3b prefill", MAMBA_ARCH, ("prefill", *SSM_PREFILL),
-         min(mamba["prefill"]["s"])),
-        ("lm_zamba2_1_2b prefill", ZAMBA_ARCH, ("prefill", *SSM_PREFILL),
-         min(zamba["prefill"]["flash_s"]))]))
+        ("lm_olmoe_1b_7b prefill", OLMOE_ARCH, None,
+         ("prefill", *OLMOE_PREFILL), min(olmoe["prefill"]["flash_s"])),
+        ("lm_mamba2_1_3b prefill", MAMBA_ARCH, None,
+         ("prefill", *SSM_PREFILL), min(mamba["prefill"]["s"])),
+        ("lm_zamba2_1_2b prefill", ZAMBA_ARCH, None,
+         ("prefill", *SSM_PREFILL), min(zamba["prefill"]["flash_s"])),
+        *((f"{name} prefill", DENSE_LM[name]["arch"],
+           DENSE_LM[name]["layers"], ("prefill", *DENSE_LM[name]["prefill"]),
+           min(out["prefill"]["flash_s"])) for name, out in dense.items()),
+        ("lm_starcoder2_7b train step", "starcoder2_7b",
+         STARCODER2_TRAIN["layers"],
+         ("train", STARCODER2_TRAIN["batch"], STARCODER2_TRAIN["tokens"]),
+         starcoder2["train"]["ms_per_step"] / 1e3)]))
     emit(finish_ingest_check(ingest_pending))
     emit(kernels_line(times["rows"] + sharded_times["rows"]
                       + builder_times["rows"] + flash_times["rows"]

@@ -60,12 +60,16 @@ def init_opt_state(params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
+    """sqrt of the sum of every leaf's squares, in float32. Each leaf's
+    squares are summed by ``torch.sum`` a ``_SLICE`` at a time (a
+    cascade on the CPU, a tree on the card: within 1e-7 of the exact sum,
+    as the reference's ``jnp.sum``); a BLAS dot sums into one float32
+    accumulator a thread, 8e-5 off at 2^25 elements on one thread."""
     total = None
     for g in tree_leaves(tree):
-        g32 = g.float().reshape(-1)
-        sq = torch.dot(g32, g32)
-        total = sq if total is None else total + sq
+        for s in g.float().reshape(-1).split(_SLICE):
+            sq = torch.sum(s * s)
+            total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 

@@ -699,7 +699,8 @@ def test_card_builder_equals_the_host_reference(cuda):
 
 # flash attention: (B, S, T, H, KV, hd, causal, dtype) — the JAX
 # package's test cases in float32, its bf16 case, then Qwen3-4B's head
-# layout at ragged lengths, then OLMoE's and InternVL2's
+# layout at ragged lengths, then OLMoE's and InternVL2's, StarCoder2's
+# and Nemotron's
 FLASH_CASES = [(1, 16, 16, 4, 4, 32, True, torch.float32),
                (2, 32, 32, 4, 2, 32, True, torch.float32),
                (1, 64, 64, 8, 2, 16, False, torch.float32),
@@ -717,6 +718,11 @@ FLASH_CASES = [(1, 16, 16, 4, 4, 32, True, torch.float32),
                (2, 300, 300, 16, 16, 128, True, torch.bfloat16),
                (1, 260, 260, 48, 8, 128, True, torch.bfloat16),
                (1, 100, 100, 48, 8, 128, True, torch.float32)] + [
+    # StarCoder2-7B's group of 9 (36/4) and Nemotron-4-340B's heads
+    # (96/8, hd 192), S != T for Nemotron
+    (1, 200, t, h, kv, hd, causal, torch.bfloat16)
+    for t, h, kv, hd in ((200, 36, 4, 128), (130, 96, 8, 192))
+    for causal in (True, False)] + [
     # head dims beside the instances' widths (48 in the 64 instance, 80
     # HuBERT-XLarge's own, 96 in the 128 one, 192) in every dtype the
     # card takes, causal and not, MHA 16/16 and GQA 48/8, S != T
@@ -1080,8 +1086,11 @@ def test_card_faulted_replay_equals_host(cuda):
 
 # -- training and ingest (slice 10) -------------------------------------------
 
-def test_card_train_step_equals_the_cpu_step(cuda):
-    """One float32 train step of a 2-layer smoke model on the card and
+@pytest.mark.parametrize("arch", ["qwen3_4b", "starcoder2_7b",
+                                  "nemotron_4_340b"])
+def test_card_train_step_equals_the_cpu_step(cuda, arch):
+    """One float32 train step of a 2-layer smoke model (SwiGLU, GELU and
+    squared-ReLU MLPs) on the card and
     on the CPU from the same params (TF32 off): the loss within rel 1e-5,
     every updated param within rel 1e-4 of its L2 norm (Adam divides by
     each gradient's own magnitude, so near-zero gradients amplify the
@@ -1092,9 +1101,9 @@ def test_card_train_step_equals_the_cpu_step(cuda):
     from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = get_smoke_config("qwen3_4b").reduced(num_layers=2,
-                                               compute_dtype="float32",
-                                               ce_chunk=16)
+    cfg = get_smoke_config(arch).reduced(num_layers=2,
+                                         compute_dtype="float32",
+                                         ce_chunk=16)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -1340,7 +1349,8 @@ def test_mla_decode_on_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b",
-                                  "internvl2_26b"])
+                                  "internvl2_26b", "starcoder2_7b",
+                                  "deepseek_67b", "nemotron_4_340b"])
 def test_family_prefill_and_decode_on_card(cuda, arch):
     """The smoke configs on the card in float32: the flash prefill (GQA
     layers launch the kernel once each; MLA attends densely) agrees with

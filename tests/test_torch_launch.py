@@ -148,11 +148,14 @@ def test_stub_attention_matches_the_reference_bit_for_bit(arch, dtype):
 # the probe's extrapolation: (family's smoke config, depth to extrapolate
 # to, step kind); on the (1, 2) mesh olmoe runs moe_apply's
 # expert-parallel path (4 experts, 2 a shard), the hybrid extrapolates
-# in whole shared groups
+# in whole shared groups; the three other dense configs at the depths
+# the card's phases run them (StarCoder2-7B's training at 8 layers)
 EXTRAP = [("qwen3_4b", 5, "train"), ("qwen3_4b", 5, "prefill"),
           ("olmoe_1b_7b", 5, "train"), ("olmoe_1b_7b", 5, "prefill"),
           ("deepseek_v2_236b", 5, "prefill"), ("mamba2_1_3b", 5, "prefill"),
-          ("zamba2_1_2b", 18, "prefill")]
+          ("zamba2_1_2b", 18, "prefill"), ("starcoder2_7b", 32, "prefill"),
+          ("starcoder2_7b", 8, "train"), ("deepseek_67b", 24, "prefill"),
+          ("nemotron_4_340b", 4, "prefill")]
 
 
 @pytest.mark.parametrize("arch,depth,kind", EXTRAP)

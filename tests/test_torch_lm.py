@@ -76,6 +76,40 @@ def test_configs_equal_the_jax_packages(arch):
         assert ours.param_count() == theirs.param_count()
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_count_equals_the_jax_packages_at_full_size(arch):
+    """The analytic count at the published config, both packages; for
+    the dense configs it is also the port's full-size tree (fake
+    tensors) with the norms as ``param_count`` counts them: 4·d a layer
+    where the tree holds two d-wide norms a layer and one final norm,
+    and no qk-norm vectors."""
+    from repro_torch.launch.specs import param_specs
+    from repro_torch.tree import tree_leaves
+    ours, theirs = get_config(arch), rbase.get_config(arch)
+    assert ours.param_count() == theirs.param_count()
+    if ours.family == "dense":
+        d, hd, n = ours.d_model, ours.resolved_head_dim, ours.num_layers
+        tree = sum(t.numel() for t in tree_leaves(param_specs(ours)))
+        qk = 2 * hd * n if ours.qk_norm else 0
+        assert ours.param_count() == tree - d + 2 * d * n - qk
+
+
+@pytest.mark.parametrize("arch,published", [
+    ("starcoder2_7b", (32, 4608, 36, 4, 128, 18432, 49152, "gelu", 1e5,
+                       1e-5)),
+    ("deepseek_67b", (95, 8192, 64, 8, 128, 22016, 102400, "swiglu", 1e4,
+                      1e-6)),
+    ("nemotron_4_340b", (96, 18432, 96, 8, 192, 73728, 256000,
+                         "squared_relu", 1e4, 1e-5))])
+def test_dense_configs_are_the_published_shapes(arch, published):
+    cfg = get_config(arch)
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.mlp_type,
+            cfg.rope_theta, cfg.norm_eps) == published
+    assert cfg.family == "dense" and not cfg.tie_embeddings \
+        and not cfg.qk_norm
+
+
 def test_qwen3_4b_is_the_published_shape():
     cfg = get_config("qwen3_4b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -96,7 +130,7 @@ def test_norms_match_jax():
                theirs(jnp.asarray(x), jnp.asarray(g), 1e-6), 1e-5)
 
 
-@pytest.mark.parametrize("theta", [1e4, 1e6])
+@pytest.mark.parametrize("theta", [1e4, 1e5, 1e6])
 def test_apply_rope_matches_jax(theta):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 40, 4, 32)).astype(np.float32)
@@ -141,6 +175,46 @@ def test_bf16_params_cross_unchanged():
     want = np.asarray(params["embed"].astype(jnp.float32))
     assert ours["embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(ours["embed"].float().numpy(), want)
+
+
+# (heads, kv heads, head dim): StarCoder2-7B's group of 9 (36 / 4) and
+# Nemotron-4-340B's of 12 (96 / 8), cut to one or two KV heads, at the
+# smoke width's hd 32 and Nemotron's hd 192
+WIDE_GROUPS = [(9, 1, 32), (18, 2, 32), (12, 1, 32), (24, 2, 192)]
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+@pytest.mark.parametrize("heads,kv,hd", WIDE_GROUPS)
+def test_gqa_apply_and_decode_match_jax_at_wide_groups(heads, kv, hd, impl):
+    """``gqa_apply`` (query head h reads KV head h // (H / KV)) and eight
+    ``gqa_decode`` steps, outputs and the cache, within TOL in float32;
+    the JAX package's flash through its Pallas kernel in interpret
+    mode."""
+    from repro_torch.models import attention
+    over = dict(num_heads=heads, num_kv_heads=kv, head_dim=hd,
+                attention_impl=impl, rope_theta=1e5)
+    cfg_j, cfg_t = _cfgs(**over)
+    p = rattention.gqa_init(jax.random.PRNGKey(7), cfg_j, jnp.float32)
+    pt = lm_params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
+    rng = np.random.default_rng(13)
+    b, s, steps = 2, 20, 8
+    x = rng.standard_normal((b, s, cfg_j.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    _close(attention.gqa_apply(pt, cfg_t, torch.from_numpy(x),
+                               torch.from_numpy(pos)),
+           rattention.gqa_apply(p, cfg_j, jnp.asarray(x), jnp.asarray(pos)))
+    cache_j = rattention.gqa_init_cache(cfg_j, b, 12, jnp.float32)
+    cache_t = attention.gqa_init_cache(cfg_t, b, 12, torch.float32, "cpu")
+    for i in range(steps):
+        y_j, cache_j = rattention.gqa_decode(p, cfg_j,
+                                             jnp.asarray(x[:, i:i + 1]),
+                                             cache_j, jnp.int32(i))
+        y_t, cache_t = attention.gqa_decode(pt, cfg_t,
+                                            torch.from_numpy(x[:, i:i + 1]),
+                                            cache_t, i)
+        _close(y_t, y_j)
+    for name in ("k", "v"):
+        _close(cache_t[name], cache_j[name])
 
 
 # -- forward / prefill --------------------------------------------------------
@@ -287,7 +361,10 @@ def test_batched_decoder_matches_jax():
 # (name, arch, overrides): the smoke configs, OLMoE also at its published
 # capacity factor (the smoke reduction is dropless), a dense config with
 # MLA attention, Mamba2 (ssm) and Zamba2 (hybrid: the smoke config's
-# shared_attn_every 2, one shared application in 2 layers)
+# shared_attn_every 2, one shared application in 2 layers), and the
+# three dense configs of the other MLPs and norms: StarCoder2-7B (GELU,
+# θ 1e5), DeepSeek-67B (SwiGLU, norm eps 1e-6) and Nemotron-4-340B
+# (squared ReLU)
 FAMILIES = [("olmoe", "olmoe_1b_7b", {}),
             ("olmoe_cf125", "olmoe_1b_7b", {"moe_capacity_factor": 1.25}),
             ("deepseek", "deepseek_v2_236b", {}),
@@ -295,11 +372,19 @@ FAMILIES = [("olmoe", "olmoe_1b_7b", {}),
             ("hubert", "hubert_xlarge", {}),
             ("dense_mla", "deepseek_v2_236b", {"family": "dense"}),
             ("mamba2", "mamba2_1_3b", {}),
-            ("zamba2", "zamba2_1_2b", {})]
+            ("zamba2", "zamba2_1_2b", {}),
+            ("starcoder2", "starcoder2_7b", {}),
+            ("deepseek_67b", "deepseek_67b", {}),
+            ("nemotron", "nemotron_4_340b", {})]
 SSM_FAMILIES = [f for f in FAMILIES if f[0] in ("mamba2", "zamba2")]
+DENSE_FAMILIES = [f for f in FAMILIES
+                  if f[0] in ("starcoder2", "deepseek_67b", "nemotron")]
 # HuBERT's smoke config at HuBERT-XLarge's head dim 80: its flash forward
 # is the one the card's tensor-core kernel serves in its hd-80 instance
 HUBERT_HD80 = ("hubert_hd80", "hubert_xlarge", {"head_dim": 80})
+# Nemotron's smoke config at Nemotron-4-340B's head dim 192 (the smoke
+# reduction sets 32): the card serves it in the hd-192 instance
+NEMOTRON_HD192 = ("nemotron_hd192", "nemotron_4_340b", {"head_dim": 192})
 
 
 def _family_cfgs(arch, overrides, **kw):
@@ -357,7 +442,8 @@ def test_family_init_params_and_cache_have_the_jax_trees(name, arch,
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])
-@pytest.mark.parametrize("name,arch,overrides", FAMILIES + [HUBERT_HD80])
+@pytest.mark.parametrize("name,arch,overrides",
+                         FAMILIES + [HUBERT_HD80, NEMOTRON_HD192])
 def test_family_forward_matches_jax(name, arch, overrides, impl):
     """The hidden states of ``forward`` (patches and frames included)
     within TOL in float32, the JAX package's flash through its Pallas
@@ -373,7 +459,8 @@ def test_family_forward_matches_jax(name, arch, overrides, impl):
 
 @pytest.mark.parametrize("name,arch,overrides",
                          [f for f in FAMILIES
-                          if f[0] not in ("hubert", "dense_mla")])
+                          if f[0] not in ("hubert", "dense_mla")]
+                         + [NEMOTRON_HD192])
 def test_family_decode_step_matches_jax(name, arch, overrides):
     """Logits and every cache leaf (GQA or MLA, both layer stacks) over
     eight steps from the same cache; MoE decode is dropless."""
@@ -402,7 +489,8 @@ def test_family_decode_step_matches_jax(name, arch, overrides):
 @pytest.mark.parametrize("name,arch,overrides",
                          [f for f in FAMILIES
                           if f[0] in ("olmoe", "deepseek", "dense_mla",
-                                      "mamba2", "zamba2")])
+                                      "mamba2", "zamba2")]
+                         + DENSE_FAMILIES)
 def test_family_decode_matches_forward_logits(name, arch, overrides):
     """Teacher-forced decode reproduces the forward pass's logits at
     every position (dropless MoE on both paths; the SSM state and conv
@@ -424,7 +512,8 @@ def test_family_decode_matches_forward_logits(name, arch, overrides):
 
 @pytest.mark.parametrize("name,arch,overrides",
                          [f for f in FAMILIES if f[0] in (
-                             "internvl2", "dense_mla", "mamba2", "zamba2")])
+                             "internvl2", "dense_mla", "mamba2", "zamba2")]
+                         + DENSE_FAMILIES)
 def test_family_forward_bf16_matches_jax(name, arch, overrides):
     """The patch frontend, MLA and the SSM families in bf16, within
     TOL_BF16 (the stacked 1-D SSM vectors, ``a_log`` among them, are
@@ -445,11 +534,12 @@ def test_family_forward_bf16_matches_jax(name, arch, overrides):
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])
-@pytest.mark.parametrize("name,arch,overrides", SSM_FAMILIES)
+@pytest.mark.parametrize("name,arch,overrides",
+                         SSM_FAMILIES + DENSE_FAMILIES)
 def test_family_make_prefill_step_matches_jax(name, arch, overrides, impl):
     """32 tokens: two SSD chunks of 16 (the forward tests' 24 tokens
-    take the one-chunk fallback); the hybrid's shared block through
-    ``impl``."""
+    take the one-chunk fallback); the hybrid's shared block and the
+    dense configs' attention through ``impl``."""
     cfg_j, cfg_t = _family_cfgs(arch, overrides, attention_impl=impl)
     params, ours = _params(cfg_j, seed=2)
     assert 32 % cfg_t.ssm_chunk == 0 and 32 > cfg_t.ssm_chunk
@@ -462,7 +552,8 @@ def test_family_make_prefill_step_matches_jax(name, arch, overrides, impl):
     _close(got, want)
 
 
-@pytest.mark.parametrize("name,arch,overrides", SSM_FAMILIES)
+@pytest.mark.parametrize("name,arch,overrides",
+                         SSM_FAMILIES + DENSE_FAMILIES)
 def test_family_batched_decoder_matches_jax(name, arch, overrides):
     """Five requests at batch 3 (two groups, each from a fresh cache):
     every step's logits within TOL, so the greedy tokens agree."""
@@ -501,7 +592,8 @@ def test_stub_attention_raises():
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "olmoe_1b_7b",
                                   "deepseek_v2_236b", "mamba2_1_3b",
-                                  "zamba2_1_2b"])
+                                  "zamba2_1_2b", "starcoder2_7b",
+                                  "nemotron_4_340b"])
 def test_serve_cli_runs_on_the_cpu(capsys, arch):
     from repro_torch.launch import serve
     serve.main(["--arch", arch, "--smoke", "--device", "cpu",

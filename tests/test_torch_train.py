@@ -262,14 +262,19 @@ def test_flash_attention_under_autograd_raises_in_both_packages():
 # the smoke configs (OLMoE at its published capacity factor 1.25, so
 # that training runs the capacity path), a dense config with MLA, Mamba2
 # and Zamba2 (its shared block applied once in 2 layers: one set of
-# leaves whose gradient autograd sums over its uses)
+# leaves whose gradient autograd sums over its uses), and the dense
+# configs whose MLPs are GELU (StarCoder2-7B), SwiGLU at norm eps 1e-6
+# (DeepSeek-67B) and squared ReLU (Nemotron-4-340B)
 FAMILIES = [("olmoe_cf125", "olmoe_1b_7b", {"moe_capacity_factor": 1.25}),
             ("deepseek", "deepseek_v2_236b", {}),
             ("internvl2", "internvl2_26b", {}),
             ("hubert", "hubert_xlarge", {}),
             ("dense_mla", "deepseek_v2_236b", {"family": "dense"}),
             ("mamba2", "mamba2_1_3b", {}),
-            ("zamba2", "zamba2_1_2b", {})]
+            ("zamba2", "zamba2_1_2b", {}),
+            ("starcoder2", "starcoder2_7b", {}),
+            ("deepseek_67b", "deepseek_67b", {}),
+            ("nemotron", "nemotron_4_340b", {})]
 
 
 def _family(arch, overrides, **kw):
@@ -491,6 +496,29 @@ def test_adamw_update_matches_the_reference(clip):
         _assert_trees_close(pt, pj, 1e-6)
         _assert_trees_close(st["m"], sj["m"], 1e-6)
         _assert_trees_close(st["v"], sj["v"], 1e-6)
+
+
+def test_global_norm_of_a_large_leaf_matches_the_reference():
+    """A leaf of 2^25 elements (StarCoder2-7B's embedding gradient has
+    2^27.8) on one thread: within 1e-6 of the exact norm and of the
+    reference's ``global_norm``. A float32 BLAS dot over the whole leaf
+    was 8e-5 off here, and put the card's f32 train step 7.8e-5 from the
+    host's in ``grad_norm`` at StarCoder2-7B's width."""
+    rng = np.random.default_rng(12)
+    g = (rng.standard_normal(1 << 25) * 1e-3).astype(np.float32)
+    exact = float(np.sqrt(np.sum(np.square(g, dtype=np.float64))))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = float(topt.global_norm({"w": torch.from_numpy(g),
+                                      "b": torch.ones(3)}))
+    finally:
+        torch.set_num_threads(threads)
+    want = float(ropt.global_norm({"w": jnp.asarray(g),
+                                   "b": jnp.ones(3)}))
+    exact = float(np.sqrt(exact ** 2 + 3))
+    assert abs(got - exact) <= 1e-6 * exact
+    assert abs(got - want) <= 1e-6 * want
 
 
 def test_adamw_decays_every_leaf_of_two_dims_or_more():
@@ -828,7 +856,8 @@ def test_loop_with_fault_and_resume_matches_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "olmoe_1b_7b", "mamba2_1_3b",
-                                  "zamba2_1_2b"])
+                                  "zamba2_1_2b", "starcoder2_7b",
+                                  "nemotron_4_340b"])
 def test_launcher_runs_on_the_cpu(tmp_path, capsys, arch):
     tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
                   "--steps", "3", "--seq", "16", "--batch", "2",
