@@ -10,7 +10,8 @@ rate beside the issue ceiling its instructions allow (phase
 bounds), holds each kernel against its plain PyTorch version on the
 card (``relax`` with and without its occupancy map; the fused closure
 on each side of its cap; the k-major product; the join at every vector
-width), and drives the port's twenty-one paths:
+width, on float32, bfloat16 and float16 rows and 16-bit codes), and
+drives the port's twenty-two paths:
 
 * serving at n = 4096 — deploy with the staged builder on the card
   (``builder="torch"``) → ``DistanceService.submit`` in float32 and
@@ -128,7 +129,20 @@ width), and drives the port's twenty-one paths:
   probe's count; the dry run's argument bytes equal to the serving
   params held on the card; ``moe_apply``'s expert-parallel path on
   OLMoE's full-width layer (data 1 x model 4) against the host; and
-  ``python -m repro_torch.launch.dryrun`` for one cell in a subprocess.
+  ``python -m repro_torch.launch.dryrun`` for one cell in a subprocess;
+* the JAX package's four LM input shapes (``configs/base.py`` SHAPES) at
+  published widths and full depth, each at the largest batch one card
+  holds — ``prefill_32k`` on Qwen3-4B (8 x 32 768 tokens, 36 flash
+  launches) and Zamba2-1.2B (4 x 32 768, 6), ``decode_32k`` on
+  Qwen3-4B (batch 12 over a 32 768-row cache), ``long_500k`` on
+  Zamba2-1.2B (a 524 288-row shared cache) and Mamba2-1.3B, and
+  ``train_4k`` on Qwen3-4B (1 x 4096); each with a float32 step of the
+  same path on the card against the host at a cut depth and the full
+  length, the decode caches filled with seeded draws (the written slot
+  and every other slot checked), a profile, peak memory and the path's
+  roofline; and the flash kernel at 32 768 tokens, held against its
+  plain version on slices of query rows, at batch 1 and on the last
+  sequence of each 32 768-token prefill's first launch.
 
 It checks answers against the scalar loop, the plain versions, the host
 builders and Dijkstra, the dense attention path, and times every
@@ -194,7 +208,14 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One line of JSON; a phase's line also gets the seconds since the
+    script started (where the run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -233,6 +254,13 @@ def on_card_at(torch, dev, host: np.ndarray, offset: int):
     table = flat[offset:].view(host.shape)
     table.copy_(torch.from_numpy(host))
     return table
+
+
+def copy_at(torch, x, offset: int):
+    """A copy of the card tensor ``x``, contiguous, ``offset`` elements
+    past its allocation's alignment."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    return flat[offset:].view(x.shape).copy_(x)
 
 
 def phase_kernels(torch, dev, kernel, ref, errs: dict) -> dict:
@@ -277,13 +305,35 @@ def phase_kernels(torch, dev, kernel, ref, errs: dict) -> dict:
                   f"label_join {npdt.__name__} {q}x{w}")
             errs["label_join"] = max(errs["label_join"],
                                      max_abs_err(got, want))
+        # 16-bit float rows: widened, joined in float32, rounded once
+        for dt in (torch.bfloat16, torch.float16):
+            HS = copy_at(torch, S.to(dt), offset)
+            HT = copy_at(torch, T.to(dt), offset)
+            layouts.add(("float16",) + kernel.join_layout(HS, HT, q))
+            got = kernel.gather_join(HS, rs, HT, rt)
+            lam, lb = kernel.gather_join(HS, rs, HT, rt, with_lb=True)
+            sync(torch, dev)
+            want = ref.gather_join_ref(HS, rs, HT, rt)
+            want_lam, want_lb = ref.gather_join_ref(HS, rs, HT, rt,
+                                                    with_lb=True)
+            check(got.dtype == dt and torch.equal(got, want),
+                  f"label_join {dt} {q}x{w}")
+            check(lam.dtype == dt and torch.equal(lam, want_lam)
+                  and torch.equal(lb, want_lb), f"label_join_lb {dt} {q}x{w}")
+            errs["label_join"] = max(errs["label_join"],
+                                     max_abs_err(got, want))
+            errs["label_join_lb"] = max(errs["label_join_lb"],
+                                        max_abs_err(lb, want_lb),
+                                        max_abs_err(lam, want_lam))
     widths = {kind: sorted({v for k, v, _ in layouts if k == kind})
-              for kind in ("float32", "codes")}
-    check(widths == {"float32": [4, 8, 16], "codes": [2, 4, 8, 16]},
+              for kind in ("float32", "codes", "float16")}
+    check(widths == {"float32": [4, 8, 16], "codes": [2, 4, 8, 16],
+                     "float16": [2, 4, 8, 16]},
           f"the join shapes missed a vector width: {widths}")
     return {"phase": "kernels_vs_plain", "shapes": JOIN_SHAPES,
             "table_offsets_elements": [0, 1],
-            "dtypes": ["float32", "uint16", "int16"],
+            "dtypes": ["float32", "uint16", "int16", "bfloat16",
+                       "float16"],
             "layouts_vec_bytes_lanes": sorted(layouts),
             "tolerance": "bitwise", "ok": True}
 
@@ -2800,17 +2850,25 @@ FLASH_F32_ATOL = 2e-5
 HALF_MANTISSA_BITS = {"torch.bfloat16": 7, "torch.float16": 10}
 
 
-def half_bound_ratio(got, q, k, v, causal: bool) -> float:
+def half_bound_ratio(got, q, k, v, causal: bool,
+                     start: int | None = None) -> float:
     """Largest |got - want| over the bound above, elementwise; want and
     attention(q, k, |v|) from the plain version in f32 on the same 16-bit
-    inputs."""
+    inputs. With ``start``, ``got`` and ``q`` are the query rows from
+    ``start`` on and the plain version runs on those rows alone
+    (``attention_rows_ref``: the mask at their absolute positions)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ref
     bits = HALF_MANTISSA_BITS[str(q.dtype)]
     qf, kf, vf = q.float(), k.float(), v.float()
-    want = ref.attention_ref(qf, kf, vf, causal=causal)
-    mass = ref.attention_ref(qf, kf, vf.abs(), causal=causal)
+    if start is None:
+        want = ref.attention_ref(qf, kf, vf, causal=causal)
+        mass = ref.attention_ref(qf, kf, vf.abs(), causal=causal)
+    else:
+        want = ref.attention_rows_ref(qf, kf, vf, start, causal=causal)
+        mass = ref.attention_rows_ref(qf, kf, vf.abs(), start,
+                                      causal=causal)
     g = got.float()
     mag = torch.maximum(g.abs(), want.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
@@ -3048,14 +3106,16 @@ def lm_tight_check(torch, dev, arch: str, t: dict) -> dict:
             "attends through the f32 flash kernel, the host densely"}
 
 
-def phase_lm_dense(torch, dev, launches: dict, name: str) -> dict:
+def phase_lm_dense(torch, dev, launches: dict, name: str,
+                   pending: dict | None = None) -> dict:
     """The dense config ``DENSE_LM[name]`` at its published width (bf16
     weights, random from a seed), after its float32 card-vs-host check:
     the main path (one flash prefill through ``make_prefill_step``, its
     launches read: one a layer; a decode step, which launches none;
     ``BatchedDecoder`` answering ``LM_SERVER``'s requests and a decode
     profile), then two timed flash prefills and the dense prefill as
-    the bf16 yardstick; StarCoder2-7B then trains."""
+    the bf16 yardstick; StarCoder2-7B then trains (the host half of its
+    float32 train step in ``pending``'s worker, ``start_host_checks``)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -3161,7 +3221,8 @@ def phase_lm_dense(torch, dev, launches: dict, name: str) -> dict:
            "server": server, "decode_profile": decode_profile,
            "decode_launches_flash": 0}
     if "train" in spec:
-        out["train_tight_f32"] = lm_train_tight(torch, dev, spec["arch"])
+        out["train_tight_f32"] = lm_train_tight(torch, dev, spec["arch"],
+                                                pending=pending[name])
         torch.cuda.empty_cache()
         out["train"] = train_full_depth(torch, dev, spec["arch"],
                                         spec["train"], seed=64,
@@ -3215,42 +3276,63 @@ def serve_requests(torch, cfg, params, dev, seed: int) -> dict:
             "of the tokens to the host"}
 
 
-def profile_decode(torch, params, cfg, dev, steps: int = 3) -> dict:
-    """Where a decode step's time goes: ``steps`` steps at the server's
-    batch under ``torch.profiler`` — CUDA kernels launched per step, the
-    device time they take, and the host time per step (profiler on, so
-    the host time is inflated)."""
+def device_profile(torch, fn, calls: int) -> dict:
+    """``fn()`` ``calls`` times under ``torch.profiler``: CUDA kernels
+    launched a call, the device time they take, the host time a call
+    (profiler on, so it is inflated), the device's idle share, the top 5
+    kernels, and the device time of the copy kernels (``copy`` in the
+    kernel's name: the eager program's layout copies and casts). Only
+    the card's activity is recorded: the host's aten ops are tens of
+    thousands of events a prefill, and ``key_averages`` takes seconds a
+    hundred thousand."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    # a record_function range (the MoE and Mamba2 stages) can also show
+    # on the device timeline as a span around its kernels: not a kernel
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.key not in MOE_STAGES + MAMBA2_STAGES]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    check(device_us > 0, "torch.profiler recorded no device time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    copy_us = sum(e.self_device_time_total for e in kernels
+                  if "copy" in e.key.lower())
+    return {"calls": calls, "kernels_per_call":
+            sum(e.count for e in kernels) / calls,
+            "device_ms_per_call": device_us / 1e3 / calls,
+            "host_ms_per_call_profiled": host_s * 1e3 / calls,
+            "device_idle_share": 1 - device_us / 1e6 / host_s,
+            "copy_kernels_ms_per_call": copy_us / 1e3 / calls,
+            "top_kernels_ms_per_call": {
+                e.key[:60]: e.self_device_time_total / 1e3 / calls
+                for e in top}}
+
+
+def profile_decode(torch, params, cfg, dev, steps: int = 3) -> dict:
+    """Where a decode step's time goes: ``steps`` steps at the server's
+    batch under ``torch.profiler`` (``device_profile``)."""
     from repro_torch.models.lm import decode_step, init_cache
     b = LM_SERVER["batch"]
     cache = init_cache(cfg, b, LM_SERVER["max_len"], dev)
     tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
     decode_step(params, cfg, cache, tok, 0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            decode_step(params, cfg, cache, tok, i + 1)
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    # a record_function range (the MoE stages) also shows on the device
-    # timeline as a span around its kernels: not a kernel of its own
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.key not in MOE_STAGES]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return {"steps": steps, "kernels_per_step":
-            sum(e.count for e in kernels) / steps,
-            "device_ms_per_step": device_us / 1e3 / steps,
-            "host_ms_per_step_profiled": host_s * 1e3 / steps,
-            "device_idle_share": 1 - device_us / 1e6 / host_s,
-            "top_kernels_ms_per_step": {
-                e.key[:60]: e.self_device_time_total / 1e3 / steps
-                for e in top}}
+    pos = iter(range(1, steps + 1))
+    prof = device_profile(
+        torch, lambda: decode_step(params, cfg, cache, tok, next(pos)),
+        steps)
+    return {"steps": steps, "kernels_per_step": prof["kernels_per_call"],
+            "device_ms_per_step": prof["device_ms_per_call"],
+            "host_ms_per_step_profiled": prof["host_ms_per_call_profiled"],
+            "device_idle_share": prof["device_idle_share"],
+            "top_kernels_ms_per_step": prof["top_kernels_ms_per_call"]}
 
 
 def _leaves(tree: dict):
@@ -3305,12 +3387,49 @@ FLASH_TIMED = [("flash_b2_s4096", (2, 4096, 32, 8, 128), True, "bfloat16"),
                 "bfloat16"),
                ("flash_nemotron_b1_s2048", (1, 2048, 96, 8, 192), True,
                 "bfloat16")]
+# the 32 768-token prefills of SHAPES["prefill_32k"] (Qwen3-4B's GQA
+# 32 / 8 and Zamba2-1.2B's shared MHA 32 / 32): the dense plain version
+# would hold (B, H, S, S) float32 scores, 137 GB, so these rows hold the
+# kernel against the plain version on FLASH_SLICE_ROWS query rows at the
+# start, the middle and the end (all keys, the mask at the rows'
+# absolute positions), and time the plain version on those rows
+FLASH_LONG = [("flash_b1_s32768", (1, 32768, 32, 8, 128), True, "bfloat16"),
+              ("flash_zamba2_b1_s32768", (1, 32768, 32, 32, 128), True,
+               "bfloat16")]
+FLASH_SLICE_ROWS = 512
 
 
-def phase_flash_times(torch, dev, logs: dict) -> dict:
+def slice_starts(s: int) -> tuple:
+    """The first row of each checked slice: the first, a middle and the
+    last FLASH_SLICE_ROWS rows of s."""
+    r = FLASH_SLICE_ROWS
+    return (0, (s - r) // 2 // r * r, s - r)
+
+
+def flash_slices_check(torch, got, q, k, v, causal: bool) -> dict:
+    """``got`` (the kernel's output on q, k, v) against the plain version
+    on the rows of ``slice_starts``: the largest bf16 / f16 bound ratio
+    and |got - want| over them."""
+    from repro_torch.kernels.flash_attention import ref
+    ratio = err = 0.0
+    r = FLASH_SLICE_ROWS
+    for r0 in slice_starts(q.shape[1]):
+        rows = slice(r0, r0 + r)
+        ratio = max(ratio, half_bound_ratio(got[:, rows], q[:, rows], k, v,
+                                            causal, start=r0))
+        want = ref.attention_rows_ref(q[:, rows].float(), k.float(),
+                                      v.float(), r0, causal=causal)
+        err = max(err, max_abs_err(got[:, rows], want))
+    return {"slice_rows": r, "slice_starts": list(slice_starts(q.shape[1])),
+            "bound_ratio": ratio, "max_abs_err": err}
+
+
+def phase_flash_times(torch, dev, logs: dict, errs: dict) -> dict:
     """The flash kernel at the LM paths' prefill shapes, its plain
     version and the library yardstick (SDPA; timed here only, never
-    called by the port), with inputs read from HBM; the registers and
+    called by the port), with inputs read from HBM; at 32 768 tokens
+    (FLASH_LONG) the kernel held against the plain version on slices of
+    rows and the plain version timed on those rows; the registers and
     spills of both flash kernels from this run's build log."""
     import torch.nn.functional as F
 
@@ -3318,7 +3437,9 @@ def phase_flash_times(torch, dev, logs: dict) -> dict:
 
     rows = []
     for i, (name, (b, s, h, kv, hd), causal, dtype) in enumerate(
-            FLASH_TIMED):
+            FLASH_TIMED + FLASH_LONG):
+        sliced = i >= len(FLASH_TIMED)
+
         def sdpa(q, k, v, causal=causal):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -3330,8 +3451,31 @@ def phase_flash_times(torch, dev, logs: dict) -> dict:
         def plain(q, k, v, causal=causal):
             return ref.attention_ref(q, k, v, causal=causal)
 
+        def plain_slices(q, k, v, causal=causal):
+            r = FLASH_SLICE_ROWS
+            return [ref.attention_rows_ref(q[:, r0:r0 + r], k, v, r0,
+                                           causal=causal)
+                    for r0 in slice_starts(q.shape[1])]
+
         q, k, v = flash_inputs(torch, dev, b, s, s, h, kv, hd, dtype,
                                99 + i)
+        check_row = {}
+        if sliced:
+            before = kernel.LAUNCHES["flash_attention"]
+            got = kernel.flash_attention(q, k, v, causal=causal)
+            sync(torch, dev)
+            check(kernel.LAUNCHES["flash_attention"] == before + 1,
+                  f"{name}: the kernel did not launch")
+            kernel.LAUNCHES["flash_attention"] = before
+            check(got.dtype == q.dtype and got.shape == q.shape
+                  and bool(torch.isfinite(got).all()), f"{name} output")
+            check_row = flash_slices_check(torch, got, q, k, v, causal)
+            check(check_row["bound_ratio"] <= 1.0,
+                  f"{name}: beyond the {dtype} bound on its row slices "
+                  f"({check_row})")
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          check_row["max_abs_err"])
+            del got
         nbytes = ops.hbm_bytes_per_call(q.shape, k.shape, q.element_size())
         # 4·B·H·S·T·hd, half of it under the causal mask; float32 runs on
         # the CUDA cores, the 16-bit types on the tensor cores
@@ -3344,7 +3488,12 @@ def phase_flash_times(torch, dev, logs: dict) -> dict:
         before = dict(kernel.LAUNCHES)
         kernel_ms = device_ms(torch, launch, cold, 4, 3)
         kernel.LAUNCHES.update(before)  # timing launches are not the path's
-        plain_ms = device_ms(torch, plain, cold, 2, 2)
+        if sliced:
+            plain_ms = None
+            check_row["plain_slices_ms"] = device_ms(torch, plain_slices,
+                                                     cold[:1], 1, 2)
+        else:
+            plain_ms = device_ms(torch, plain, cold, 2, 2)
         library_ms = device_ms(torch, sdpa, cold, 4, 3)
         copies = len(cold)
         del cold, q, k, v
@@ -3359,7 +3508,8 @@ def phase_flash_times(torch, dev, logs: dict) -> dict:
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations",
                      "share_of_bound": bound_ms / kernel_ms,
-                     "kernel_tflops": flops / kernel_ms / 1e9})
+                     "kernel_tflops": flops / kernel_ms / 1e9,
+                     **check_row})
     registers = {}
     for src in kernel.SOURCES:
         if src in logs:
@@ -3621,32 +3771,53 @@ def _rel2(torch, a, b) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def lm_train_tight(torch, dev, arch: str = LM_ARCH) -> dict:
-    """One float32 train step of ``arch`` at full width and 2 layers on
-    the card and on the host through the port, from the same params and
-    batch."""
+def train_tight_inputs(torch, arch: str, t: dict):
+    """The float32 train check's config (full width, ``t["layers"]``
+    layers, ``t["vocab"]`` where given), params (drawn on the host), batch
+    and step: the same in every process."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import init_params
-    from repro_torch.train.data import DataConfig, synthetic_batch, to_device
-    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.train_step import make_train_step
-    t = LM_TRAIN_TIGHT
     cfg = replace(get_config(arch), num_layers=t["layers"],
-                  compute_dtype="float32")
+                  compute_dtype="float32",
+                  **({"vocab_size": t["vocab"]} if t.get("vocab") else {}))
     host = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
-    card = _copy_tree(host, dev)
     batch = synthetic_batch(cfg, DataConfig(t["tokens"], t["batch"], seed=2),
                             0)
-    step = make_train_step(cfg, OptimizerConfig(warmup_steps=1))
+    return cfg, host, batch, make_train_step(cfg, OptimizerConfig(
+        warmup_steps=1))
+
+
+def lm_train_tight(torch, dev, arch: str = LM_ARCH,
+                   t: dict = LM_TRAIN_TIGHT, pending: tuple | None = None
+                   ) -> dict:
+    """One float32 train step of ``arch`` at full width and
+    ``t["layers"]`` layers (and ``t["vocab"]``, where given) on the card
+    and on the host through the port, from the same params and batch;
+    the host's step here, or in the worker of ``pending`` (see
+    ``start_host_checks``)."""
+    from repro_torch.train.data import to_device
+    from repro_torch.train.optimizer import init_opt_state
+    cfg, host, batch, step = train_tight_inputs(torch, arch, t)
+    card = _copy_tree(host, dev)
     t0 = time.perf_counter()
     pc, _, mc = step(card, init_opt_state(card), to_device(batch, dev))
     sync(torch, dev)
     card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ph, _, mh = step(host, init_opt_state(host), to_device(batch, "cpu"))
-    host_s = time.perf_counter() - t0
+    wait = {}
+    if pending is None:
+        t0 = time.perf_counter()
+        ph, _, mh = step(host, init_opt_state(host), to_device(batch, "cpu"))
+        host_s = time.perf_counter() - t0
+    else:
+        del host
+        result, wait = wait_host_check(torch, pending)
+        ph, mh, host_s = result["params"], result["metrics"], \
+            result["seconds"]
     rels = {k: rel_diff(mc[k].cpu(), mh[k]) for k in ("loss", "grad_norm")}
     leaves = {}
     for path, a, b in _paired_leaves(pc, ph):
@@ -3655,11 +3826,13 @@ def lm_train_tight(torch, dev, arch: str = LM_ARCH) -> dict:
     check(worst <= LM_TRAIN_REL, f"f32 train step on the card vs the host: "
           f"{worst} > {LM_TRAIN_REL} ({rels}, {leaves})")
     return {"layers": t["layers"], "batch": t["batch"],
-            "tokens": t["tokens"], "loss": float(mc["loss"]),
+            "tokens": t["tokens"], "vocab": cfg.vocab_size,
+            "loss": float(mc["loss"]),
             "loss_rel": rels["loss"], "grad_norm_rel": rels["grad_norm"],
             "param_rel2_max": max(leaves.values()),
             "param_rel2": leaves, "tolerance_rel": LM_TRAIN_REL,
             "card_step_s": card_s, "host_step_s": host_s,
+            **wait,
             "measure": "loss, grad_norm: max |a-b| / max |b|; params after "
             "the step: ||a-b||_2 / ||b||_2"}
 
@@ -3814,12 +3987,14 @@ def lm_train_loop(torch, dev) -> dict:
 
 
 def train_full_depth(torch, dev, arch: str, tr: dict, seed: int,
-                     layers: int | None = None) -> dict:
+                     layers: int | None = None,
+                     profile: bool = False) -> dict:
     """``tr["steps"]`` train steps at full width and depth, or at
     ``layers`` (float32 params, bf16 compute, per-layer remat, dense
     attention) on one batch drawn from ``seed``: the first loss is near
     ln V and the loss falls; step, forward + backward and AdamW times,
-    peak memory."""
+    peak memory; with ``profile`` one more step under ``torch.profiler``
+    (``device_profile``)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -3859,6 +4034,8 @@ def train_full_depth(torch, dev, arch: str, tr: dict, seed: int,
             fwd_bwd_ms.append(start.elapsed_time(begin))
             opt_ms.append(begin.elapsed_time(end))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_profile(torch, lambda: step(params, opt, batch), 1) \
+        if profile else None
     n_params = sum(t.numel() for t in _leaves(params))
     del params, opt, batch
     torch.cuda.empty_cache()
@@ -3877,16 +4054,17 @@ def train_full_depth(torch, dev, arch: str, tr: dict, seed: int,
             "optimizer_ms": opt_ms,
             "tokens_per_s": tr["batch"] * tr["tokens"] / warm,
             "max_memory_allocated_gb": peak_gb,
+            **({"profile": prof} if profile else {}),
             "timer": "step_s: host clock between synchronisations (the "
             "first step pays cuBLAS set-up; ms_per_step and tokens_per_s "
             "take the median of the others); fwd_bwd_ms / optimizer_ms: "
             "CUDA events around the step and around adamw_update"}
 
 
-def phase_lm_train(torch, dev) -> dict:
+def phase_lm_train(torch, dev, pending: dict) -> dict:
     from repro_torch.configs import get_config
 
-    tight = lm_train_tight(torch, dev)
+    tight = lm_train_tight(torch, dev, pending=pending["lm_train_qwen3_4b"])
     torch.cuda.empty_cache()
     loop = lm_train_loop(torch, dev)
     torch.cuda.empty_cache()
@@ -4770,6 +4948,595 @@ def phase_lm_zamba2(torch, dev, launches: dict) -> dict:
 # district of n = 102 400 for Floyd–Warshall), and the TPU kernel it
 # replaces (the tiled, fused-closure and k-major kernels all replace
 # minplus_pallas)
+# -- phase 13: the JAX package's four LM input shapes (slice 17) --------------
+
+# The cells of configs/base.py SHAPES (the JAX package's input shapes for
+# the LM family, gated by shape_applicable) run on the card through the
+# port's entry points at published widths and depths, each at the largest
+# batch one card holds (a prefill within about 10 s a call): shape, arch,
+# the batch run, the seed of the weights and inputs, and the float32
+# card-vs-host check of the same path at a cut depth and the full length
+# (``host_worker``: its host half runs in that worker process of
+# HOST_WORKERS beside the LM phases, see start_host_checks; Zamba2's
+# prefill check runs 2 layers, two Mamba2 mixers and no shared
+# application: 6 layers would add the shared block's float32 attention
+# at 32 768 tokens, the host arithmetic of Qwen3-4B's whole 1-layer
+# check). A decode cell steps at pos = seq_len - 1
+# over a cache of seq_len rows whose contents are seeded normal draws
+# (fill_cache): the JAX package's decode cells lower against a cache of
+# that shape whose contents are data, and filling it token by token
+# through decode_step (as serving does) would take 32 767 eager steps, or
+# 524 287.
+SHAPE_CELLS = {
+    "shape_prefill_32k_qwen3_4b": dict(
+        shape="prefill_32k", arch=LM_ARCH, batch=8, seed=131,
+        tight=dict(layers=1, batch=1, seed=132, host_worker="prefill"),
+        launches="flash_attention_prefill_32k_qwen3_4b"),
+    "shape_prefill_32k_zamba2_1_2b": dict(
+        shape="prefill_32k", arch=ZAMBA_ARCH, batch=4, seed=133,
+        tight=dict(layers=2, batch=1, seed=141, host_worker="prefill"),
+        launches="flash_attention_prefill_32k_zamba2"),
+    "shape_decode_32k_qwen3_4b": dict(
+        shape="decode_32k", arch=LM_ARCH, batch=12, seed=134,
+        tight=dict(layers=2, batch=1, seed=135)),
+    "shape_long_500k_zamba2_1_2b": dict(
+        shape="long_500k", arch=ZAMBA_ARCH, batch=1, seed=136,
+        tight=dict(layers=6, batch=1, seed=137)),
+    "shape_long_500k_mamba2_1_3b": dict(
+        shape="long_500k", arch=MAMBA_ARCH, batch=1, seed=138,
+        tight=dict(layers=2, batch=1, seed=139)),
+    "shape_train_4k_qwen3_4b": dict(
+        shape="train_4k", arch=LM_ARCH, batch=1, seed=140,
+        train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
+        tight=dict(layers=1, batch=1, tokens=4096, vocab=None,
+                   host_worker="train")),
+}
+# the worker processes of the cells' host halves and their threads: the
+# jobs of one worker run one after another, in SHAPE_CELLS' order (the
+# host's 8 cores also serve the NY-scale ingest check's two workers and
+# the LM phases' launches)
+HOST_WORKERS = {"prefill": 4, "train": 2}
+# the host halves of earlier phases' float32 train steps (LM_TRAIN_TIGHT),
+# run in the "train" worker ahead of train_4k's: (phase, arch)
+TRAIN_TIGHT_HOST = (("lm_train_qwen3_4b", LM_ARCH),
+                    ("lm_starcoder2_7b", "starcoder2_7b"))
+# timed decode steps after the main path's one
+SHAPE_DECODE_STEPS = 5
+
+
+def shape_config(spec: dict):
+    """(published config, ShapeSpec) of a cell; the shape must apply."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES, shape_applicable
+    full, shape = get_config(spec["arch"]), SHAPES[spec["shape"]]
+    ok, reason = shape_applicable(full, shape)
+    check(ok, f"{spec['shape']} does not apply to {spec['arch']}: {reason}")
+    return full, shape
+
+
+def shape_out(name: str, spec: dict, full, shape, cfg, batch: int,
+              reduced: list) -> dict:
+    return {"phase": name, "shape": shape.name, "kind": shape.kind,
+            "seq_len": shape.seq_len,
+            "shape_global_batch": shape.global_batch, "arch": spec["arch"],
+            "batch": batch, "layers": cfg.num_layers,
+            "published_layers": full.num_layers, "d_model": cfg.d_model,
+            "reduced": [f"batch {shape.global_batch} -> {batch}: one card"]
+            * (batch != shape.global_batch) + reduced}
+
+
+def bf16_params(torch, dev, cfg, seed: int):
+    """The cell's weights in bf16, drawn in bf16 on the card from
+    ``seed``: (params, the generator, init seconds, weights bytes)."""
+    from dataclasses import replace
+
+    from repro_torch.models.lm import init_params
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(replace(cfg, param_dtype="bfloat16"), gen, dev)
+    sync(torch, dev)
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    return params, gen, time.perf_counter() - t0, w_bytes
+
+
+def path_roofline(arch: str, layers: int, kind: str, b: int, s: int,
+                  secs: float) -> dict:
+    """``launch/roofline.py`` at the path's shape and depth on one card
+    (``roofline_rows``: the FLOPs at 989 TFLOP/s bf16 and the eager
+    program's bytes, every aten op's inputs and outputs, at 3.35 TB/s)
+    beside the measured seconds."""
+    t0 = time.perf_counter()
+    row = roofline_rows([(f"{arch} {kind}", arch, layers, (kind, b, s),
+                          secs)])[0]
+    return {**row, "probe_s": time.perf_counter() - t0}
+
+
+def _named_leaves(tree: dict, path: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{path}{k}/")
+        else:
+            yield f"{path}{k}", v
+
+
+def fill_cache(torch, cache: dict, seed: int, dev) -> None:
+    """Every cache leaf, one layer (or shared application) at a time in
+    the tree's order, filled with normal draws of a generator on the card
+    seeded with ``seed``: keys and values, SSM states and conv windows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _, leaf in _named_leaves(cache):
+        for i in range(leaf.shape[0]):
+            leaf[i].normal_(generator=gen)
+
+
+def kv_slots_check(torch, cache: dict, seed: int, dev, pos: int) -> dict:
+    """After one step at ``pos`` over a cache filled by ``fill_cache``:
+    the draws made again, leaf by leaf, must equal every key and value
+    slot but ``pos`` bit for bit, and slot ``pos`` of each must differ
+    from its draw (the step wrote it; what it wrote is held card vs host
+    in float32 by ``decode_tight_long``); the SSM state and the conv
+    windows are rewritten whole by a step and not compared."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    slots = 0
+    for path, leaf in _named_leaves(cache):
+        kind = path.rsplit("/", 1)[-1]
+        for i in range(leaf.shape[0]):
+            draw = torch.empty_like(leaf[i]).normal_(generator=gen)
+            if kind not in ("k", "v"):
+                continue
+            got = leaf[i]
+            check(torch.equal(got[:, :pos], draw[:, :pos])
+                  and torch.equal(got[:, pos + 1:], draw[:, pos + 1:]),
+                  f"{path}[{i}]: a slot other than {pos} changed")
+            check(not torch.equal(got[:, pos], draw[:, pos]),
+                  f"{path}[{i}]: slot {pos} was not written")
+            slots += 1
+            del draw
+    return {"kv_leaves_checked": slots, "written_slot": pos,
+            "other_slots_unchanged": True, "written_slot_changed": True}
+
+
+def prefill_tight_inputs(torch, arch: str, s: int, t: dict):
+    """The float32 prefill check's config (full width, ``t["layers"]``
+    layers, flash attention), params and ``t["batch"]`` x ``s`` tokens,
+    drawn on the host from ``t["seed"]``: the same in every process."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+    cfg = replace(get_config(arch), num_layers=t["layers"],
+                  compute_dtype="float32", attention_impl="flash")
+    gen = torch.Generator().manual_seed(t["seed"])
+    params = init_params(cfg, gen, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (t["batch"], s), generator=gen)
+    return cfg, params, tok
+
+
+def host_check_work(jobs: list, threads: int) -> None:
+    """(Worker process.) The host halves of phases' float32 checks, one
+    after another on ``threads`` threads, each job (kind, arch, s, t,
+    out) saved to ``out`` with ``torch.save`` as it ends: for
+    ``prefill_32k`` the last position's logits of
+    ``prefill_tight_inputs`` through ``make_prefill_step`` (attention by
+    the flash wrapper's plain version, in blocks of query rows); for
+    ``train_4k`` and ``train`` the params and metrics after one step of
+    ``train_tight_inputs``; and its seconds and wall-clock end."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.train.data import to_device
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_prefill_step
+    torch.set_num_threads(threads)
+    for kind, arch, s, t, out in jobs:
+        t0 = time.perf_counter()
+        if kind == "prefill_32k":
+            cfg, params, tok = prefill_tight_inputs(torch, arch, s, t)
+            result = {"logits": make_prefill_step(cfg)(params,
+                                                       {"tokens": tok})}
+        else:
+            _, params, batch, step = train_tight_inputs(torch, arch, t)
+            p, _, m = step(params, init_opt_state(params),
+                           to_device(batch, "cpu"))
+            result = {"params": p, "metrics": m}
+        result["seconds"] = time.perf_counter() - t0
+        result["done_at"] = time.time()
+        torch.save(result, out + ".part")
+        os.replace(out + ".part", out)
+        del result
+
+
+def start_host_checks() -> dict:
+    """Starts one ``host_check_work`` process for each of HOST_WORKERS,
+    with the jobs that name it: TRAIN_TIGHT_HOST's, then the cells of
+    SHAPE_CELLS whose float32 check does (minutes of host arithmetic at
+    32 768 or 4096 tokens, run beside the LM phases); returns (worker,
+    output file, threads, start) by phase."""
+    import multiprocessing
+
+    from repro_torch.configs.base import SHAPES
+    GR_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = [(name, "train", "train", arch, LM_TRAIN_TIGHT["tokens"],
+             LM_TRAIN_TIGHT) for name, arch in TRAIN_TIGHT_HOST]
+    jobs += [(name, spec["tight"]["host_worker"], spec["shape"],
+              spec["arch"], SHAPES[spec["shape"]].seq_len, spec["tight"])
+             for name, spec in SHAPE_CELLS.items()
+             if spec["tight"].get("host_worker")]
+    pending = {}
+    for worker_name, threads in HOST_WORKERS.items():
+        mine = [job for job in jobs if job[1] == worker_name]
+        outs = {job[0]: GR_DIR / f"{job[0]}_host.pt" for job in mine}
+        for out in outs.values():
+            out.unlink(missing_ok=True)
+        worker = multiprocessing.get_context("spawn").Process(
+            target=host_check_work, daemon=True,
+            args=([(kind, arch, s, t, str(outs[name]))
+                   for name, _, kind, arch, s, t in mine], threads))
+        worker.start()
+        for name in outs:
+            pending[name] = (worker, outs[name], threads, time.time())
+    return pending
+
+
+def wait_host_check(torch, pending: tuple) -> tuple[dict, dict]:
+    """Waits for one cell's result from its ``start_host_checks`` worker;
+    the result, and the seconds waited, the worker's threads and the
+    seconds from the worker's start to the result."""
+    worker, out, threads, started = pending
+    t0 = time.perf_counter()
+    while not out.exists() and worker.is_alive() \
+            and time.perf_counter() - t0 < HOST_CHECK_TIMEOUT_S:
+        time.sleep(0.2)
+    waited_s = time.perf_counter() - t0
+    check(out.exists(), f"no host result {out.name}: the worker ended with "
+          f"{worker.exitcode} (None: still running after "
+          f"{HOST_CHECK_TIMEOUT_S} s)")
+    result = torch.load(out)
+    out.unlink()
+    return result, {"host_threads": threads, "waited_s": waited_s,
+                    "host_ready_after_s": result["done_at"] - started}
+
+
+def attention_applications(cfg) -> int:
+    """Flash launches of one prefill: one a layer, or one a hybrid's
+    shared application."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return cfg.num_layers
+
+
+@contextlib.contextmanager
+def last_sequence_of_first_flash(torch):
+    """While active, the first call of the flash wrapper keeps copies of
+    its last sequence (batch index B - 1): q, k, v and the output,
+    filled into ``kept`` after that call."""
+    from repro_torch.kernels.flash_attention import ops
+    real = ops.flash_attention
+    kept = {}
+
+    def keeping(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        if not kept:
+            kept.update(q=q[-1:].clone(), k=k[-1:].clone(),
+                        v=v[-1:].clone(), out=out[-1:].clone(),
+                        batch=q.shape[0], causal=kw.get("causal", True))
+        return out
+
+    ops.flash_attention = keeping
+    try:
+        yield kept
+    finally:
+        ops.flash_attention = real
+
+
+def prefill_tight_long(torch, dev, arch: str, s: int, t: dict,
+                       pending: tuple) -> dict:
+    """float32, full width, ``t["layers"]`` layers, ``t["batch"]``
+    sequences of ``s`` tokens through ``make_prefill_step`` with flash
+    attention (the SSD and the conv too, in a hybrid's Mamba2 layers):
+    on the card through the float32 kernel, on the host
+    (``pending``: the worker of ``host_check_work`` and its output)
+    through its plain version; the last position's logits card vs
+    host."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.train.train_step import make_prefill_step
+    cfg, host, tok = prefill_tight_inputs(torch, arch, s, t)
+    params = _copy_tree(host, dev)
+    del host
+    step = make_prefill_step(cfg)
+    before = fa.LAUNCHES["flash_attention"]
+    got, card_s = timed(torch, lambda: step(params, {"tokens": tok.to(dev)}),
+                        1)
+    launched = fa.LAUNCHES["flash_attention"] - before
+    fa.LAUNCHES["flash_attention"] = before     # a check, not the path
+    check(launched == attention_applications(cfg), f"f32 {arch} prefill at "
+          f"{s}: {launched} flash launches")
+    result, wait = wait_host_check(torch, pending)
+    want, host_s = result["logits"], result["seconds"]
+    rel = rel_diff(got.cpu(), want)
+    check(rel <= LM_TIGHT_REL, f"f32 {arch} prefill at {s} tokens, card vs "
+          f"host: {rel} > {LM_TIGHT_REL}")
+    del params
+    return {"layers": t["layers"], "batch": t["batch"], "tokens": s,
+            "flash_launches": launched,
+            "last_logits_rel": rel, "tolerance_rel": LM_TIGHT_REL,
+            "card_s": card_s[0], "host_s": host_s,
+            **wait,
+            "measure": "max |a-b| / max |b| over the last position's "
+            "logits; the card attends through the f32 flash kernel, the "
+            "host (a worker process beside the LM phases) through its "
+            "plain version in blocks of query rows"}
+
+
+def decode_tight_long(torch, dev, arch: str, max_len: int, t: dict) -> dict:
+    """float32, full width, ``t["layers"]`` layers: one ``decode_step``
+    at pos = max_len - 1 over a cache of ``max_len`` rows filled by
+    ``fill_cache``, on the card and on the host from the same params,
+    cache and token; the logits and every written cache entry (the
+    slot's keys and values, the SSM states and conv windows) card vs
+    host."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import decode_step, init_cache, init_params
+    cfg = replace(get_config(arch), num_layers=t["layers"],
+                  compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(t["seed"])
+    params = init_params(cfg, gen, dev)
+    host = _copy_tree(params, "cpu")
+    cache = init_cache(cfg, t["batch"], max_len, dev)
+    fill_cache(torch, cache, t["seed"] + 1, dev)
+    t0 = time.perf_counter()
+    host_cache = _copy_tree(cache, "cpu")
+    copy_s = time.perf_counter() - t0
+    cache_gb = sum(x.numel() * x.element_size()
+                   for x in _leaves(cache)) / 1e9
+    tok = torch.randint(0, cfg.vocab_size, (t["batch"], 1), generator=gen,
+                        device=dev)
+    pos = max_len - 1
+    got, card_s = timed(torch, lambda: decode_step(params, cfg, cache, tok,
+                                                   pos)[0], 1)
+    t0 = time.perf_counter()
+    want, _ = decode_step(host, cfg, host_cache, tok.cpu(), pos)
+    host_s = time.perf_counter() - t0
+    rel = rel_diff(got.cpu(), want)
+    entries = {}
+    for (path, a), (_, b) in zip(_named_leaves(cache),
+                                 _named_leaves(host_cache)):
+        written = (a[:, :, pos], b[:, :, pos]) \
+            if path.rsplit("/", 1)[-1] in ("k", "v") else (a, b)
+        entries[path] = rel_diff(written[0].cpu(), written[1])
+    worst = max([rel, *entries.values()])
+    check(worst <= LM_TIGHT_REL, f"f32 {arch} decode at pos {pos}, card vs "
+          f"host: logits {rel}, cache {entries} > {LM_TIGHT_REL}")
+    del params, host, cache, host_cache
+    return {"layers": t["layers"], "batch": t["batch"], "cache_rows": max_len,
+            "pos": pos, "cache_gb_f32": cache_gb, "logits_rel": rel,
+            "written_cache_rel": entries, "tolerance_rel": LM_TIGHT_REL,
+            "card_s": card_s[0], "host_s": host_s, "cache_to_host_s": copy_s,
+            "measure": "max |a-b| / max |b|: logits, the written slot of "
+            "each key and value cache, each SSM state and conv window"}
+
+
+def phase_shape_prefill(torch, dev, launches: dict, name: str,
+                        pending: dict, errs: dict) -> dict:
+    """SHAPES["prefill_32k"] on ``SHAPE_CELLS[name]``'s config at full
+    depth, bf16: before it the float32 card-vs-host check at a cut depth
+    and the full length; the main path, one flash prefill through
+    ``make_prefill_step`` (its flash launches read: one a layer, or one
+    a shared application) with finite last-position logits, timed and
+    profiled in one call (device ms, idle share; the copies
+    ``last_sequence_of_first_flash`` keeps, 0.7 or 1.1 GB, inside it)
+    and its peak memory read; that first launch's last sequence held
+    against the plain version on row slices (``flash_slices_check``:
+    the batch and grid arithmetic at the path's own batch); the
+    roofline of the path; the seconds of each step."""
+    from dataclasses import replace
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.train.train_step import make_prefill_step
+    spec = SHAPE_CELLS[name]
+    full, shape = shape_config(spec)
+    s, b = shape.seq_len, spec["batch"]
+    steps_s = {}
+    t0 = time.perf_counter()
+    tight = prefill_tight_long(torch, dev, spec["arch"], s, spec["tight"],
+                               pending[name])
+    torch.cuda.empty_cache()
+    steps_s["tight_f32"] = time.perf_counter() - t0
+    cfg = replace(full, attention_impl="flash")
+    params, gen, init_s, w_bytes = bf16_params(torch, dev, cfg, spec["seed"])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev)}
+    prefill = make_prefill_step(cfg)
+    apps = attention_applications(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    out = {}
+    t0 = time.perf_counter()
+    with last_sequence_of_first_flash(torch) as kept:
+        prof = device_profile(
+            torch, lambda: out.update(logits=prefill(params, batch)), 1)
+    steps_s["main_path_profiled"] = time.perf_counter() - t0
+    logits, secs = out.pop("logits"), prof["host_ms_per_call_profiled"] / 1e3
+    launches[spec["launches"]] = fa.LAUNCHES["flash_attention"]
+    check(launches[spec["launches"]] == apps,
+          f"{name}: {launches[spec['launches']]} flash launches, not {apps}")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{name} logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the main path's own first launch, at its batch, against the plain
+    # version on the row slices of its last sequence
+    check(kept.get("batch") == b, f"{name}: the first flash call had "
+          f"batch {kept.get('batch')}, not {b}")
+    t0 = time.perf_counter()
+    held = flash_slices_check(torch, kept["out"], kept["q"], kept["k"],
+                              kept["v"], kept["causal"])
+    check(held["bound_ratio"] <= 1.0, f"{name}: the first flash launch's "
+          f"last sequence is beyond the bf16 bound ({held})")
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  held["max_abs_err"])
+    held["sequence"] = b - 1
+    del kept
+    steps_s["flash_slices"] = time.perf_counter() - t0
+    del params, batch, logits
+    torch.cuda.empty_cache()
+    reduced = [f"f32 card-vs-host check at {tight['layers']} of "
+               f"{full.num_layers} layers ({tight['flash_launches']} flash "
+               f"launches), batch {tight['batch']}, the full {s} tokens"]
+    t0 = time.perf_counter()
+    roofline = path_roofline(spec["arch"], None, "prefill", b, s, secs)
+    steps_s["roofline"] = time.perf_counter() - t0
+    return {**shape_out(name, spec, full, shape, cfg, b, reduced),
+            "weights_gb_bf16": w_bytes / 1e9, "init_s": init_s,
+            "tight_f32": tight, "first_flash_last_sequence": held,
+            "prefill_s": secs,
+            "tokens": b * s, "tokens_per_s": b * s / secs,
+            "flash_launches": launches[spec["launches"]],
+            "max_memory_allocated_gb": peak_gb, "profile": prof,
+            "roofline": roofline, "steps_s": steps_s,
+            "timer": "prefill_s: host clock between synchronisations of "
+            "the main path's one call (the first at the shape), which runs "
+            "under torch.profiler (profile)", "ok": True}
+
+
+def phase_shape_decode(torch, dev, name: str) -> dict:
+    """SHAPES["decode_32k"] or ["long_500k"] on ``SHAPE_CELLS[name]``'s
+    config at full depth, bf16: before it the float32 card-vs-host step
+    at a cut depth and the full cache length; the cache of ``seq_len``
+    rows at the cell's batch from ``init_cache``, filled by
+    ``fill_cache``; the main path, one ``decode_step`` at pos = seq_len -
+    1 (finite logits; the written slot changed and every other slot is
+    unchanged), then timed steps, a
+    profile (device ms, idle share, the copy kernels), the least bytes
+    a step must move, and the roofline of the eager program."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.lm import decode_step, init_cache
+    spec = SHAPE_CELLS[name]
+    full, shape = shape_config(spec)
+    t_len, b = shape.seq_len, spec["batch"]
+    tight = decode_tight_long(torch, dev, spec["arch"], t_len, spec["tight"])
+    torch.cuda.empty_cache()
+    cfg = full
+    params, gen, init_s, w_bytes = bf16_params(torch, dev, cfg, spec["seed"])
+    cache = init_cache(cfg, b, t_len, dev)
+    t0 = time.perf_counter()
+    fill_cache(torch, cache, spec["seed"] + 1, dev)
+    sync(torch, dev)
+    fill_s = time.perf_counter() - t0
+    cache_bytes = sum(x.numel() * x.element_size() for x in _leaves(cache))
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev)
+    pos = t_len - 1
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    before = fa.LAUNCHES["flash_attention"]
+    logits, first = timed(
+        torch, lambda: decode_step(params, cfg, cache, tok, pos)[0], 1)
+    check(fa.LAUNCHES["flash_attention"] == before,
+          f"{name}: decode launched the flash kernel")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{name} logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    slots = kv_slots_check(torch, cache, spec["seed"] + 1, dev, pos) \
+        if cfg.family != "ssm" else \
+        {"kv_leaves_checked": 0, "note": "no attention cache (SSM)"}
+    _, step_s = timed(torch, lambda: decode_step(params, cfg, cache, tok,
+                                                 pos), SHAPE_DECODE_STEPS)
+    prof = device_profile(
+        torch, lambda: decode_step(params, cfg, cache, tok, pos), 3)
+    # the least a step moves: every weight it reads once (the embedding
+    # table is a gather of b rows unless the head reads it whole), the
+    # cache read once (SSM states also written), one slot of keys and
+    # values written
+    embed = params["embed"]
+    gathered = 0 if cfg.tie_embeddings \
+        else embed.numel() * embed.element_size() * (1 - b / embed.shape[0])
+    state = sum(x.numel() * x.element_size()
+                for path, x in _named_leaves(cache) if path.endswith("ssm"))
+    least_bytes = w_bytes - gathered + cache_bytes + state
+    attn = (cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid"
+            else 0 if cfg.family == "ssm" else cfg.num_layers)
+    weights_read = (w_bytes - gathered) / 2         # bf16 elements
+    flops = 2 * weights_read * b \
+        + 4 * b * cfg.num_heads * t_len * cfg.resolved_head_dim * attn
+    bytes_ms = least_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_BF16_TENSOR_FLOPS_PER_S * 1e3
+    step_ms = 1e3 * float(np.median(step_s))
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    reduced = [f"f32 card-vs-host step at {tight['layers']} of "
+               f"{full.num_layers} layers, batch {tight['batch']}, the full "
+               f"{tight['cache_rows']} cache rows"]
+    return {**shape_out(name, spec, full, shape, cfg, b, reduced),
+            "weights_gb_bf16": w_bytes / 1e9, "init_s": init_s,
+            "tight_f32": tight, "cache_gb": cache_bytes / 1e9,
+            "cache_fill_s": fill_s, "pos": pos, "slots": slots,
+            "first_step_ms": 1e3 * first[0],
+            "step_ms": [1e3 * x for x in step_s],
+            "ms_per_step": step_ms, "tokens_per_s": b / step_ms * 1e3,
+            "memory_allocated_before_step_gb": base_gb,
+            "max_memory_allocated_gb": peak_gb,
+            "step_transient_gb": peak_gb - base_gb, "profile": prof,
+            "least_bytes": least_bytes, "least_flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "device_share_of_bound": max(bytes_ms, ops_ms)
+            / prof["device_ms_per_call"] if prof["device_ms_per_call"]
+            else None,
+            "roofline": path_roofline(spec["arch"], None, "decode", b,
+                                      t_len, step_ms / 1e3),
+            "timer": "step_ms: host clock between synchronisations, the "
+            "median of SHAPE_DECODE_STEPS steps at the same pos; profile: "
+            "3 more under torch.profiler", "ok": True}
+
+
+def phase_shape_train(torch, dev, name: str, pending: dict) -> dict:
+    """SHAPES["train_4k"] on ``SHAPE_CELLS[name]``'s config at full depth
+    (f32 params, grads and AdamW moments, bf16 compute, per-layer remat,
+    dense attention): before it the float32 card-vs-host step at 1 layer
+    and the full length; then ``train_full_depth``'s steps at 1 x 4096
+    (the loss falls) and one more step profiled."""
+    spec = SHAPE_CELLS[name]
+    full, shape = shape_config(spec)
+    tr = spec["train"]
+    check(tr["tokens"] == shape.seq_len, f"{name}: not the shape's length")
+    tight = lm_train_tight(torch, dev, spec["arch"], spec["tight"],
+                           pending.get(name))
+    torch.cuda.empty_cache()
+    train = train_full_depth(torch, dev, spec["arch"], tr, seed=spec["seed"],
+                             profile=True)
+    reduced = [f"f32 card-vs-host step at {tight['layers']} of "
+               f"{full.num_layers} layers, {tight['tokens']} tokens"]
+    return {**shape_out(name, spec, full, shape, full, tr["batch"], reduced),
+            "tight_f32": tight, **train,
+            "roofline": path_roofline(spec["arch"], None, "train",
+                                      tr["batch"], tr["tokens"],
+                                      train["ms_per_step"] / 1e3),
+            "ok": True}
+
+
+def phase_shapes(torch, dev, launches: dict, pending: dict,
+                 errs: dict) -> list:
+    """Every cell of SHAPE_CELLS, one phase line each, freeing the card
+    between them; ``pending``: ``start_host_checks``' workers."""
+    out = []
+    for name, spec in SHAPE_CELLS.items():
+        kind = spec["shape"]
+        t0 = time.perf_counter()
+        if kind == "prefill_32k":
+            row = phase_shape_prefill(torch, dev, launches, name, pending,
+                                      errs)
+        elif kind == "train_4k":
+            row = phase_shape_train(torch, dev, name, pending)
+        else:
+            row = phase_shape_decode(torch, dev, name)
+        row["phase_s"] = time.perf_counter() - t0
+        emit(row)
+        out.append(row)
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 12: the launch and sharding tooling (slice 13) ---------------------
 
 # the measured paths run on one card: the roofline's mesh and chip count
@@ -4814,12 +5581,19 @@ def roofline_rows(measured: list) -> list:
         shape = ShapeSpec(f"{kind}_{b}x{s}", s, b, kind)
         cfg = get_config(arch)
         cfg = replace(cfg, num_layers=layers or cfg.num_layers)
-        flash = bool(cfg.num_heads) and not cfg.use_mla
+        # decode attends densely over its cache: the probe counts it
+        flash = bool(cfg.num_heads) and not cfg.use_mla and kind != "decode"
         over = {"onehot_embed": False, **(
             {"attention_impl": "stub"} if flash else {})}
         probe = roofline.probe_shape(cfg, shape, over, one)
         add = roofline.flash_attention_cost(cfg, shape, chips=1) \
             if flash else (0.0, 0.0)
+        if flash and cfg.family == "hybrid":
+            # flash_attention_cost counts every layer; a hybrid attends
+            # once a shared application
+            share = (cfg.num_layers // cfg.shared_attn_every) \
+                / cfg.num_layers
+            add = (add[0] * share, add[1] * share)
         probe["hlo_flops"] += add[0]
         probe["hlo_bytes"] += add[1]
         t = roofline.roofline_terms(probe, chips=1)
@@ -5087,7 +5861,9 @@ KERNEL_PATHS = {"flash_attention": {
     "lm_frontends_hubert": "flash_attention_hubert",
     "lm_zamba2_1_2b": "flash_attention_zamba2",
     **{name: spec["launches"] for name, spec in DENSE_LM.items()
-       if name != "lm_qwen3_4b"}}}
+       if name != "lm_qwen3_4b"},
+    **{name: spec["launches"] for name, spec in SHAPE_CELLS.items()
+       if "launches" in spec}}}
 
 
 def kernels_line(rows: list, launches: dict, errs: dict) -> dict:
@@ -5200,15 +5976,13 @@ def main() -> int:
     builder_times["rows"].append(ingest_pending.pop("squaring_row"))
     emit(builder_times)
     torch.cuda.empty_cache()
+    host_checks = start_host_checks()
     emit(phase_flash_kernels(torch, dev, errs))
     lm = phase_lm_dense(torch, dev, launches, "lm_qwen3_4b")
     emit(lm)
     torch.cuda.empty_cache()
-    flash_times = phase_flash_times(torch, dev, logs)
+    flash_times = phase_flash_times(torch, dev, logs, errs)
     emit(flash_times)
-    torch.cuda.empty_cache()
-    lm_train = phase_lm_train(torch, dev)
-    emit(lm_train)
     torch.cuda.empty_cache()
     olmoe = phase_lm_olmoe(torch, dev, launches)
     emit(olmoe)
@@ -5218,13 +5992,18 @@ def main() -> int:
     emit(mamba)
     zamba = phase_lm_zamba2(torch, dev, launches)
     emit(zamba)
+    # after the phases above, so that the worker has its host half ready
+    lm_train = phase_lm_train(torch, dev, host_checks)
+    emit(lm_train)
+    torch.cuda.empty_cache()
     dense = {}
     for name in ("lm_starcoder2_7b", "lm_deepseek_67b",
                  "lm_nemotron_4_340b"):
-        dense[name] = phase_lm_dense(torch, dev, launches, name)
+        dense[name] = phase_lm_dense(torch, dev, launches, name, host_checks)
         emit(dense[name])
         torch.cuda.empty_cache()
     starcoder2 = dense["lm_starcoder2_7b"]
+    phase_shapes(torch, dev, launches, host_checks, errs)
     emit(phase_launch_roofline(torch, dev, smi, lm, [
         ("lm_qwen3_4b prefill", LM_ARCH, None, ("prefill", *LM_PREFILL),
          min(lm["prefill"]["flash_s"])),

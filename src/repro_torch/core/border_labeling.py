@@ -183,22 +183,26 @@ def prune_table(table: np.ndarray, border_ids: np.ndarray,
     docstring). Processes hub slots from highest priority (rank 0) down,
     masking entries whose 2-hop estimate via earlier kept hubs is <= d."""
     n, q = table.shape
-    out = np.full_like(table, INF)
+    # kept labels hub-major, so that each hub's column is one contiguous
+    # row and λ is a running min over the few hubs b_j kept, each pass an
+    # n-vector that stays in cache (not an (n, k) temporary per hub)
+    out = np.full((q, n), INF, dtype=table.dtype)
+    lam = np.empty(n, dtype=table.dtype)
+    via = np.empty(n, dtype=table.dtype)
     order = np.argsort(rank[border_ids], kind="stable")
     for j in order:
         b = int(border_ids[j])
-        # λ_{k-1}(b_j, v) over kept labels: min_h out[v,h] + out[b_j,h]
-        wrow = out[b]                       # (q,) earlier kept hubs only
-        finite = np.isfinite(wrow)
-        if finite.any():
-            lam = np.min(out[:, finite] + wrow[finite][None, :], axis=1)
-        else:
-            lam = np.full(n, INF, dtype=np.float32)
-        keep = table[:, j] < lam            # prune iff λ <= d
-        keep &= np.isfinite(table[:, j])
-        keep[b] = np.isfinite(table[b, j])  # root always keeps its 0 label
-        out[keep, j] = table[keep, j]
-    return out
+        # λ_{k-1}(b_j, v) over kept labels: min_h out[h,v] + out[h,b_j]
+        lam.fill(INF)
+        for h in np.flatnonzero(np.isfinite(out[:, b])):  # earlier hubs
+            np.add(out[h], out[h, b], out=via)
+            np.minimum(lam, via, out=lam)
+        col = table[:, j]
+        keep = col < lam                    # prune iff λ <= d
+        keep &= np.isfinite(col)
+        keep[b] = np.isfinite(col[b])       # root always keeps its 0 label
+        out[j, keep] = col[keep]
+    return np.ascontiguousarray(out.T)
 
 
 def build_border_labels_hierarchical(g: Graph, part: Partition,

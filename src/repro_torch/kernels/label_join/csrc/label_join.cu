@@ -10,12 +10,16 @@
 // For query i:  a_j = widen(s_table[rs[i], j]),  b_j = widen(t_table[rt[i], j])
 //   out[i] = min_j (a_j + b_j)                       (Definition 1, λ)
 //   lb[i]  = min_j a_j + min_j b_j                   (Definition 5, WITH_LB)
-// widen() is the identity for float storage; for uint16 / int16 codes it
-// maps the sentinel to +inf and any other code to its exact float value,
-// and the result is then multiplied once by `scale` — the same arithmetic
-// as the JAX package's quantized join, so answers match it bit for bit:
-// min is exact and order-free, a + b is one IEEE float add, codes < 2^16
-// and their sums are exact in float, and `* scale` is one float multiply.
+// widen() is the identity for float32 storage; for uint16 / int16 codes
+// it maps the sentinel to +inf and any other code to its exact float
+// value, and the result is then multiplied once by `scale` — the same
+// arithmetic as the JAX package's quantized join, so answers match it bit
+// for bit: min is exact and order-free, a + b is one IEEE float add,
+// codes < 2^16 and their sums are exact in float, and `* scale` is one
+// float multiply. bfloat16 and float16 rows widen exactly to float32, the
+// add and the mins run in float32, and out (and lb) are rounded once to
+// the rows' type (round to nearest even), as join_pallas and
+// join_lb_pallas widen with astype(float32) and return astype(s.dtype).
 // Built without fast-math and with -fmad=false so nothing is contracted.
 //
 // What bounds it: memory. Each query reads 2·W elements and does one add
@@ -92,6 +96,8 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -116,15 +122,55 @@ __device__ __forceinline__ uint32_t word(uint16_t v, int) { return v; }
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
+// What a storage type is to the join: 16-bit codes (a sentinel, one
+// scale) or float rows, and the type of out and lb (float32, or the
+// rows' own 16-bit float type).
+template <typename T> struct Storage {
+  static constexpr bool kCodes = false;
+  using Out = float;
+};
+template <> struct Storage<uint16_t> {
+  static constexpr bool kCodes = true;
+  using Out = float;
+};
+template <> struct Storage<int16_t> {
+  static constexpr bool kCodes = true;
+  using Out = float;
+};
+template <> struct Storage<__nv_bfloat16> {
+  static constexpr bool kCodes = false;
+  using Out = __nv_bfloat16;
+};
+template <> struct Storage<__half> {
+  static constexpr bool kCodes = false;
+  using Out = __half;
+};
+
+// a float32 result in the output type: one rounding to nearest even
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void put(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+
 // element e of a loaded vector as a float (little-endian halves). A
 // 16-bit code c becomes float(c) without the quarter-rate I2F: the
 // pattern 2^23 + (c + bias), bias 0 (uint16) or 2^15 (int16), is that
 // float exactly, and subtracting 2^23 + bias is one exact float add, so
 // the value (and its bits: +0.0 for c = 0) is static_cast<float>(c)'s.
+// A bfloat16 is the high half of its float32; a float16 widens exactly.
 template <typename T, typename VT>
 __device__ __forceinline__ float element(const VT& v, int e) {
   if constexpr (std::is_same<T, float>::value) {
     return __uint_as_float(word(v, e));
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __uint_as_float(((word(v, e / 2) >> (16 * (e % 2))) & 0xFFFFu)
+                           << 16);
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(
+        word(v, e / 2) >> (16 * (e % 2)))));
   } else {
     constexpr bool kSigned = std::is_same<T, int16_t>::value;
     const uint32_t bits = (word(v, e / 2) >> (16 * (e % 2))) & 0xFFFFu;
@@ -148,7 +194,7 @@ __device__ __forceinline__ void fold_rows(
     int group, float scale, float& acc, float& smin, float& tmin) {
   using VT = typename VecOf<V>::type;
   constexpr int kElems = V / static_cast<int>(sizeof(T));
-  constexpr bool kCodes = !std::is_same<T, float>::value;
+  constexpr bool kCodes = Storage<T>::kCodes;
   const float sentinel =
       std::is_same<T, int16_t>::value ? 32767.0f : 65535.0f;
   for (int v0 = lane; v0 < nvec; v0 += group * kUnroll) {
@@ -187,15 +233,13 @@ __device__ __forceinline__ void fold_rows(
 
 // The butterfly over the group's lanes (every lane of the warp takes
 // part; xor offsets < group stay inside the group), then the group's
-// first lane writes query `query`'s answer (times scale with SCALE).
-template <typename T, bool WITH_LB,
-          bool SCALE = !std::is_same<T, float>::value>
-__device__ __forceinline__ void reduce_store(float acc, float smin, float tmin,
-                                             int group, int lane,
-                                             int64_t query, int64_t q,
-                                             float scale,
-                                             float* __restrict__ out,
-                                             float* __restrict__ lb) {
+// first lane writes query `query`'s answer (times scale with SCALE) in
+// the output type.
+template <typename T, bool WITH_LB, bool SCALE = Storage<T>::kCodes>
+__device__ __forceinline__ void reduce_store(
+    float acc, float smin, float tmin, int group, int lane, int64_t query,
+    int64_t q, float scale, typename Storage<T>::Out* __restrict__ out,
+    typename Storage<T>::Out* __restrict__ lb) {
   for (int off = group / 2; off > 0; off /= 2) {
     acc = fminf(acc, __shfl_xor_sync(0xffffffffu, acc, off));
     if (WITH_LB) {
@@ -204,8 +248,8 @@ __device__ __forceinline__ void reduce_store(float acc, float smin, float tmin,
     }
   }
   if (lane == 0 && query < q) {
-    out[query] = SCALE ? acc * scale : acc;
-    if (WITH_LB) lb[query] = SCALE ? (smin + tmin) * scale : smin + tmin;
+    put(out + query, SCALE ? acc * scale : acc);
+    if (WITH_LB) put(lb + query, SCALE ? (smin + tmin) * scale : smin + tmin);
   }
 }
 
@@ -218,7 +262,8 @@ gather_join_kernel(const T* __restrict__ s_table,
                    const T* __restrict__ t_table,
                    const int64_t* __restrict__ rt, int64_t t_rows,
                    int64_t q, int64_t w, int group_log2, float scale,
-                   float* __restrict__ out, float* __restrict__ lb) {
+                   typename Storage<T>::Out* __restrict__ out,
+                   typename Storage<T>::Out* __restrict__ lb) {
   using VT = typename VecOf<V>::type;
   constexpr int kElems = V / static_cast<int>(sizeof(T));
   const int group = 1 << group_log2;      // powers of two: shifts, no division
@@ -340,7 +385,8 @@ template <typename T, bool WITH_LB, int V>
 cudaError_t launch(const void* s_table, const int64_t* rs, int64_t s_rows,
                    const void* t_table, const int64_t* rt, int64_t t_rows,
                    int64_t q, int64_t w, int group_log2, float scale,
-                   float* out, float* lb, cudaStream_t stream) {
+                   void* out, void* lb, cudaStream_t stream) {
+  using Out = typename Storage<T>::Out;
   const int64_t per_block = kThreads >> group_log2;
   const int64_t blocks = (q + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -348,13 +394,13 @@ cudaError_t launch(const void* s_table, const int64_t* rs, int64_t s_rows,
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const T*>(s_table), rs, s_rows,
           static_cast<const T*>(t_table), rt, t_rows, q, w, group_log2,
-          scale, out, lb);
+          scale, static_cast<Out*>(out), static_cast<Out*>(lb));
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(const void*, const int64_t*, int64_t,
                                const void*, const int64_t*, int64_t, int64_t,
-                               int64_t, int, float, float*, float*,
+                               int64_t, int, float, void*, void*,
                                cudaStream_t);
 
 // the instance for (storage type, LB, vector bytes); null where none
@@ -371,7 +417,7 @@ Launch pick(int vec) {
   }
 }
 
-// The widest vector (16, 8, 4 bytes, or 2 for 16-bit codes) dividing
+// The widest vector (16, 8, 4 bytes, or 2 for 16-bit storage) dividing
 // every pitch and each of the `count` base addresses; 0 where none does.
 int widest_vec(int64_t item, std::initializer_list<int64_t> pitches,
                const void* const* bases, int count) {
@@ -498,8 +544,10 @@ bool multi_layout(int64_t item, int shards, const void* const* blocks,
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.
-//   dtype: 0 = float32, 1 = uint16 codes, 2 = int16 codes
-//   with_lb: nonzero also writes lb (float32 storage only)
+//   dtype: 0 = float32, 1 = uint16 codes, 2 = int16 codes, 3 = bfloat16,
+//          4 = float16 (both tables one type)
+//   with_lb: nonzero also writes lb (float storage only: dtype 0, 3, 4)
+//   out, lb: q float32 each, or q of the rows' type for dtype 3 and 4
 //   lanes: lanes per query, a power of two in [1, 32]; 0 = the layout's
 //          pick (see layout above: the vector width is always picked)
 // Returns the cudaError_t of the launch (0 = launched). q must be > 0.
@@ -523,20 +571,24 @@ extern "C" int repro_label_join(int dtype, int with_lb, int lanes,
     return cudaErrorInvalidValue;
   Launch fn = nullptr;
   if (with_lb) {
-    if (dtype == 0) fn = pick<float, true>(vec);
-  } else if (dtype == 0) {
-    fn = pick<float, false>(vec);
-  } else if (dtype == 1) {
-    fn = pick<uint16_t, false>(vec);
-  } else if (dtype == 2) {
-    fn = pick<int16_t, false>(vec);
+    fn = dtype == 0   ? pick<float, true>(vec)
+         : dtype == 3 ? pick<__nv_bfloat16, true>(vec)
+         : dtype == 4 ? pick<__half, true>(vec)
+                      : nullptr;
+  } else {
+    fn = dtype == 0   ? pick<float, false>(vec)
+         : dtype == 1 ? pick<uint16_t, false>(vec)
+         : dtype == 2 ? pick<int16_t, false>(vec)
+         : dtype == 3 ? pick<__nv_bfloat16, false>(vec)
+         : dtype == 4 ? pick<__half, false>(vec)
+                      : nullptr;
   }
   if (fn == nullptr) return cudaErrorInvalidValue;
   int group_log2 = 0;
   while ((1 << group_log2) < group) ++group_log2;
   return fn(s_table, static_cast<const int64_t*>(rs), s_rows, t_table,
-            static_cast<const int64_t*>(rt), t_rows, q, w, group_log2, scale, static_cast<float*>(out), static_cast<float*>(lb),
-            static_cast<cudaStream_t>(stream));
+            static_cast<const int64_t*>(rt), t_rows, q, w, group_log2, scale,
+            out, lb, static_cast<cudaStream_t>(stream));
 }
 
 // The layout repro_label_join picks for these arguments on `sms` SMs

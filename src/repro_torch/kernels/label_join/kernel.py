@@ -25,10 +25,11 @@ use) or raises; on a CPU tensor it runs the plain version of ``ref.py``.
 There is no other path. The C entry picks the kernel's vector width
 and lanes per query from the row pitch, the tables' base alignment and
 the batch; ``join_layout`` and ``multi_shard_join_layout`` report its
-pick. The kernel takes float32 tables and 16-bit codes; the plain
-version also takes bfloat16 and float16 tables, as the JAX package's
-``join`` / ``join_with_bound`` do. ``LAUNCHES`` counts kernel launches
-per kernel.
+pick. ``gather_join`` takes float32, bfloat16 and float16 tables (the
+16-bit rows widened to float32 and each result rounded once to their
+type, as the JAX package's ``join_pallas`` / ``join_lb_pallas`` do) and
+16-bit codes; the sharded kernel takes float32 tables and codes.
+``LAUNCHES`` counts kernel launches per kernel.
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ LAUNCHES = {"label_join": 0, "label_join_lb": 0,
             "label_join_sharded": 0}
 
 _DTYPE_FLOAT32, _DTYPE_UINT16, _DTYPE_INT16 = 0, 1, 2
+# float tables of the C entry: float32, then the 16-bit float types
+_FLOAT_CODES = {torch.float32: _DTYPE_FLOAT32, torch.bfloat16: 3,
+                torch.float16: 4}
 # the sharded kernel's arithmetic: float32 rows, codes joined then
 # scaled, codes dequantized before the add
 _MODE_FLOAT, _MODE_JOIN_THEN_SCALE, _MODE_DEQUANT_FIRST = 0, 1, 2
@@ -89,7 +93,7 @@ def join_layout(s_table: torch.Tensor, t_table: torch.Tensor, q: int,
     picks them: ``lanes`` if nonzero, on ``sms`` SMs (0: the tables'
     card's)."""
     code = _DTYPE_FLOAT32 if s_table.dtype == torch.float32 \
-        else _DTYPE_INT16
+        else _DTYPE_INT16       # the layout depends on the item size only
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(s_table.device):
         err = _lib().repro_label_join_layout(
@@ -163,21 +167,20 @@ def _check(s_table, rs, t_table, rt, quant, with_lb) -> None:
         raise ValueError("gather_join: row ids must be two int64 vectors "
                          "of one length")
     if quant is None:
-        if dev.type == "cpu":
-            if s_table.dtype not in FLOAT_DTYPES \
-                    or t_table.dtype not in FLOAT_DTYPES:
-                raise ValueError("gather_join: float tables must be "
-                                 "float32, bfloat16 or float16")
-        elif s_table.dtype != torch.float32 \
-                or t_table.dtype != torch.float32:
-            raise ValueError("gather_join: float tables must be float32 on "
-                             "the card; the plain version takes bfloat16 "
-                             "and float16 on the CPU")
+        if s_table.dtype not in FLOAT_DTYPES \
+                or t_table.dtype not in FLOAT_DTYPES:
+            raise ValueError("gather_join: float tables must be float32, "
+                             "bfloat16 or float16")
+        if dev.type != "cpu" and s_table.dtype != t_table.dtype:
+            raise ValueError("gather_join: on the card both float tables "
+                             "must be of one dtype, got "
+                             f"{s_table.dtype} and {t_table.dtype}; the "
+                             "plain version mixes them on the CPU")
     else:
         _check_codes((s_table, t_table), quant)
         if with_lb:
             raise ValueError("gather_join: the Local Bound is computed on "
-                             "float32 tables only")
+                             "float tables only")
 
 
 def gather_join(s_table: torch.Tensor, rs: torch.Tensor,
@@ -203,11 +206,12 @@ def gather_join(s_table: torch.Tensor, rs: torch.Tensor,
             raise ValueError(f"gather_join: {name} must be contiguous")
     q, w = rs.shape[0], s_table.shape[1]
     fn = _lib().repro_label_join if q else None
-    out = torch.empty(q, dtype=torch.float32, device=dev)
-    lb = torch.empty(q, dtype=torch.float32, device=dev) if with_lb else None
+    out_dtype = torch.float32 if quant is not None else s_table.dtype
+    out = torch.empty(q, dtype=out_dtype, device=dev)
+    lb = torch.empty(q, dtype=out_dtype, device=dev) if with_lb else None
     if q:
         if quant is None:
-            code, sentinel, scale = _DTYPE_FLOAT32, 0, 1.0
+            code, sentinel, scale = _FLOAT_CODES[s_table.dtype], 0, 1.0
         else:
             sentinel, scale = quant
             code = _SENTINELS[sentinel]

@@ -9,6 +9,7 @@ left out: outside a device mesh they are the identity.
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 import torch.nn.functional as F
@@ -63,13 +64,27 @@ def head_rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 # RoPE
 # ---------------------------------------------------------------------------
 
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as a Python number."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
 def rope_frequencies(head_dim: int, theta: float,
                      device: torch.device | None = None) -> torch.Tensor:
+    """The reference's ``1 / theta ** (arange(half) / half)`` as its
+    traced model computes it: XLA folds the constant when it compiles,
+    dividing by ``half`` as a float32 multiply by ``1 / half`` and
+    rounding the power and its reciprocal once. Here the multiply is
+    exact in float64 and rounded to float32, and the rest is float64
+    rounded once, so the card and the host agree too (a float32 ``pow``
+    differs between them by an ulp, and at position p an ulp of a
+    frequency turns its angle by about p ulps: 0.03 rad at 524 287)."""
     half = head_dim // 2
-    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    # a Python-number base: no host-to-device copy (which would wait for
+    # Python-number factors: no host-to-device copy (which would wait for
     # the stream to drain) on every call
-    return 1.0 / torch.pow(theta, exps)
+    exps = (torch.arange(0, half, dtype=torch.float64, device=device)
+            * _f32(1.0 / half)).float().double()
+    return (1.0 / torch.pow(_f32(theta), exps)).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

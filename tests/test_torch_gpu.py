@@ -487,14 +487,56 @@ def test_card_serves_sharded_as_the_host_does(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_half_precision_tables_raise_on_the_card(cuda, dtype):
-    """The plain version joins bfloat16 and float16 rows on the CPU; the
-    kernel takes float32 and 16-bit codes only, and says so."""
-    table = torch.zeros((4, 6), dtype=dtype, device=cuda)
+    """The kernel joins bfloat16 and float16 tables of one type; tables
+    of two 16-bit float types (which the plain version mixes on the CPU)
+    raise on the card, and say so, before any launch."""
+    other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
+    s_table = torch.zeros((4, 6), dtype=dtype, device=cuda)
+    t_table = torch.zeros((4, 6), dtype=other, device=cuda)
     ids = torch.zeros(2, dtype=torch.int64, device=cuda)
     before = dict(kernel.LAUNCHES)
-    with pytest.raises(ValueError, match="plain version"):
-        kernel.gather_join(table, ids, table, ids)
+    with pytest.raises(ValueError, match="one dtype"):
+        kernel.gather_join(s_table, ids, t_table, ids)
     assert kernel.LAUNCHES == before
+
+
+# (Q, W) of chip_smoke.py's JOIN_SHAPES: widths 0 to 1024 (every vector
+# width of 16-bit rows: 16, 8, 4 and 2 bytes), batches 1 to 65 536
+HALF_JOIN_SHAPES = [(1, 1), (5, 7), (64, 128), (100, 257), (512, 512),
+                    (3, 1024), (257, 33), (9, 0), (4096, 96), (65536, 96),
+                    (4096, 256), (45, 6), (64, 12), (4096, 93), (1, 133),
+                    (45, 96), (65536, 93)]
+
+
+@pytest.mark.parametrize("with_lb", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("q,w", HALF_JOIN_SHAPES)
+def test_half_precision_kernel_matches_plain_version(cuda, q, w, dtype,
+                                                     with_lb):
+    """bfloat16 and float16 rows: widened to float32, joined there, each
+    result rounded once to the rows' type — bit for bit with the plain
+    version (as the JAX package's join_pallas / join_lb_pallas), tables
+    aligned and one element off their alignment."""
+    rng = np.random.default_rng(q * 7 + w)
+    for offset in (0, 1):
+        s, t = _rand_dist(rng, (q + 5, w)), _rand_dist(rng, (q + 8, w))
+        S = _table_at(cuda, dtype, q + 5, w, offset)
+        T = _table_at(cuda, dtype, q + 8, w, offset)
+        S.copy_(torch.from_numpy(s))
+        T.copy_(torch.from_numpy(t))
+        rs = torch.from_numpy(rng.integers(0, q + 5, q)).to(cuda)
+        rt = torch.from_numpy(rng.integers(0, q + 8, q)).to(cuda)
+        key = "label_join_lb" if with_lb else "label_join"
+        before = kernel.LAUNCHES[key]
+        got = kernel.gather_join(S, rs, T, rt, with_lb=with_lb)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES[key] == before + 1
+        want = ref.gather_join_ref(S.cpu(), rs.cpu(), T.cpu(), rt.cpu(),
+                                   with_lb=with_lb)
+        for g, x in zip(*((got, want) if with_lb else ((got,), (want,)))):
+            assert g.dtype == dtype and g.shape == (q,)
+            assert torch.equal(g.cpu().view(torch.int16),
+                               x.view(torch.int16))
 
 
 def _plus_zero_bits(x):
@@ -1478,3 +1520,85 @@ def test_zamba2_flash_prefill_on_card_matches_dense(cuda, no_tf32):
         assert float((logits[:, 0] - full[:, i]).abs().max()
                      / full[:, i].abs().max()) <= 1e-4
     assert fa.LAUNCHES["flash_attention"] == before
+
+
+# -- the long-context shapes (slice 17) ----------------------------------------
+
+@pytest.mark.parametrize("b,h,kv", [(1, 32, 8), (8, 32, 8), (1, 32, 32),
+                                    (4, 32, 32)])
+def test_flash_kernel_at_32768_tokens_matches_plain_rows(cuda, b, h, kv):
+    """bf16 flash at prefill_32k's length, causal (Qwen3-4B's GQA 32 / 8
+    and Zamba2-1.2B's shared MHA 32 / 32, hd 128), at batch 1 and at the
+    batch each prefill_32k path runs (8, 4): one launch of the kernel,
+    its last sequence held against the plain version on 512 query rows
+    at the start, the middle and the end (all keys, the mask at the
+    rows' absolute positions: ``attention_rows_ref``) within the bf16
+    bound of ``_half_bound_ratio`` — the dense plain version would hold
+    137 GB of scores a sequence."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    s, hd, r = 32768, 128, 512
+    gen = torch.Generator(device=cuda).manual_seed(b + h + kv)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, s, kv, hd), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, s, kv, hd), generator=gen, device=cuda).bfloat16()
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    got, q, k, v = got[-1:], q[-1:], k[-1:], v[-1:]
+    for r0 in (0, (s - r) // 2, s - r):
+        rows = slice(r0, r0 + r)
+        qf, kf, vf = q[:, rows].float(), k.float(), v.float()
+        want = fa_ref.attention_rows_ref(qf, kf, vf, r0)
+        mass = fa_ref.attention_rows_ref(qf, kf, vf.abs(), r0)
+        g = got[:, rows].float()
+        mag = torch.maximum(g.abs(), want.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        bound = ulp + 2.0 ** -8 * mass + 2e-5
+        assert float(((g - want).abs() / bound).max()) <= 1.0, r0
+
+
+def test_decode_step_over_a_32768_row_cache_matches_the_f32_path(cuda,
+                                                                 no_tf32):
+    """Qwen3-4B at full width, 1 layer: one ``decode_step`` at pos 32 767
+    over a 32 768-row cache of seeded draws. In float32 the card's step
+    equals the host's (logits and the written slot within rel 1e-4); in
+    bf16 (weights, cache and compute) the logits are within rel 5e-2 of
+    the float32 step's and the slot is written at pos only."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    t, pos = 32768, 32767
+    cfg = dataclasses.replace(get_config("qwen3_4b"), num_layers=1,
+                              compute_dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    params = lm.init_params(cfg, gen, cuda)
+    cache = lm.init_cache(cfg, 1, t, cuda)
+    for leaf in (cache["layers"]["k"], cache["layers"]["v"]):
+        leaf.normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                        device=cuda)
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    cache16 = {"layers": {k: v.bfloat16()
+                          for k, v in cache["layers"].items()}}
+    host = {k: v.cpu() for k, v in cache["layers"].items()}
+    got, _ = lm.decode_step(params, cfg, cache, tok, pos)
+    want, _ = lm.decode_step(tree_map(lambda a: a.cpu(), params), cfg,
+                             {"layers": host}, tok.cpu(), pos)
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    assert rel(got, want) <= 1e-4
+    for name in ("k", "v"):
+        assert rel(cache["layers"][name][:, :, pos], host[name][:, :, pos]) \
+            <= 1e-4
+    untouched = cache16["layers"]["k"][:, :, :pos].clone()
+    got16, _ = lm.decode_step(params, bf16, cache16, tok, pos)
+    torch.cuda.synchronize()
+    assert got16.dtype == torch.float32 and bool(torch.isfinite(got16).all())
+    assert rel(got16, got) <= 5e-2
+    assert torch.equal(cache16["layers"]["k"][:, :, :pos], untouched)

@@ -142,6 +142,29 @@ def test_hierarchical_border_labels_match(case):
     np.testing.assert_array_equal(got.border_ids, want.border_ids)
 
 
+# (n, q, share of +inf entries): one hub, a dense table, a sparse one and
+# one where most labels survive the prune
+PRUNE_CASES = [(9, 1, 0.0), (300, 40, 0.0), (500, 64, 0.6), (2000, 96, 0.2)]
+
+
+@pytest.mark.parametrize("n,q,inf_share", PRUNE_CASES)
+def test_prune_table_matches(n, q, inf_share):
+    """The port's hub-major prune against the reference's, bit for bit,
+    on seeded tables (integer distances, so that ties occur)."""
+    from repro.core.border_labeling import prune_table as rprune
+    from repro_torch.core.border_labeling import prune_table as tprune
+    rng = np.random.default_rng(n + q)
+    border_ids = np.sort(rng.choice(n, q, replace=False)).astype(np.int32)
+    table = rng.integers(1, 40, (n, q)).astype(np.float32)
+    table[rng.random((n, q)) < inf_share] = np.inf
+    table[border_ids, np.arange(q)] = 0.0
+    rank = rng.permutation(n)
+    want = rprune(table, border_ids, rank)
+    got = tprune(table, border_ids, rank)
+    assert got.dtype == want.dtype and got.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(got, want)
+
+
 # -- host table layout -------------------------------------------------------
 
 LAYOUTS = {
