@@ -994,13 +994,17 @@ def join_lanes_ms(torch, kernel, ref, table, rs, rt, quant, with_lb: bool,
     version once: what the entry's own pick of lanes is worth."""
     fn = kernel._lib().repro_label_join
     q, w = rs.shape[0], table.shape[1]
-    code, sentinel, scale = (0, 0, 1.0) if quant is None else (
-        1 if quant[0] == 0xFFFF else 2, quant[0], quant[1])
+    code, sentinel, scale = (kernel._FLOAT_CODES[table.dtype], 0, 1.0) \
+        if quant is None else (1 if quant[0] == 0xFFFF else 2, quant[0],
+                               quant[1])
+    # float rows come back in their own type, codes in float32
+    out_dtype = table.dtype if quant is None else torch.float32
 
     def run(lanes):
         def call(tab, a, b):
-            out = torch.empty(q, device=tab.device)
-            lb = torch.empty(q, device=tab.device) if with_lb else None
+            out = torch.empty(q, dtype=out_dtype, device=tab.device)
+            lb = torch.empty(q, dtype=out_dtype, device=tab.device) \
+                if with_lb else None
             err = fn(code, int(with_lb), lanes, tab.data_ptr(),
                      a.data_ptr(), tab.shape[0], tab.data_ptr(), b.data_ptr(),
                      tab.shape[0], q, w, sentinel, scale, out.data_ptr(),
@@ -2761,11 +2765,44 @@ def phase_sharded_times(torch, dev, shapes: dict) -> dict:
             "host included", "rows": rows, "ok": True}
 
 
+# the join's 16-bit rows (bf16 / f16 tables, as the TPU kernel takes
+# them; no serving path stores them): the f32 shapes they are cast from,
+# the engine's 4096 x 256 and rule 3's 65 536 x 96
+HALF_JOIN_SHAPES = (("engine", "engine_f32"),
+                    ("rule3_q65536", "rule3_f32_q65536"))
+
+
+def half_join_rows(torch, kernel, ref, shapes: dict) -> list:
+    """``time_shape`` on each of HALF_JOIN_SHAPES' tables cast to bf16
+    and to f16, after the kernel's output on those inputs is held bit for
+    bit against its plain version."""
+    rows = []
+    for tag, key in HALF_JOIN_SHAPES:
+        table, ss, ts, quant = shapes[key]
+        rs = torch.from_numpy(np.asarray(ss, np.int64)).to(table.device)
+        rt = torch.from_numpy(np.asarray(ts, np.int64)).to(table.device)
+        for dtype in (torch.bfloat16, torch.float16):
+            half = table.to(dtype)
+            before = dict(kernel.LAUNCHES)
+            got = kernel.gather_join(half, rs, half, rt)
+            kernel.LAUNCHES.update(before)  # a check, not the path
+            want = ref.gather_join_ref(half, rs, half, rt)
+            check(got.dtype == dtype and torch.equal(got, want),
+                  f"{tag} {dtype}: the join differs from its plain version")
+            name = f"{tag}_{str(dtype).split('.')[1]}"
+            rows.append({**time_shape(torch, kernel, ref, name, half, ss,
+                                      ts, quant),
+                         "bit_equal_to_plain": True})
+            del half
+    return rows
+
+
 def phase_times(torch, state: dict, shapes: dict) -> dict:
     from repro_torch.kernels.label_join import kernel, ref
 
     rows = [time_shape(torch, kernel, ref, name, *args)
             for name, args in shapes.items()]
+    rows += half_join_rows(torch, kernel, ref, shapes)
     # launches per submit and host-clock submit latency, steady state
     ss, ts, client = state["ss"], state["ts"], state["client"]
     per_submit = {}
@@ -3388,13 +3425,18 @@ FLASH_TIMED = [("flash_b2_s4096", (2, 4096, 32, 8, 128), True, "bfloat16"),
                ("flash_nemotron_b1_s2048", (1, 2048, 96, 8, 192), True,
                 "bfloat16")]
 # the 32 768-token prefills of SHAPES["prefill_32k"] (Qwen3-4B's GQA
-# 32 / 8 and Zamba2-1.2B's shared MHA 32 / 32): the dense plain version
-# would hold (B, H, S, S) float32 scores, 137 GB, so these rows hold the
+# 32 / 8, Zamba2-1.2B's shared MHA 32 / 32, OLMoE-1B-7B's MHA 16 / 16 and
+# HuBERT-XLarge's non-causal hd 80): the dense plain version would hold
+# (B, H, S, S) float32 scores, up to 137 GB, so these rows hold the
 # kernel against the plain version on FLASH_SLICE_ROWS query rows at the
 # start, the middle and the end (all keys, the mask at the rows'
 # absolute positions), and time the plain version on those rows
 FLASH_LONG = [("flash_b1_s32768", (1, 32768, 32, 8, 128), True, "bfloat16"),
               ("flash_zamba2_b1_s32768", (1, 32768, 32, 32, 128), True,
+               "bfloat16"),
+              ("flash_olmoe_b1_s32768", (1, 32768, 16, 16, 128), True,
+               "bfloat16"),
+              ("flash_hubert_b1_s32768", (1, 32768, 16, 16, 80), False,
                "bfloat16")]
 FLASH_SLICE_ROWS = 512
 
@@ -3805,19 +3847,32 @@ def lm_train_tight(torch, dev, arch: str = LM_ARCH,
     cfg, host, batch, step = train_tight_inputs(torch, arch, t)
     card = _copy_tree(host, dev)
     t0 = time.perf_counter()
-    pc, _, mc = step(card, init_opt_state(card), to_device(batch, dev))
+    with routing_recorder(torch) as on_card:
+        pc, _, mc = step(card, init_opt_state(card), to_device(batch, dev))
     sync(torch, dev)
     card_s = time.perf_counter() - t0
     wait = {}
     if pending is None:
         t0 = time.perf_counter()
-        ph, _, mh = step(host, init_opt_state(host), to_device(batch, "cpu"))
+        with routing_recorder(torch) as on_host:
+            ph, _, mh = step(host, init_opt_state(host),
+                             to_device(batch, "cpu"))
         host_s = time.perf_counter() - t0
     else:
         del host
         result, wait = wait_host_check(torch, pending)
-        ph, mh, host_s = result["params"], result["metrics"], \
-            result["seconds"]
+        ph, mh, host_s, on_host = result["params"], result["metrics"], \
+            result["seconds"], result["routing"]
+    # an MoE config: every step's gradient sums over all tokens, so the
+    # params compare only if the card and the host routed every token
+    # alike (each layer's forward and its recomputation)
+    routed = {}
+    if on_card:
+        _, differ = routing_agreement(on_card, on_host)
+        routed = {"assignments": sum(c["ids"].numel() for c in on_card),
+                  "assignments_routed_differently": differ}
+        check(differ == 0, f"f32 {arch} train step: {differ} assignments "
+              "routed differently on the card and the host")
     rels = {k: rel_diff(mc[k].cpu(), mh[k]) for k in ("loss", "grad_norm")}
     leaves = {}
     for path, a, b in _paired_leaves(pc, ph):
@@ -3830,7 +3885,7 @@ def lm_train_tight(torch, dev, arch: str = LM_ARCH,
             "loss": float(mc["loss"]),
             "loss_rel": rels["loss"], "grad_norm_rel": rels["grad_norm"],
             "param_rel2_max": max(leaves.values()),
-            "param_rel2": leaves, "tolerance_rel": LM_TRAIN_REL,
+            "param_rel2": leaves, "tolerance_rel": LM_TRAIN_REL, **routed,
             "card_step_s": card_s, "host_step_s": host_s,
             **wait,
             "measure": "loss, grad_norm: max |a-b| / max |b|; params after "
@@ -4990,12 +5045,43 @@ SHAPE_CELLS = {
         train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
         tight=dict(layers=1, batch=1, tokens=4096, vocab=None,
                    host_worker="train")),
+    # the MoE, MLA and audio-encoder configs (PERF.md section 4 reckons
+    # each batch and depth from bytes), the cells whose host half takes
+    # longest last: ``layers`` where one card does not hold the published
+    # depth; ``rows``: the float32 check holds row slices of the first
+    # attention layer at the full key length (a whole host pass would
+    # take minutes)
+    "shape_prefill_32k_hubert_xlarge": dict(
+        shape="prefill_32k", arch=AUDIO_ARCH, batch=8, seed=146,
+        tight=dict(rows="flash", layers=1, batch=1, seed=147),
+        launches="flash_attention_prefill_32k_hubert"),
+    "shape_decode_32k_olmoe_1b_7b": dict(
+        shape="decode_32k", arch=OLMOE_ARCH, batch=12, seed=148,
+        tight=dict(layers=2, batch=2, seed=149)),
+    "shape_decode_32k_deepseek_v2_236b": dict(
+        shape="decode_32k", arch=DEEPSEEK_ARCH, batch=16,
+        layers=DEEPSEEK_LAYERS, seed=150,
+        tight=dict(layers=2, batch=1, seed=151)),
+    "shape_train_4k_olmoe_1b_7b": dict(
+        shape="train_4k", arch=OLMOE_ARCH, batch=1, layers=9, seed=152,
+        train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
+        tight=dict(layers=1, batch=1, tokens=4096, vocab=None,
+                   host_worker="train")),
+    "shape_prefill_32k_olmoe_1b_7b": dict(
+        shape="prefill_32k", arch=OLMOE_ARCH, batch=8, seed=142,
+        tight=dict(layers=1, batch=1, seed=143, host_worker="moe"),
+        launches="flash_attention_prefill_32k_olmoe"),
+    "shape_prefill_32k_deepseek_v2_236b": dict(
+        shape="prefill_32k", arch=DEEPSEEK_ARCH, batch=1,
+        layers=DEEPSEEK_LAYERS, seed=144,
+        tight=dict(rows="mla", batch=1, seed=145, host_worker="moe"),
+        launches="flash_attention_prefill_32k_deepseek_v2"),
 }
 # the worker processes of the cells' host halves and their threads: the
 # jobs of one worker run one after another, in SHAPE_CELLS' order (the
 # host's 8 cores also serve the NY-scale ingest check's two workers and
 # the LM phases' launches)
-HOST_WORKERS = {"prefill": 4, "train": 2}
+HOST_WORKERS = {"prefill": 4, "train": 2, "moe": 2}
 # the host halves of earlier phases' float32 train steps (LM_TRAIN_TIGHT),
 # run in the "train" worker ahead of train_4k's: (phase, arch)
 TRAIN_TIGHT_HOST = (("lm_train_qwen3_4b", LM_ARCH),
@@ -5039,16 +5125,37 @@ def bf16_params(torch, dev, cfg, seed: int):
     return params, gen, time.perf_counter() - t0, w_bytes
 
 
+# query rows a block of MLA attention holds on the fake tensors of a
+# prefill's probe: at the card's 1 GiB budget 32 768 tokens run in 512 or
+# 1024 blocks, and the probe counts each op of each block (minutes); in
+# 1024-row blocks it counts the same work but for the keys past a causal
+# block's diagonal, (1024 - the card's rows) / S of the scores (3 % at
+# 32 768)
+PROBE_MLA_ROWS = 1024
+
+
 def path_roofline(arch: str, layers: int, kind: str, b: int, s: int,
                   secs: float) -> dict:
     """``launch/roofline.py`` at the path's shape and depth on one card
     (``roofline_rows``: the FLOPs at 989 TFLOP/s bf16 and the eager
     program's bytes, every aten op's inputs and outputs, at 3.35 TB/s)
-    beside the measured seconds."""
+    beside the measured seconds; an MLA prefill's probe in blocks of
+    PROBE_MLA_ROWS query rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
     t0 = time.perf_counter()
-    row = roofline_rows([(f"{arch} {kind}", arch, layers, (kind, b, s),
-                          secs)])[0]
-    return {**row, "probe_s": time.perf_counter() - t0}
+    budget, extra, cfg = attention.SCORE_BLOCK_BYTES, {}, get_config(arch)
+    if cfg.use_mla and kind != "decode":
+        extra = {"card_mla_block_rows": attention.score_block_rows(
+            b, cfg.num_heads, s), "probe_mla_block_rows": PROBE_MLA_ROWS}
+        attention.SCORE_BLOCK_BYTES = max(
+            budget, 4 * b * cfg.num_heads * s * PROBE_MLA_ROWS)
+    try:
+        row = roofline_rows([(f"{arch} {kind}", arch, layers, (kind, b, s),
+                              secs)])[0]
+    finally:
+        attention.SCORE_BLOCK_BYTES = budget
+    return {**row, **extra, "probe_s": time.perf_counter() - t0}
 
 
 def _named_leaves(tree: dict, path: str = ""):
@@ -5069,20 +5176,26 @@ def fill_cache(torch, cache: dict, seed: int, dev) -> None:
             leaf[i].normal_(generator=gen)
 
 
+# the cache leaves a step writes one slot of: keys and values, MLA's
+# latent and RoPE key
+KV_LEAVES = ("k", "v", "latent", "k_rope")
+
+
 def kv_slots_check(torch, cache: dict, seed: int, dev, pos: int) -> dict:
     """After one step at ``pos`` over a cache filled by ``fill_cache``:
     the draws made again, leaf by leaf, must equal every key and value
-    slot but ``pos`` bit for bit, and slot ``pos`` of each must differ
-    from its draw (the step wrote it; what it wrote is held card vs host
-    in float32 by ``decode_tight_long``); the SSM state and the conv
-    windows are rewritten whole by a step and not compared."""
+    (or latent and RoPE key) slot but ``pos`` bit for bit, and slot
+    ``pos`` of each must differ from its draw (the step wrote it; what it
+    wrote is held card vs host in float32 by ``decode_tight_long``); the
+    SSM state and the conv windows are rewritten whole by a step and not
+    compared."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     slots = 0
     for path, leaf in _named_leaves(cache):
         kind = path.rsplit("/", 1)[-1]
         for i in range(leaf.shape[0]):
             draw = torch.empty_like(leaf[i]).normal_(generator=gen)
-            if kind not in ("k", "v"):
+            if kind not in KV_LEAVES:
                 continue
             got = leaf[i]
             check(torch.equal(got[:, :pos], draw[:, :pos])
@@ -5118,12 +5231,17 @@ def host_check_work(jobs: list, threads: int) -> None:
     out) saved to ``out`` with ``torch.save`` as it ends: for
     ``prefill_32k`` the last position's logits of
     ``prefill_tight_inputs`` through ``make_prefill_step`` (attention by
-    the flash wrapper's plain version, in blocks of query rows); for
+    the flash wrapper's plain version, in blocks of query rows), or for
+    an MoE config the hidden states of every position through
+    ``forward`` and the routing of each layer; for ``mla_rows`` the
+    rows of ``mla_rows_inputs``' MLA output at ``slice_starts``; for
     ``train_4k`` and ``train`` the params and metrics after one step of
-    ``train_tight_inputs``; and its seconds and wall-clock end."""
+    ``train_tight_inputs`` (and an MoE config's routing); and its
+    seconds and wall-clock end."""
     sys.path.insert(0, str(SRC))
     import torch
 
+    from repro_torch.models.lm import forward
     from repro_torch.train.data import to_device
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.train_step import make_prefill_step
@@ -5132,13 +5250,22 @@ def host_check_work(jobs: list, threads: int) -> None:
         t0 = time.perf_counter()
         if kind == "prefill_32k":
             cfg, params, tok = prefill_tight_inputs(torch, arch, s, t)
-            result = {"logits": make_prefill_step(cfg)(params,
-                                                       {"tokens": tok})}
+            if cfg.num_experts:
+                with routing_recorder(torch) as routing:
+                    result = {"hidden": forward(params, cfg,
+                                                {"tokens": tok})}
+                result["routing"] = routing
+            else:
+                result = {"logits": make_prefill_step(cfg)(
+                    params, {"tokens": tok})}
+        elif kind == "mla_rows":
+            result = {"rows": mla_rows_host(torch, arch, s, t)}
         else:
             _, params, batch, step = train_tight_inputs(torch, arch, t)
-            p, _, m = step(params, init_opt_state(params),
-                           to_device(batch, "cpu"))
-            result = {"params": p, "metrics": m}
+            with routing_recorder(torch) as routing:
+                p, _, m = step(params, init_opt_state(params),
+                               to_device(batch, "cpu"))
+            result = {"params": p, "metrics": m, "routing": routing}
         result["seconds"] = time.perf_counter() - t0
         result["done_at"] = time.time()
         torch.save(result, out + ".part")
@@ -5158,8 +5285,10 @@ def start_host_checks() -> dict:
     GR_DIR.mkdir(parents=True, exist_ok=True)
     jobs = [(name, "train", "train", arch, LM_TRAIN_TIGHT["tokens"],
              LM_TRAIN_TIGHT) for name, arch in TRAIN_TIGHT_HOST]
-    jobs += [(name, spec["tight"]["host_worker"], spec["shape"],
-              spec["arch"], SHAPES[spec["shape"]].seq_len, spec["tight"])
+    jobs += [(name, spec["tight"]["host_worker"],
+              "mla_rows" if spec["tight"].get("rows") == "mla"
+              else spec["shape"], spec["arch"],
+              SHAPES[spec["shape"]].seq_len, spec["tight"])
              for name, spec in SHAPE_CELLS.items()
              if spec["tight"].get("host_worker")]
     pending = {}
@@ -5199,7 +5328,9 @@ def wait_host_check(torch, pending: tuple) -> tuple[dict, dict]:
 
 def attention_applications(cfg) -> int:
     """Flash launches of one prefill: one a layer, or one a hybrid's
-    shared application."""
+    shared application; none where MLA attends."""
+    if cfg.use_mla:
+        return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.shared_attn_every
     return cfg.num_layers
@@ -5239,33 +5370,198 @@ def prefill_tight_long(torch, dev, arch: str, s: int, t: dict,
     through its plain version; the last position's logits card vs
     host."""
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.lm import forward
     from repro_torch.train.train_step import make_prefill_step
     cfg, host, tok = prefill_tight_inputs(torch, arch, s, t)
     params = _copy_tree(host, dev)
     del host
     step = make_prefill_step(cfg)
+    batch = {"tokens": tok.to(dev)}
     before = fa.LAUNCHES["flash_attention"]
-    got, card_s = timed(torch, lambda: step(params, {"tokens": tok.to(dev)}),
-                        1)
+    with routing_recorder(torch) as routing:
+        got, card_s = timed(torch, lambda: forward(params, cfg, batch)
+                            if cfg.num_experts else step(params, batch), 1)
     launched = fa.LAUNCHES["flash_attention"] - before
     fa.LAUNCHES["flash_attention"] = before     # a check, not the path
     check(launched == attention_applications(cfg), f"f32 {arch} prefill at "
           f"{s}: {launched} flash launches")
     result, wait = wait_host_check(torch, pending)
-    want, host_s = result["logits"], result["seconds"]
-    rel = rel_diff(got.cpu(), want)
+    host_s = result["seconds"]
+    if cfg.num_experts:
+        # each position's hidden state where the card and the host routed
+        # the token alike (the layer's capacity decisions included)
+        check(t["layers"] == 1, "an MoE check compares per token at 1 layer")
+        agree, differ = routing_agreement(routing, result["routing"])
+        agree = agree.cpu()
+        check(bool(agree.any()), f"f32 {arch}: no token routed alike")
+        d = got.shape[-1]
+        rel = rel_diff(got.reshape(-1, d).cpu()[agree],
+                       result["hidden"].reshape(-1, d)[agree])
+        compared = {"hidden_rel": rel, "assignments": agree.numel()
+                    * cfg.experts_per_token,
+                    "assignments_routed_differently": differ,
+                    "positions_compared": int(agree.sum()),
+                    "measure": "max |a-b| / max |b| over the final hidden "
+                    "states of every position the card and the host "
+                    "routed alike (expert ids and capacity kept); the "
+                    "card attends through the f32 flash kernel, the host "
+                    "(a worker process) through its plain version in "
+                    "blocks of query rows"}
+    else:
+        rel = rel_diff(got.cpu(), result["logits"])
+        compared = {"last_logits_rel": rel,
+                    "measure": "max |a-b| / max |b| over the last "
+                    "position's logits; the card attends through the f32 "
+                    "flash kernel, the host (a worker process beside the "
+                    "LM phases) through its plain version in blocks of "
+                    "query rows"}
     check(rel <= LM_TIGHT_REL, f"f32 {arch} prefill at {s} tokens, card vs "
           f"host: {rel} > {LM_TIGHT_REL}")
     del params
     return {"layers": t["layers"], "batch": t["batch"], "tokens": s,
-            "flash_launches": launched,
-            "last_logits_rel": rel, "tolerance_rel": LM_TIGHT_REL,
-            "card_s": card_s[0], "host_s": host_s,
-            **wait,
-            "measure": "max |a-b| / max |b| over the last position's "
-            "logits; the card attends through the f32 flash kernel, the "
-            "host (a worker process beside the LM phases) through its "
-            "plain version in blocks of query rows"}
+            "flash_launches": launched, "rel": rel,
+            "tolerance_rel": LM_TIGHT_REL,
+            "card_s": card_s[0], "host_s": host_s, **wait, **compared}
+
+
+def mla_rows_inputs(torch, arch: str, s: int, t: dict):
+    """The float32 MLA check's config (full width), the attention params
+    of one layer and ``t["batch"]`` x ``s`` hidden states of unit
+    variance, drawn on the host from ``t["seed"]``: the same in every
+    process."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import mla_init
+    cfg = replace(get_config(arch), num_layers=1, compute_dtype="float32")
+    gen = torch.Generator().manual_seed(t["seed"])
+    p = mla_init(gen, cfg, torch.float32, torch.device("cpu"))
+    x = torch.randn((t["batch"], s, cfg.d_model), generator=gen)
+    return cfg, p, x
+
+
+def mla_rows_host(torch, arch: str, s: int, t: dict) -> list:
+    """(Worker process.) The rows of ``slice_starts(s)`` of ``mla_apply``
+    on ``mla_rows_inputs``, causal, each from those rows' queries against
+    every key they see: the keys and values expanded from the latent
+    once, then ``mla_attend_rows`` at the rows' offset (a whole pass
+    would be 88 TFLOP a sequence)."""
+    from repro_torch.models import attention
+    cfg, p, x = mla_rows_inputs(torch, arch, s, t)
+    b, h, r = x.shape[0], cfg.num_heads, FLASH_SLICE_ROWS
+    pos = torch.arange(s)[None].expand(b, s)
+    latent, k_rope = attention._mla_kv(p, cfg, x, pos)
+    k_nope = (latent @ p["wk_b"]).reshape(b, s, h, cfg.qk_nope_head_dim)
+    v = (latent @ p["wv_b"]).reshape(b, s, h, cfg.v_head_dim)
+    out = []
+    for r0 in slice_starts(s):
+        qn, qr = attention._mla_q(p, cfg, x[:, r0:r0 + r], pos[:, r0:r0 + r])
+        rows = attention.mla_attend_rows(
+            cfg, qn, qr, k_nope, k_rope, v, True, r0,
+            attention.score_block_rows(b, h, s))
+        out.append(rows.reshape(b, r, -1) @ p["wo"])
+    return out
+
+
+def mla_rows_check(torch, dev, arch: str, s: int, t: dict,
+                   pending: tuple) -> dict:
+    """float32, full width: one layer's ``mla_apply`` over ``t["batch"]``
+    x ``s`` tokens on the card (its query rows in blocks), and on the
+    host (``pending``: the worker of ``host_check_work``) the first, a
+    middle and the last FLASH_SLICE_ROWS rows at the full key length;
+    those rows card vs host."""
+    from repro_torch.models.attention import mla_apply, score_block_rows
+    cfg, p, x = mla_rows_inputs(torch, arch, s, t)
+    p, x = _copy_tree(p, dev), x.to(dev)
+    pos = torch.arange(s, device=dev)[None].expand(x.shape[0], s)
+    torch.cuda.reset_peak_memory_stats()
+    got, card_s = timed(torch, lambda: mla_apply(p, cfg, x, pos), 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    r = FLASH_SLICE_ROWS
+    got = [got[:, r0:r0 + r].cpu() for r0 in slice_starts(s)]
+    del p, x
+    result, wait = wait_host_check(torch, pending)
+    rels = [rel_diff(a, b) for a, b in zip(got, result["rows"])]
+    rel = max(rels)
+    check(rel <= LM_TIGHT_REL, f"f32 {arch} MLA rows at {s} tokens, card vs "
+          f"host: {rels} > {LM_TIGHT_REL}")
+    return {"layers": 1, "batch": t["batch"], "tokens": s,
+            "slice_rows": r, "slice_starts": list(slice_starts(s)),
+            "rel_by_slice": rels, "rel": rel, "tolerance_rel": LM_TIGHT_REL,
+            "block_rows_on_card": score_block_rows(t["batch"],
+                                                   cfg.num_heads, s),
+            "card_peak_memory_gb": peak_gb, "card_s": card_s[0],
+            "host_s": result["seconds"], **wait,
+            "measure": "max |a-b| / max |b| over each slice of one "
+            "layer's MLA output (after wo), causal; inputs of unit "
+            "variance and the layer's weights drawn on the host from the "
+            "seed; the host's rows in a worker process"}
+
+
+def flash_rows_check(torch, dev, arch: str, s: int, t: dict) -> dict:
+    """float32, full width, ``t["layers"]`` layer(s): one prefill of
+    ``t["batch"]`` x ``s`` frames (or tokens) through ``make_prefill_step``
+    on the card, the first attention layer through the float32 flash
+    kernel; that launch's output held against the plain version on the
+    host on the rows of ``slice_starts`` at the full key length (a whole
+    host pass of the layer would take minutes)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.models.lm import init_params
+    from repro_torch.train.train_step import make_prefill_step
+    cfg = replace(get_config(arch), num_layers=t["layers"],
+                  compute_dtype="float32", attention_impl="flash")
+    gen = torch.Generator().manual_seed(t["seed"])
+    params = _copy_tree(init_params(cfg, gen, "cpu"), dev)
+    batch = lm_inputs(torch, cfg, t["batch"], s, gen, dev)
+    before = fa.LAUNCHES["flash_attention"]
+    with last_sequence_of_first_flash(torch) as kept:
+        logits, card_s = timed(
+            torch, lambda: make_prefill_step(cfg)(params, batch), 1)
+    launched = fa.LAUNCHES["flash_attention"] - before
+    fa.LAUNCHES["flash_attention"] = before     # a check, not the path
+    check(launched == attention_applications(cfg)
+          and bool(torch.isfinite(logits).all()), f"f32 {arch} prefill at "
+          f"{s}: {launched} flash launches")
+    del params, batch
+    q, k, v = (kept[n].cpu() for n in ("q", "k", "v"))
+    r = FLASH_SLICE_ROWS
+    t0 = time.perf_counter()
+    rels, errs = [], []
+    for r0 in slice_starts(s):
+        want = ref.attention_rows_ref(q[:, r0:r0 + r], k, v, r0,
+                                      causal=kept["causal"])
+        got = kept["out"][:, r0:r0 + r].cpu()
+        rels.append(rel_diff(got, want))
+        errs.append(max_abs_err(got, want))
+    host_s = time.perf_counter() - t0
+    rel = max(rels)
+    check(rel <= LM_TIGHT_REL, f"f32 {arch} first attention layer at {s}, "
+          f"card vs host: {rels} > {LM_TIGHT_REL}")
+    return {"layers": t["layers"], "batch": t["batch"], "tokens": s,
+            "flash_launches": launched, "causal": kept["causal"],
+            "slice_rows": r, "slice_starts": list(slice_starts(s)),
+            "rel_by_slice": rels, "max_abs_err": max(errs), "rel": rel,
+            "tolerance_rel": LM_TIGHT_REL, "card_s": card_s[0],
+            "host_s": host_s,
+            "measure": "max |a-b| / max |b| over each slice of the first "
+            "attention layer's output: the card's float32 flash kernel "
+            "against the plain version on the host, from the card's own "
+            "q, k, v of that layer"}
+
+
+def lm_inputs(torch, cfg, b: int, s: int, gen, dev) -> dict:
+    """A prefill's batch drawn from ``gen``: ``b`` x ``s`` frames of unit
+    variance for the ``frame`` frontend (HuBERT), else tokens."""
+    if cfg.frontend == "frame":
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=gen,
+                                      device=gen.device).to(dev)}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                    generator=gen,
+                                    device=gen.device).to(dev)}
 
 
 def decode_tight_long(torch, dev, arch: str, max_len: int, t: dict) -> dict:
@@ -5294,18 +5590,29 @@ def decode_tight_long(torch, dev, arch: str, max_len: int, t: dict) -> dict:
     tok = torch.randint(0, cfg.vocab_size, (t["batch"], 1), generator=gen,
                         device=dev)
     pos = max_len - 1
-    got, card_s = timed(torch, lambda: decode_step(params, cfg, cache, tok,
-                                                   pos)[0], 1)
+    with routing_recorder(torch) as on_card:
+        got, card_s = timed(torch, lambda: decode_step(params, cfg, cache,
+                                                       tok, pos)[0], 1)
     t0 = time.perf_counter()
-    want, _ = decode_step(host, cfg, host_cache, tok.cpu(), pos)
+    with routing_recorder(torch) as on_host:
+        want, _ = decode_step(host, cfg, host_cache, tok.cpu(), pos)
     host_s = time.perf_counter() - t0
-    rel = rel_diff(got.cpu(), want)
+    # an MoE config: the sequences whose token the card and the host
+    # routed alike in every layer (decode is dropless, so one sequence's
+    # routing cannot move another's)
+    rows, differ = slice(None), 0
+    if on_card:
+        agree, differ = routing_agreement(on_card, on_host)
+        rows = agree.cpu()
+        check(bool(rows.any()), f"f32 {arch} decode: no token routed alike")
+    rel = rel_diff(got.cpu()[rows], want[rows])
     entries = {}
     for (path, a), (_, b) in zip(_named_leaves(cache),
                                  _named_leaves(host_cache)):
         written = (a[:, :, pos], b[:, :, pos]) \
-            if path.rsplit("/", 1)[-1] in ("k", "v") else (a, b)
-        entries[path] = rel_diff(written[0].cpu(), written[1])
+            if path.rsplit("/", 1)[-1] in KV_LEAVES else (a, b)
+        entries[path] = rel_diff(written[0].cpu()[:, rows],
+                                 written[1][:, rows])
     worst = max([rel, *entries.values()])
     check(worst <= LM_TIGHT_REL, f"f32 {arch} decode at pos {pos}, card vs "
           f"host: logits {rel}, cache {entries} > {LM_TIGHT_REL}")
@@ -5313,24 +5620,31 @@ def decode_tight_long(torch, dev, arch: str, max_len: int, t: dict) -> dict:
     return {"layers": t["layers"], "batch": t["batch"], "cache_rows": max_len,
             "pos": pos, "cache_gb_f32": cache_gb, "logits_rel": rel,
             "written_cache_rel": entries, "tolerance_rel": LM_TIGHT_REL,
+            **({"assignments": t["batch"] * cfg.experts_per_token
+                * len(on_card), "assignments_routed_differently": differ,
+                "sequences_compared": int(rows.sum())} if on_card else {}),
             "card_s": card_s[0], "host_s": host_s, "cache_to_host_s": copy_s,
             "measure": "max |a-b| / max |b|: logits, the written slot of "
-            "each key and value cache, each SSM state and conv window"}
+            "each key and value (or MLA latent and RoPE key) cache, each "
+            "SSM state and conv window; an MoE config's over the sequences "
+            "routed alike"}
 
 
 def phase_shape_prefill(torch, dev, launches: dict, name: str,
                         pending: dict, errs: dict) -> dict:
     """SHAPES["prefill_32k"] on ``SHAPE_CELLS[name]``'s config at full
-    depth, bf16: before it the float32 card-vs-host check at a cut depth
-    and the full length; the main path, one flash prefill through
-    ``make_prefill_step`` (its flash launches read: one a layer, or one
-    a shared application) with finite last-position logits, timed and
+    depth (or the cell's ``layers``), bf16: before it the float32
+    card-vs-host check at a cut depth and the full length; the main
+    path, one flash prefill through ``make_prefill_step`` (its flash
+    launches read: one a layer, one a shared application, none where MLA
+    attends) with finite last-position logits, timed and
     profiled in one call (device ms, idle share; the copies
     ``last_sequence_of_first_flash`` keeps, 0.7 or 1.1 GB, inside it)
     and its peak memory read; that first launch's last sequence held
     against the plain version on row slices (``flash_slices_check``:
-    the batch and grid arithmetic at the path's own batch); the
-    roofline of the path; the seconds of each step."""
+    the batch and grid arithmetic at the path's own batch; an MLA config
+    launches none); the roofline of the path; the seconds of each
+    step."""
     from dataclasses import replace
 
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -5340,14 +5654,21 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
     s, b = shape.seq_len, spec["batch"]
     steps_s = {}
     t0 = time.perf_counter()
-    tight = prefill_tight_long(torch, dev, spec["arch"], s, spec["tight"],
+    rows = spec["tight"].get("rows")
+    if rows == "mla":
+        tight = mla_rows_check(torch, dev, spec["arch"], s, spec["tight"],
                                pending[name])
+    elif rows == "flash":
+        tight = flash_rows_check(torch, dev, spec["arch"], s, spec["tight"])
+    else:
+        tight = prefill_tight_long(torch, dev, spec["arch"], s,
+                                   spec["tight"], pending[name])
     torch.cuda.empty_cache()
     steps_s["tight_f32"] = time.perf_counter() - t0
-    cfg = replace(full, attention_impl="flash")
+    cfg = replace(full, attention_impl="flash",
+                  num_layers=spec.get("layers", full.num_layers))
     params, gen, init_s, w_bytes = bf16_params(torch, dev, cfg, spec["seed"])
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
-                                     generator=gen, device=dev)}
+    batch = lm_inputs(torch, cfg, b, s, gen, dev)
     prefill = make_prefill_step(cfg)
     apps = attention_applications(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -5359,40 +5680,49 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
             torch, lambda: out.update(logits=prefill(params, batch)), 1)
     steps_s["main_path_profiled"] = time.perf_counter() - t0
     logits, secs = out.pop("logits"), prof["host_ms_per_call_profiled"] / 1e3
-    launches[spec["launches"]] = fa.LAUNCHES["flash_attention"]
-    check(launches[spec["launches"]] == apps,
-          f"{name}: {launches[spec['launches']]} flash launches, not {apps}")
+    key = spec["launches"]
+    launches[key] = fa.LAUNCHES["flash_attention"]
+    check(launches[key] == apps,
+          f"{name}: {launches[key]} flash launches, not {apps}")
     check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), f"{name} logits")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # the main path's own first launch, at its batch, against the plain
-    # version on the row slices of its last sequence
-    check(kept.get("batch") == b, f"{name}: the first flash call had "
-          f"batch {kept.get('batch')}, not {b}")
-    t0 = time.perf_counter()
-    held = flash_slices_check(torch, kept["out"], kept["q"], kept["k"],
-                              kept["v"], kept["causal"])
-    check(held["bound_ratio"] <= 1.0, f"{name}: the first flash launch's "
-          f"last sequence is beyond the bf16 bound ({held})")
-    errs["flash_attention"] = max(errs["flash_attention"],
-                                  held["max_abs_err"])
-    held["sequence"] = b - 1
-    del kept
-    steps_s["flash_slices"] = time.perf_counter() - t0
-    del params, batch, logits
+    held = None
+    if apps:
+        # the main path's own first launch, at its batch, against the
+        # plain version on the row slices of its last sequence
+        check(kept.get("batch") == b, f"{name}: the first flash call had "
+              f"batch {kept.get('batch')}, not {b}")
+        t0 = time.perf_counter()
+        held = flash_slices_check(torch, kept["out"], kept["q"], kept["k"],
+                                  kept["v"], kept["causal"])
+        check(held["bound_ratio"] <= 1.0, f"{name}: the first flash "
+              f"launch's last sequence is beyond the bf16 bound ({held})")
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      held["max_abs_err"])
+        held["sequence"] = b - 1
+        steps_s["flash_slices"] = time.perf_counter() - t0
+    del kept, params, batch, logits
     torch.cuda.empty_cache()
-    reduced = [f"f32 card-vs-host check at {tight['layers']} of "
-               f"{full.num_layers} layers ({tight['flash_launches']} flash "
-               f"launches), batch {tight['batch']}, the full {s} tokens"]
+    reduced = [f"layers {full.num_layers} -> {cfg.num_layers}: one card"] \
+        * (cfg.num_layers != full.num_layers)
+    reduced.append(
+        f"f32 card-vs-host check at {tight['layers']} of {full.num_layers} "
+        f"layers, batch {tight['batch']}, the full {s} tokens"
+        + (f" ({tight['flash_launches']} flash launches)"
+           if "flash_launches" in tight else "")
+        + (f", on rows {tight['slice_starts']} + {tight['slice_rows']} of "
+           f"its first attention layer" if rows else ""))
     t0 = time.perf_counter()
-    roofline = path_roofline(spec["arch"], None, "prefill", b, s, secs)
+    roofline = path_roofline(spec["arch"], spec.get("layers"), "prefill", b,
+                             s, secs)
     steps_s["roofline"] = time.perf_counter() - t0
     return {**shape_out(name, spec, full, shape, cfg, b, reduced),
             "weights_gb_bf16": w_bytes / 1e9, "init_s": init_s,
             "tight_f32": tight, "first_flash_last_sequence": held,
             "prefill_s": secs,
             "tokens": b * s, "tokens_per_s": b * s / secs,
-            "flash_launches": launches[spec["launches"]],
+            "flash_launches": launches[key],
             "max_memory_allocated_gb": peak_gb, "profile": prof,
             "roofline": roofline, "steps_s": steps_s,
             "timer": "prefill_s: host clock between synchronisations of "
@@ -5402,14 +5732,18 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
 
 def phase_shape_decode(torch, dev, name: str) -> dict:
     """SHAPES["decode_32k"] or ["long_500k"] on ``SHAPE_CELLS[name]``'s
-    config at full depth, bf16: before it the float32 card-vs-host step
-    at a cut depth and the full cache length; the cache of ``seq_len``
-    rows at the cell's batch from ``init_cache``, filled by
-    ``fill_cache``; the main path, one ``decode_step`` at pos = seq_len -
-    1 (finite logits; the written slot changed and every other slot is
-    unchanged), then timed steps, a
+    config at full depth (or the cell's ``layers``), bf16: before it the
+    float32 card-vs-host step at a cut depth and the full cache length;
+    the cache of ``seq_len`` rows at the cell's batch from
+    ``init_cache``, filled by ``fill_cache``; the main path, one
+    ``decode_step`` at pos = seq_len - 1 (finite logits; the written slot
+    changed and every other slot is unchanged), then timed steps, a
     profile (device ms, idle share, the copy kernels), the least bytes
-    a step must move, and the roofline of the eager program."""
+    a step must move and the operations it does (an MoE config's experts
+    as this step routed its tokens), and the roofline of the eager
+    program."""
+    from dataclasses import replace
+
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.models.lm import decode_step, init_cache
     spec = SHAPE_CELLS[name]
@@ -5417,7 +5751,7 @@ def phase_shape_decode(torch, dev, name: str) -> dict:
     t_len, b = shape.seq_len, spec["batch"]
     tight = decode_tight_long(torch, dev, spec["arch"], t_len, spec["tight"])
     torch.cuda.empty_cache()
-    cfg = full
+    cfg = replace(full, num_layers=spec.get("layers", full.num_layers))
     params, gen, init_s, w_bytes = bf16_params(torch, dev, cfg, spec["seed"])
     cache = init_cache(cfg, b, t_len, dev)
     t0 = time.perf_counter()
@@ -5444,29 +5778,63 @@ def phase_shape_decode(torch, dev, name: str) -> dict:
                                                  pos), SHAPE_DECODE_STEPS)
     prof = device_profile(
         torch, lambda: decode_step(params, cfg, cache, tok, pos), 3)
+    # one more step at the same pos and token (the same routing; the slot
+    # written again with the same values) records which experts it runs
+    with routing_recorder(torch) as routing:
+        decode_step(params, cfg, cache, tok, pos)
     # the least a step moves: every weight it reads once (the embedding
-    # table is a gather of b rows unless the head reads it whole), the
-    # cache read once (SSM states also written), one slot of keys and
-    # values written
+    # table is a gather of b rows unless the head reads it whole; of an
+    # MoE layer's routed experts those its tokens chose), the cache read
+    # once (SSM states also written), one slot of keys and values written
     embed = params["embed"]
     gathered = 0 if cfg.tie_embeddings \
         else embed.numel() * embed.element_size() * (1 - b / embed.shape[0])
     state = sum(x.numel() * x.element_size()
                 for path, x in _named_leaves(cache) if path.endswith("ssm"))
-    least_bytes = w_bytes - gathered + cache_bytes + state
-    attn = (cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid"
-            else 0 if cfg.family == "ssm" else cfg.num_layers)
-    weights_read = (w_bytes - gathered) / 2         # bf16 elements
-    flops = 2 * weights_read * b \
-        + 4 * b * cfg.num_heads * t_len * cfg.resolved_head_dim * attn
+    unrouted = experts_routed = 0
+    if routing:
+        moe = params["layers"]["moe"]
+        expert_bytes = sum(moe[w][0, 0].numel() * moe[w].element_size()
+                           for w in ("wi", "wg", "wo"))
+        experts_routed = sum(int(torch.unique(c["ids"]).numel())
+                             for c in routing)
+        unrouted = (len(routing) * cfg.num_experts - experts_routed) \
+            * expert_bytes
+    least_bytes = w_bytes - gathered - unrouted + cache_bytes + state
+    weights_read = (w_bytes - gathered - unrouted) / 2      # bf16 elements
+    if cfg.use_mla:
+        # the port expands the latent into each head's keys and values
+        # every step (the absorbed form, which folds wk_b and wv_b into
+        # the query and the output, is not in the JAX package), then
+        # attends: per layer and sequence
+        r, h = cfg.kv_lora_rank, cfg.num_heads
+        dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        attn_flops = cfg.num_layers * b * (
+            2 * t_len * r * h * (dn + dv) + 2 * h * t_len * (dn + dr + dv))
+    else:
+        attn = (cfg.num_layers // cfg.shared_attn_every
+                if cfg.family == "hybrid"
+                else 0 if cfg.family == "ssm" else cfg.num_layers)
+        attn_flops = 4 * b * cfg.num_heads * t_len \
+            * cfg.resolved_head_dim * attn
+    # a routed expert's weights serve only the tokens routed to it: 2
+    # FLOPs an element an assignment, not 2 a token
+    flops = 2 * weights_read * b + attn_flops
+    if routing:
+        per_expert = expert_bytes / 2
+        flops -= 2 * b * experts_routed * per_expert
+        flops += 2 * per_expert * sum(c["ids"].numel() for c in routing)
     bytes_ms = least_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_BF16_TENSOR_FLOPS_PER_S * 1e3
     step_ms = 1e3 * float(np.median(step_s))
     del params, cache, logits
     torch.cuda.empty_cache()
-    reduced = [f"f32 card-vs-host step at {tight['layers']} of "
-               f"{full.num_layers} layers, batch {tight['batch']}, the full "
-               f"{tight['cache_rows']} cache rows"]
+    reduced = [f"layers {full.num_layers} -> {cfg.num_layers}: one card"] \
+        * (cfg.num_layers != full.num_layers)
+    reduced.append(f"f32 card-vs-host step at {tight['layers']} of "
+                   f"{full.num_layers} layers, batch {tight['batch']}, the "
+                   f"full {tight['cache_rows']} cache rows")
     return {**shape_out(name, spec, full, shape, cfg, b, reduced),
             "weights_gb_bf16": w_bytes / 1e9, "init_s": init_s,
             "tight_f32": tight, "cache_gb": cache_bytes / 1e9,
@@ -5478,13 +5846,16 @@ def phase_shape_decode(torch, dev, name: str) -> dict:
             "max_memory_allocated_gb": peak_gb,
             "step_transient_gb": peak_gb - base_gb, "profile": prof,
             "least_bytes": least_bytes, "least_flops": flops,
+            **({"experts_routed_by_layer": [int(torch.unique(c["ids"])
+                                                .numel()) for c in routing],
+                "experts": cfg.num_experts} if routing else {}),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "device_share_of_bound": max(bytes_ms, ops_ms)
             / prof["device_ms_per_call"] if prof["device_ms_per_call"]
             else None,
-            "roofline": path_roofline(spec["arch"], None, "decode", b,
-                                      t_len, step_ms / 1e3),
+            "roofline": path_roofline(spec["arch"], spec.get("layers"),
+                                      "decode", b, t_len, step_ms / 1e3),
             "timer": "step_ms: host clock between synchronisations, the "
             "median of SHAPE_DECODE_STEPS steps at the same pos; profile: "
             "3 more under torch.profiler", "ok": True}
@@ -5495,7 +5866,10 @@ def phase_shape_train(torch, dev, name: str, pending: dict) -> dict:
     (f32 params, grads and AdamW moments, bf16 compute, per-layer remat,
     dense attention): before it the float32 card-vs-host step at 1 layer
     and the full length; then ``train_full_depth``'s steps at 1 x 4096
-    (the loss falls) and one more step profiled."""
+    (the loss falls) and one more step profiled; at ``layers`` where the
+    cell gives them."""
+    from dataclasses import replace
+
     spec = SHAPE_CELLS[name]
     full, shape = shape_config(spec)
     tr = spec["train"]
@@ -5503,13 +5877,17 @@ def phase_shape_train(torch, dev, name: str, pending: dict) -> dict:
     tight = lm_train_tight(torch, dev, spec["arch"], spec["tight"],
                            pending.get(name))
     torch.cuda.empty_cache()
+    layers = spec.get("layers")
     train = train_full_depth(torch, dev, spec["arch"], tr, seed=spec["seed"],
-                             profile=True)
-    reduced = [f"f32 card-vs-host step at {tight['layers']} of "
-               f"{full.num_layers} layers, {tight['tokens']} tokens"]
-    return {**shape_out(name, spec, full, shape, full, tr["batch"], reduced),
+                             layers=layers, profile=True)
+    reduced = [f"layers {full.num_layers} -> {layers}: one card's 80 GB "
+               f"(16 B of float32 state a parameter)"] * bool(layers)
+    reduced.append(f"f32 card-vs-host step at {tight['layers']} of "
+                   f"{full.num_layers} layers, {tight['tokens']} tokens")
+    cfg = replace(full, num_layers=layers or full.num_layers)
+    return {**shape_out(name, spec, full, shape, cfg, tr["batch"], reduced),
             "tight_f32": tight, **train,
-            "roofline": path_roofline(spec["arch"], None, "train",
+            "roofline": path_roofline(spec["arch"], layers, "train",
                                       tr["batch"], tr["tokens"],
                                       train["ms_per_step"] / 1e3),
             "ok": True}

@@ -30,6 +30,12 @@
 //   is the producer: it gives up registers (setmaxnreg 40) and one thread
 //   issues the TMA loads. Warpgroups 1 and 2 are consumers (setmaxnreg
 //   232), each owning 64 query rows.
+// * The grid's x walks the query tiles, the last (with the most keys
+//   under a causal mask) first, and y the (b, h) pairs, so the blocks on
+//   the card at once share one head's K and V through the L2. With (b, h)
+//   on x they would each belong to another pair of an MHA batch and
+//   stream their own K and V from HBM (half the rate a sequence at
+//   HuBERT-XLarge's 8 x 32 768).
 // * TMA: q (B,S,H,hd) and k, v (B,T,KV,hd) are described in place as 4-D
 //   tensor maps with their real strides (16-byte aligned, checked by the
 //   wrapper); a tile lands in shared memory with the 128-byte swizzle, one
@@ -410,9 +416,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* sk = sq + Tl::kQBytes;                  // kStages K tiles
   uint8_t* sv = sk + kStages * Tl::kKVBytes;       // kStages V tiles
 
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
-  const int q0 = static_cast<int>(gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const int q0 = static_cast<int>(gridDim.x - 1 - blockIdx.x) * kBQ;
   const int q_last = min(q0 + kBQ, s_len) - 1;
   const int k_end = causal ? min(q_last + 1, t_len) : t_len;
   const int n_tiles = (k_end + BK - 1) / BK;
@@ -633,8 +639,8 @@ int launch(EncodeTiled fn, const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(batch * heads),
-                  static_cast<unsigned>((s_len + kBQ - 1) / kBQ));
+  const dim3 grid(static_cast<unsigned>((s_len + kBQ - 1) / kBQ),
+                  static_cast<unsigned>(batch * heads));
   kernel<<<grid, kThreads, bytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<T*>(out),
       static_cast<int>(s_len), static_cast<int>(t_len),
@@ -654,8 +660,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
       kv_heads <= 0 || heads % kv_heads != 0 || s_len > 0x7fffffffLL ||
       t_len > 0x7fffffffLL || hd <= 0 || hd > kMaxHeadDim || hd % 8 != 0)
     return cudaErrorInvalidValue;
-  if (batch * heads > 0x7fffffffLL || (s_len + kBQ - 1) / kBQ > 65535)
-    return cudaErrorInvalidValue;
+  if (batch * heads > 65535) return cudaErrorInvalidValue;  // gridDim.y
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kNoEncoder;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -683,7 +688,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 // contiguous last dim and the given element strides, each a multiple of 8
 // (strides[0..2] = q's b, s, h; [3..5] = k's b, t, kv; [6..8] = v's); out
 // (B,S,H,hd) contiguous, of the same type. hd a multiple of 8 up to 192;
-// H % KV == 0; 1 <= S, T < 2^31. scale_log2 = log2(e) / sqrt(hd).
+// H % KV == 0; B·H <= 65535; 1 <= S, T < 2^31. scale_log2 = log2(e) /
+// sqrt(hd).
 // Returns the cudaError_t of the launch (0 = launched), 1000 when the
 // driver has no cuTensorMapEncodeTiled, or 2000 + the CUresult when a
 // tensor map is refused.

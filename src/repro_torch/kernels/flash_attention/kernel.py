@@ -108,9 +108,13 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"be at most {MAX_HEAD_DIM}"
                          + (f" and a multiple of {multiple} for {q.dtype}"
                             if multiple > 1 else ""))
-    if q.shape[1] > 65535 * rows:       # gridDim.y x query rows per block
+    if multiple == 1 and q.shape[1] > 65535 * rows:
+        # gridDim.y x query rows per block
         raise ValueError(f"flash_attention: S = {q.shape[1]} exceeds "
                          f"{65535 * rows}")
+    if multiple > 1 and q.shape[0] * q.shape[2] > 65535:    # gridDim.y
+        raise ValueError(f"flash_attention: B·H = {q.shape[0] * q.shape[2]}"
+                         f" exceeds 65535 for {q.dtype}")
     if multiple > 1:                    # the TMA kernel
         size = q.element_size()
         for name, x in (("q", q), ("k", k), ("v", v)):

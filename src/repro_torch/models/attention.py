@@ -7,7 +7,9 @@ of tensors. ``attention_impl="stub"`` is the roofline probe's byte model
 of the fused kernel (``launch/roofline.py``). Differences, all
 deliberate: no tensor-parallel pins (the identity outside a mesh);
 ``gqa_decode`` and ``mla_decode`` write the new token's entries into
-the cache in place.
+the cache in place; above ``SCORE_BLOCK_BYTES`` of float32 scores MLA
+attends in blocks of query rows (the same function; decode never
+blocks).
 """
 from __future__ import annotations
 
@@ -19,6 +21,11 @@ from ..configs.base import ArchConfig
 from .layers import apply_rope, dense_init, head_rms_norm, rms_norm
 
 NEG_INF = -1e30
+
+# float32 scores (B, H, S, T) that MLA attention holds at once; above it
+# the query rows run in blocks, on every device (DeepSeek-V2 at 32 768
+# tokens would hold 550 GB a sequence)
+SCORE_BLOCK_BYTES = 1 << 30
 
 
 def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
@@ -170,49 +177,109 @@ def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
             "wo": w(h * dv, d)}
 
 
-def _mla_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
-             positions: torch.Tensor):
+def _mla_q(p: dict, cfg: ArchConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """The queries' no-RoPE and RoPE parts (B, S, H, dn) / (B, S, H, dr)."""
     b, s, _ = x.shape
-    h, r = cfg.num_heads, cfg.kv_lora_rank
-    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dn = cfg.qk_nope_head_dim
     q = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps) @ p["wq_b"]
-    q = q.reshape(b, s, h, dn + dr)
-    q_nope = q[..., :dn]
-    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    q = q.reshape(b, s, cfg.num_heads, dn + cfg.qk_rope_head_dim)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_kv(p: dict, cfg: ArchConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    """What the cache stores: the latent (B, S, r) and the RoPE key
+    (B, S, 1, dr)."""
+    r = cfg.kv_lora_rank
     kv = x @ p["wkv_a"]                                   # (B,S,r+dr)
     latent = rms_norm(kv[..., :r], p["kv_a_norm"], cfg.norm_eps)
     k_rope = apply_rope(kv[..., r:][:, :, None, :], positions,
                         cfg.rope_theta)                   # (B,S,1,dr)
-    return q_nope, q_rope, latent, k_rope
+    return latent, k_rope
+
+
+def _mla_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    return (*_mla_q(p, cfg, x, positions), *_mla_kv(p, cfg, x, positions))
 
 
 def _mla_attend(p: dict, cfg: ArchConfig, q_nope, q_rope, latent, k_rope,
-                mask: torch.Tensor | None) -> torch.Tensor:
+                causal: bool, offset: int = 0) -> torch.Tensor:
     """Dense attention over the latent: the keys' no-RoPE part and the
     values are expanded from it per head. The two score products are
     summed in the inputs' dtype and widened to float32 after, as in the
-    reference."""
+    reference. ``causal``: query i attends keys <= i + ``offset``. Above
+    ``SCORE_BLOCK_BYTES`` of float32 scores the query rows run in blocks
+    (``mla_attend_rows``)."""
     b, s, h, dn = q_nope.shape
     t = latent.shape[1]
     dv = cfg.v_head_dim
     k_nope = (latent @ p["wk_b"]).reshape(b, t, h, dn)
     v = (latent @ p["wv_b"]).reshape(b, t, h, dv)
+    rows = score_block_rows(b, h, t)
+    if s > rows:
+        out = mla_attend_rows(cfg, q_nope, q_rope, k_nope, k_rope, v,
+                              causal, offset, rows)
+        return out.reshape(b, s, h * dv) @ p["wo"]
     scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
               + torch.einsum("bshd,btxd->bhst", q_rope, k_rope)).float()
     scores = scores / math.sqrt(dn + cfg.qk_rope_head_dim)
-    if mask is not None:
-        scores = scores + mask
+    if causal:
+        scores = scores + causal_mask(s, t, offset=offset,
+                                      device=q_nope.device)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bthd->bshd", w, v)
     return out.reshape(b, s, h * dv) @ p["wo"]
 
 
+def score_block_rows(b: int, h: int, t: int) -> int:
+    """Query rows whose (B, H, rows, T) float32 scores fit in
+    ``SCORE_BLOCK_BYTES`` (at least one)."""
+    return max(1, SCORE_BLOCK_BYTES // (4 * b * h * t))
+
+
+def mla_attend_rows(cfg: ArchConfig, q_nope, q_rope, k_nope, k_rope, v,
+                    causal: bool, offset: int, rows: int) -> torch.Tensor:
+    """``_mla_attend``'s attention ``rows`` query rows at a time: every
+    row's softmax stands alone, so this is the same function with at most
+    (B, H, rows, T) float32 scores held at once. q_nope / q_rope (B, S,
+    H, d), k_nope / v (B, T, H, d) expanded from the latent, k_rope (B,
+    T, 1, dr); query i attends keys <= i + ``offset`` when ``causal``.
+    The keys and values are laid out (B, H, T, d) once a call; each
+    block's causal mask is built for its rows alone, and the keys past
+    its last row, masked for every row in it, are left out. Returns (B,
+    S, H, dv) in v's dtype."""
+    b, s, h, dn = q_nope.shape
+    t = k_nope.shape[1]
+    scale = math.sqrt(dn + cfg.qk_rope_head_dim)
+    k_t = k_nope.permute(0, 2, 3, 1).contiguous()        # (B,H,dn,T)
+    v_h = v.permute(0, 2, 1, 3).contiguous()             # (B,H,T,dv)
+    kr_t = k_rope[:, :, 0].transpose(1, 2)               # (B,dr,T)
+    out = torch.empty((b, s, h, v_h.shape[-1]), dtype=v_h.dtype,
+                      device=v_h.device)
+    for i in range(0, s, rows):
+        j = min(s, i + rows)
+        last = min(t, offset + j) if causal else t
+        qn = q_nope[:, i:j].transpose(1, 2)              # (B,H,R,dn)
+        qr = q_rope[:, i:j].reshape(b, (j - i) * h, -1)  # (B,R·H,dr)
+        rope = (qr @ kr_t[..., :last]).view(b, j - i, h, last)
+        scores = (qn @ k_t[..., :last] + rope.transpose(1, 2)).float()
+        del rope
+        scores.div_(scale)
+        if causal:
+            scores.add_(causal_mask(j - i, last, offset=offset + i,
+                                    device=scores.device))
+        w = torch.softmax(scores, dim=-1).to(v_h.dtype)
+        del scores
+        out[:, i:j] = (w @ v_h[:, :, :last]).transpose(1, 2)
+    return out
+
+
 def mla_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
     q_nope, q_rope, latent, k_rope = _mla_qkv(p, cfg, x, positions)
-    s = x.shape[1]
-    mask = causal_mask(s, s, device=x.device) if causal else None
-    return _mla_attend(p, cfg, q_nope, q_rope, latent, k_rope, mask)
+    return _mla_attend(p, cfg, q_nope, q_rope, latent, k_rope, causal)
 
 
 def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -239,7 +306,6 @@ def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     latent, k_rope = cache["latent"], cache["k_rope"]
     latent[:, pos] = latent_new[:, 0].to(latent.dtype)
     k_rope[:, pos] = k_rope_new[:, 0].to(k_rope.dtype)
-    t = latent.shape[1]
-    mask = causal_mask(1, t, offset=pos, device=x.device)  # (1,1,1,T)
-    y = _mla_attend(p, cfg, q_nope, q_rope, latent, k_rope, mask)
+    y = _mla_attend(p, cfg, q_nope, q_rope, latent, k_rope, True,
+                    offset=pos)
     return y, cache

@@ -872,9 +872,11 @@ def test_flash_bf16_kernel_rejects_misaligned_inputs(cuda, what):
 
 # what the card still refuses: a head dim above 192 (no instance), a
 # bf16 / f16 head dim that is not a multiple of 8 (TMA's 16-byte strides),
-# float64 (no kernel), and H not a multiple of KV
+# float64 (no kernel), H not a multiple of KV, and more than 65 535 (b, h)
+# pairs in the tensor-core kernel (its grid's y)
 @pytest.mark.parametrize("what", ["head_dim_256", "head_dim_bf16_36",
-                                  "head_dim_f16_20", "float64", "groups"])
+                                  "head_dim_f16_20", "float64", "groups",
+                                  "bf16_batch_heads"])
 def test_flash_kernel_rejects_unsupported_inputs_on_cuda(cuda, what):
     from repro_torch.kernels.flash_attention import kernel as fa
     shapes = {"head_dim_256": ((1, 8, 4, 256), (1, 8, 2, 256),
@@ -884,7 +886,9 @@ def test_flash_kernel_rejects_unsupported_inputs_on_cuda(cuda, what):
               "head_dim_f16_20": ((1, 8, 4, 20), (1, 8, 2, 20),
                                   torch.float16),
               "float64": ((1, 8, 4, 32), (1, 8, 2, 32), torch.float64),
-              "groups": ((1, 8, 3, 32), (1, 8, 2, 32), torch.float32)}
+              "groups": ((1, 8, 3, 32), (1, 8, 2, 32), torch.float32),
+              "bf16_batch_heads": ((16385, 1, 4, 8), (16385, 1, 4, 8),
+                                   torch.bfloat16)}
     qs, kvs, dtype = shapes[what]
     q = torch.zeros(qs, dtype=dtype, device=cuda)
     kv = torch.zeros(kvs, dtype=dtype, device=cuda)
@@ -1524,25 +1528,30 @@ def test_zamba2_flash_prefill_on_card_matches_dense(cuda, no_tf32):
 
 # -- the long-context shapes (slice 17) ----------------------------------------
 
-@pytest.mark.parametrize("b,h,kv", [(1, 32, 8), (8, 32, 8), (1, 32, 32),
-                                    (4, 32, 32)])
-def test_flash_kernel_at_32768_tokens_matches_plain_rows(cuda, b, h, kv):
-    """bf16 flash at prefill_32k's length, causal (Qwen3-4B's GQA 32 / 8
-    and Zamba2-1.2B's shared MHA 32 / 32, hd 128), at batch 1 and at the
-    batch each prefill_32k path runs (8, 4): one launch of the kernel,
-    its last sequence held against the plain version on 512 query rows
-    at the start, the middle and the end (all keys, the mask at the
-    rows' absolute positions: ``attention_rows_ref``) within the bf16
-    bound of ``_half_bound_ratio`` — the dense plain version would hold
-    137 GB of scores a sequence."""
+@pytest.mark.parametrize("b,h,kv,hd,causal", [
+    (1, 32, 8, 128, True), (8, 32, 8, 128, True), (1, 32, 32, 128, True),
+    (4, 32, 32, 128, True), (1, 16, 16, 128, True), (8, 16, 16, 128, True),
+    (1, 16, 16, 80, False), (8, 16, 16, 80, False)])
+def test_flash_kernel_at_32768_tokens_matches_plain_rows(cuda, b, h, kv, hd,
+                                                         causal):
+    """bf16 flash at prefill_32k's length (Qwen3-4B's GQA 32 / 8,
+    Zamba2-1.2B's shared MHA 32 / 32 and OLMoE-1B-7B's MHA 16 / 16, hd
+    128, causal; HuBERT-XLarge's 16 / 16 at hd 80 in its own instance,
+    non-causal), at batch 1 and at the batch each prefill_32k path runs
+    (8, 4): one launch of the kernel, its last sequence held against the
+    plain version on 512 query rows at the start, the middle and the end
+    (all keys, the mask at the rows' absolute positions:
+    ``attention_rows_ref``) within the bf16 bound of
+    ``_half_bound_ratio`` — the dense plain version would hold up to 137
+    GB of scores a sequence."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
-    s, hd, r = 32768, 128, 512
-    gen = torch.Generator(device=cuda).manual_seed(b + h + kv)
+    s, r = 32768, 512
+    gen = torch.Generator(device=cuda).manual_seed(b + h + kv + hd)
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda).bfloat16()
     k = torch.randn((b, s, kv, hd), generator=gen, device=cuda).bfloat16()
     v = torch.randn((b, s, kv, hd), generator=gen, device=cuda).bfloat16()
     before = fa.LAUNCHES["flash_attention"]
-    got = fa.flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
     assert got.shape == q.shape and bool(torch.isfinite(got).all())
@@ -1550,13 +1559,44 @@ def test_flash_kernel_at_32768_tokens_matches_plain_rows(cuda, b, h, kv):
     for r0 in (0, (s - r) // 2, s - r):
         rows = slice(r0, r0 + r)
         qf, kf, vf = q[:, rows].float(), k.float(), v.float()
-        want = fa_ref.attention_rows_ref(qf, kf, vf, r0)
-        mass = fa_ref.attention_rows_ref(qf, kf, vf.abs(), r0)
+        want = fa_ref.attention_rows_ref(qf, kf, vf, r0, causal=causal)
+        mass = fa_ref.attention_rows_ref(qf, kf, vf.abs(), r0,
+                                         causal=causal)
         g = got[:, rows].float()
         mag = torch.maximum(g.abs(), want.abs()).clamp_min(2.0 ** -126)
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
         bound = ulp + 2.0 ** -8 * mass + 2e-5
         assert float(((g - want).abs() / bound).max()) <= 1.0, r0
+
+
+def test_flash_kernel_batch_of_mha_sequences_keeps_its_rate(cuda):
+    """HuBERT-XLarge's flash at 32 768 frames (MHA 16 / 16, hd 80,
+    non-causal): a launch over a batch of 8 takes under 1.5 times 8
+    launches of one sequence. The blocks on the card at once must share
+    a head's K and V through the L2 (the grid walks the query tiles on
+    x); with the (b, h) pairs on x each streamed its own K and V from HBM
+    and the batch took twice as long a sequence."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    s, h, hd = 32768, 16, 80
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def ms(b):
+        q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=cuda)
+                   .bfloat16() for _ in range(3))
+        fa.flash_attention(q, k, v, causal=False)
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fa.flash_attention(q, k, v, causal=False)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[1]
+
+    one, eight = ms(1), ms(8)
+    assert eight < 1.5 * 8 * one, (one, eight)
 
 
 def test_decode_step_over_a_32768_row_cache_matches_the_f32_path(cuda,
@@ -1602,3 +1642,38 @@ def test_decode_step_over_a_32768_row_cache_matches_the_f32_path(cuda,
     assert got16.dtype == torch.float32 and bool(torch.isfinite(got16).all())
     assert rel(got16, got) <= 5e-2
     assert torch.equal(cache16["layers"]["k"][:, :, :pos], untouched)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_mla_row_blocks_on_card_equal_the_whole_path(cuda, no_tf32, dtype,
+                                                     tol, causal):
+    """DeepSeek-V2's MLA at its published width (128 heads, r 512), one
+    layer over 2 x 2048 tokens, whose (B, 128, S, S) float32 scores (4.3
+    GB) the card holds whole: with the score budget set to 200 query rows
+    it runs in blocks (the last one short), and the blocked output agrees
+    with the whole path's within ``tol`` of its largest value (the
+    tolerances of ``tests/test_torch_mla.py``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(get_config("deepseek_v2_236b"), num_layers=1)
+    td = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    p = attention.mla_init(gen, cfg, td, cuda)
+    b, s = 2, 2048
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=cuda).to(td)
+    pos = torch.arange(s, device=cuda)[None].expand(b, s)
+    whole = attention.mla_apply(p, cfg, x, pos, causal=causal)
+    budget = attention.SCORE_BLOCK_BYTES
+    try:
+        attention.SCORE_BLOCK_BYTES = 4 * b * cfg.num_heads * s * 200
+        assert attention.score_block_rows(b, cfg.num_heads, s) == 200
+        got = attention.mla_apply(p, cfg, x, pos, causal=causal)
+    finally:
+        attention.SCORE_BLOCK_BYTES = budget
+    torch.cuda.synchronize()
+    assert got.dtype == td and bool(torch.isfinite(got).all())
+    err = float((got.float() - whole.float()).abs().max()
+                / whole.float().abs().max())
+    assert err <= tol, err

@@ -87,6 +87,13 @@ def _leaf(tree, path):
     return tree
 
 
+def _cache_leaves(cfg):
+    """Leaves of a cache tree: keys and values (or MLA's latent and RoPE
+    key) a layer group, the hybrid's SSM states and conv windows too;
+    DeepSeek-V2's dense first layers are a group of their own."""
+    return 6 if cfg.family == "hybrid" else 4 if cfg.first_k_dense else 2
+
+
 def _filled_caches(cfg_j, cfg_t, b, t, seed):
     """The JAX package's and the port's caches of ``t`` rows, every leaf
     the same seeded normal draws (rounded once to the leaf's dtype)."""
@@ -105,7 +112,8 @@ def _filled_caches(cfg_j, cfg_t, b, t, seed):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("where", ["last", "middle"])
-@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b"])
+@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b", "olmoe_1b_7b",
+                                  "deepseek_v2_236b"])
 def test_decode_step_over_a_filled_cache_matches_jax(arch, where, dtype):
     """One step at pos = T - 1 (every row attended) or T / 2 (the rows
     after it masked) over a cache of 1024 rows of seeded draws: the
@@ -125,23 +133,37 @@ def test_decode_step_over_a_filled_cache_matches_jax(arch, where, dtype):
     assert returned is cache_t and logits_t.dtype == torch.float32
     _close(logits_t, logits_j, TOL[dtype])
     flat = jax.tree_util.tree_flatten_with_path(cache_j)[0]
-    assert len(flat) == (6 if cfg_t.family == "hybrid" else 2)
+    assert len(flat) == _cache_leaves(cfg_t)
     for path, leaf in flat:
         _close(_leaf(cache_t, path), leaf, TOL[dtype])
 
 
-@pytest.mark.parametrize("t", [32768, 524288])
-@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b"])
+# (arch, the shapes' lengths it decodes at): the MoE and MLA configs
+# decode at decode_32k only (long_500k needs an SSM or the hybrid)
+LAST_POSITION = [("qwen3_4b", 32768), ("qwen3_4b", 524288),
+                 ("zamba2_1_2b", 32768), ("zamba2_1_2b", 524288),
+                 ("olmoe_1b_7b", 32768), ("deepseek_v2_236b", 32768)]
+# the smoke configs at the published RoPE head dim (MLA's RoPE part,
+# 64, is DeepSeek-V2's qk_rope_head_dim) and the depth of one attention
+# layer: the dense and MoE configs 1 layer, the hybrid one shared
+# application, DeepSeek-V2 its dense first layer and one MoE layer
+LAST_POSITION_CFG = {
+    "qwen3_4b": dict(head_dim=128, num_kv_heads=1, num_layers=1),
+    "zamba2_1_2b": dict(head_dim=128, num_kv_heads=1, num_layers=2),
+    "olmoe_1b_7b": dict(head_dim=128, num_kv_heads=1, num_layers=1),
+    "deepseek_v2_236b": dict(qk_rope_head_dim=64, num_layers=2)}
+
+
+@pytest.mark.parametrize("arch,t", LAST_POSITION)
 def test_decode_step_at_the_shapes_last_position_matches_jax(arch, t):
     """One float32 step at pos = T - 1 over a filled cache of T rows, the
     length of decode_32k or long_500k, at smoke width but the published
-    head dim (128) and RoPE theta: at position p an ulp of a frequency
-    turns its angle by about p ulps, so the keys written there show
-    whether the port's frequencies are the reference's. One layer (the
-    dense config) or one shared application (the hybrid), one KV head,
-    to keep the cache small."""
-    cfg_j, cfg_t = _cfgs(arch, head_dim=128, num_kv_heads=1,
-                         num_layers=1 if arch == "qwen3_4b" else 2)
+    RoPE head dim (128; MLA's 64) and theta: at position p an ulp of a
+    frequency turns its angle by about p ulps, so the keys written there
+    show whether the port's frequencies are the reference's. One
+    attention layer (``LAST_POSITION_CFG``), one KV head where the
+    config has them, to keep the cache small."""
+    cfg_j, cfg_t = _cfgs(arch, **LAST_POSITION_CFG[arch])
     params, ours = _params(cfg_j, seed=5)
     pos = t - 1
     cache_j, cache_t = _filled_caches(cfg_j, cfg_t, 1, t, seed=7)
@@ -153,7 +175,7 @@ def test_decode_step_at_the_shapes_last_position_matches_jax(arch, t):
                                  pos)
     _close(logits_t, logits_j, TOL["float32"])
     flat = jax.tree_util.tree_flatten_with_path(cache_j)[0]
-    assert len(flat) == (6 if cfg_t.family == "hybrid" else 2)
+    assert len(flat) == _cache_leaves(cfg_t)
     for path, leaf in flat:
         _close(_leaf(cache_t, path), leaf, TOL["float32"])
 
@@ -236,7 +258,7 @@ def _rel2(got, want):
                  / max(np.linalg.norm(want), 1e-30))
 
 
-@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b"])
+@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b", "olmoe_1b_7b"])
 def test_train_step_at_1024_tokens_matches_jax(arch):
     """One float32 train step on one sequence of 1024 tokens: the loss,
     the gradient norm and the learning rate within 1e-4, every param
@@ -273,13 +295,15 @@ def chip_smoke():
         sys.path.remove(str(ROOT))
 
 
-@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b"])
+@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b",
+                                  "deepseek_v2_236b"])
 def test_card_cache_check_passes_a_step_and_catches_a_stray_write(
         chip_smoke, arch):
     """The decode phases' check, run here on CPU tensors: after one
     ``decode_step`` over a cache filled by ``fill_cache``, slot pos no
-    longer holds its draw and every other slot does; a write to another
-    slot, or slot pos left holding its draw, fails it."""
+    longer holds its draw and every other slot does (keys and values, or
+    MLA's latent and RoPE key); a write to another slot, or slot pos left
+    holding its draw, fails it."""
     cfg = get_smoke_config(arch).reduced(compute_dtype="bfloat16")
     cpu = torch.device("cpu")
     params = lm.init_params(cfg, torch.Generator().manual_seed(1), cpu)
@@ -302,11 +326,12 @@ def test_card_cache_check_passes_a_step_and_catches_a_stray_write(
     out = chip_smoke.kv_slots_check(torch, stepped(), 3, cpu, pos)
     assert out["kv_leaves_checked"] == 2 * layers
     key = "shared" if cfg.family == "hybrid" else "layers"
+    k, v = ("latent", "k_rope") if cfg.use_mla else ("k", "v")
     stray = stepped()
-    stray[key]["v"][0][:, 5] += 1.0
+    stray[key][v][0][:, 5] += 1.0
     with pytest.raises(chip_smoke.SmokeFailure, match="other than"):
         chip_smoke.kv_slots_check(torch, stray, 3, cpu, pos)
     stale = stepped()
-    stale[key]["k"][0][:, pos] = filled()[key]["k"][0][:, pos]
+    stale[key][k][0][:, pos] = filled()[key][k][0][:, pos]
     with pytest.raises(chip_smoke.SmokeFailure, match="not written"):
         chip_smoke.kv_slots_check(torch, stale, 3, cpu, pos)

@@ -15,9 +15,13 @@ they fit twice in the L2. ``--kernels`` picks among (default: all):
   above the fused closure's cap (q = 239, 448) and at q = 1024, 90 %
   +inf, each result held bit for bit against the other tree's (-0.0
   read as +0.0);
-* ``flash``: flash attention at Qwen3-4B's prefill shape, bf16, causal,
-  held within the bf16 bound of ``chip_smoke.half_bound_ratio`` of the
-  plain version;
+* ``flash``: flash attention, bf16, at FLASH_SHAPES: Qwen3-4B's
+  prefill (2 x 4096, causal), and the ``prefill_32k`` paths at their
+  own batch (Qwen3-4B's GQA and OLMoE-1B-7B's MHA, causal, hd 128;
+  HuBERT-XLarge's MHA at hd 80, non-causal, also at batch 1), held
+  within the bf16 bound of ``chip_smoke.half_bound_ratio`` of the plain
+  version (at 32 768 tokens on the last sequence's row slices,
+  ``chip_smoke.flash_slices_check``);
 * ``sharded_join``: the sharded serving join of one batch over E = 8
   logical shards, B replicated and row-sharded, float32 and uint16, at
   n = 4096 (4096 lanes, blocks of 512 rows at W = 256, q = 93) and at
@@ -46,7 +50,10 @@ FLASH = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bf16.cu"
 JOIN = "src/repro_torch/kernels/label_join/csrc/label_join.cu"
 SOURCES = {"minplus": MINPLUS, "flash": FLASH, "sharded_join": JOIN}
 SQUARINGS = (239, 448, 1024)
-FLASH_SHAPE = (2, 4096, 32, 8, 128)     # B, S (= T), H, KV, hd; causal
+# B, S (= T), H, KV, hd, causal
+FLASH_SHAPES = ((2, 4096, 32, 8, 128, True), (8, 32768, 32, 8, 128, True),
+                (8, 32768, 16, 16, 128, True), (8, 32768, 16, 16, 80, False),
+                (1, 32768, 16, 16, 80, False))
 # (name, lanes, block rows, W, n, q, share of rule-3 lanes): the sharded
 # engine's E = 8 layout at n = 4096 (2 districts of kmax 256 a shard)
 # and the center's rule-3 batch over n = 102 400 (one +inf block row)
@@ -86,7 +93,7 @@ def minplus_call(torch, lib):
     return call
 
 
-def flash_call(torch, lib):
+def flash_call(torch, lib, causal: bool):
     def call(q, k, v):
         b, s, h, hd = q.shape
         out = torch.empty_like(q)
@@ -95,7 +102,7 @@ def flash_call(torch, lib):
         err = lib.repro_flash_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             k.shape[1], h, k.shape[2], hd, strides,
-            math.log2(math.e) / math.sqrt(hd), 1,
+            math.log2(math.e) / math.sqrt(hd), int(causal),
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"repro_flash_attention_bf16: error {err}")
@@ -224,20 +231,26 @@ def in_turns(torch, cs, calls: dict, inputs: list, n: int, r: int) -> dict:
     return out
 
 
-def flash_row(torch, cs, dev, libs) -> dict:
-    b, s, h, kv, hd = FLASH_SHAPE
+def flash_row(torch, cs, dev, libs, shape) -> dict:
+    b, s, h, kv, hd, causal = shape
     qkv = cs.flash_inputs(torch, dev, b, s, s, h, kv, hd, "bfloat16", 7)
-    calls = {side: flash_call(torch, libs[(side, "flash")])
+    calls = {side: flash_call(torch, libs[(side, "flash")], causal)
              for side in ("this", "other")}
-    ratios = {side: cs.half_bound_ratio(calls[side](*qkv), *qkv, True)
-              for side in calls}
+
+    def ratio(got):
+        if s <= 4096:
+            return cs.half_bound_ratio(got, *qkv, causal)
+        return cs.flash_slices_check(torch, got[-1:], *(
+            x[-1:] for x in qkv), causal)["bound_ratio"]
+
+    ratios = {side: ratio(calls[side](*qkv)) for side in calls}
     inputs, from_hbm = cs.cold_inputs(qkv, sum(
         x.numel() * x.element_size() for x in qkv))
     ms = in_turns(torch, cs, calls, inputs, 4, 3)
     if max(ratios.values()) > 1.0:
         raise SystemExit(f"kernel_ab: flash beyond its bound: {ratios}")
-    return {"kernel": "flash_attention_bf16", "shape": list(FLASH_SHAPE),
-            "causal": True, "bound_ratio": ratios,
+    return {"kernel": "flash_attention_bf16", "shape": [b, s, h, kv, hd],
+            "causal": causal, "bound_ratio": ratios,
             "inputs_from_hbm": from_hbm, "ms": ms}
 
 
@@ -286,8 +299,9 @@ def main() -> int:
                      "inputs_from_hbm": from_hbm, "ms": ms})
         if not same:
             raise SystemExit(f"kernel_ab: minplus at q = {q} differs")
-    if "flash" in picked:
-        rows.append(flash_row(torch, cs, dev, libs))
+    for shape in FLASH_SHAPES if "flash" in picked else ():
+        rows.append(flash_row(torch, cs, dev, libs, shape))
+        torch.cuda.empty_cache()
     if "sharded_join" in picked:
         rows += sharded_join_rows(torch, cs, dev,
                                   libs[("other", "sharded_join")])
