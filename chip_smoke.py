@@ -156,6 +156,7 @@ of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib.util
 import json
@@ -3319,9 +3320,11 @@ def device_profile(torch, fn, calls: int) -> dict:
     (profiler on, so it is inflated), the device's idle share, the top 5
     kernels, and the device time of the copy kernels (``copy`` in the
     kernel's name: the eager program's layout copies and casts). Only
-    the card's activity is recorded: the host's aten ops are tens of
-    thousands of events a prefill, and ``key_averages`` takes seconds a
-    hundred thousand."""
+    the card's activity is recorded, and it is read from the profiler's
+    raw events (``kineto_results``): the host's aten ops are tens of
+    thousands of events a prefill, and turning tens of thousands of
+    kernels into ``key_averages``' event tree took 0.2–0.3 ms a kernel
+    (``parse_s``: the seconds this reading took)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3332,25 +3335,30 @@ def device_profile(torch, fn, calls: int) -> dict:
             fn()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     # a record_function range (the MoE and Mamba2 stages) can also show
     # on the device timeline as a span around its kernels: not a kernel
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.key not in MOE_STAGES + MAMBA2_STAGES]
-    device_us = sum(e.self_device_time_total for e in kernels)
+    ranges = MOE_STAGES + MAMBA2_STAGES
+    count, device_ns = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA \
+                and not e.is_user_annotation() and e.name() not in ranges:
+            count[e.name()] += 1
+            device_ns[e.name()] += e.duration_ns()
+    parse_s = time.perf_counter() - t0
+    device_us = sum(device_ns.values()) / 1e3
     check(device_us > 0, "torch.profiler recorded no device time")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    copy_us = sum(e.self_device_time_total for e in kernels
-                  if "copy" in e.key.lower())
-    return {"calls": calls, "kernels_per_call":
-            sum(e.count for e in kernels) / calls,
+    copy_us = sum(ns for name, ns in device_ns.items()
+                  if "copy" in name.lower()) / 1e3
+    return {"calls": calls, "kernels_per_call": sum(count.values()) / calls,
             "device_ms_per_call": device_us / 1e3 / calls,
             "host_ms_per_call_profiled": host_s * 1e3 / calls,
             "device_idle_share": 1 - device_us / 1e6 / host_s,
             "copy_kernels_ms_per_call": copy_us / 1e3 / calls,
             "top_kernels_ms_per_call": {
-                e.key[:60]: e.self_device_time_total / 1e3 / calls
-                for e in top}}
+                name[:60]: ns / 1e6 / calls
+                for name, ns in device_ns.most_common(5)},
+            "parse_s": parse_s}
 
 
 def profile_decode(torch, params, cfg, dev, steps: int = 3) -> dict:
@@ -3425,9 +3433,10 @@ FLASH_TIMED = [("flash_b2_s4096", (2, 4096, 32, 8, 128), True, "bfloat16"),
                ("flash_nemotron_b1_s2048", (1, 2048, 96, 8, 192), True,
                 "bfloat16")]
 # the 32 768-token prefills of SHAPES["prefill_32k"] (Qwen3-4B's GQA
-# 32 / 8, Zamba2-1.2B's shared MHA 32 / 32, OLMoE-1B-7B's MHA 16 / 16 and
-# HuBERT-XLarge's non-causal hd 80): the dense plain version would hold
-# (B, H, S, S) float32 scores, up to 137 GB, so these rows hold the
+# 32 / 8, Zamba2-1.2B's shared MHA 32 / 32, OLMoE-1B-7B's MHA 16 / 16,
+# HuBERT-XLarge's non-causal hd 80 and Nemotron-4-340B's GQA 96 / 8 at hd
+# 192, the bf16 192 instance): the dense plain version would hold
+# (B, H, S, S) float32 scores, up to 412 GB, so these rows hold the
 # kernel against the plain version on FLASH_SLICE_ROWS query rows at the
 # start, the middle and the end (all keys, the mask at the rows'
 # absolute positions), and time the plain version on those rows
@@ -3437,6 +3446,8 @@ FLASH_LONG = [("flash_b1_s32768", (1, 32768, 32, 8, 128), True, "bfloat16"),
               ("flash_olmoe_b1_s32768", (1, 32768, 16, 16, 128), True,
                "bfloat16"),
               ("flash_hubert_b1_s32768", (1, 32768, 16, 16, 80), False,
+               "bfloat16"),
+              ("flash_nemotron_b1_s32768", (1, 32768, 96, 8, 192), True,
                "bfloat16")]
 FLASH_SLICE_ROWS = 512
 
@@ -3798,19 +3809,34 @@ def finish_ingest_check(pending: dict) -> dict:
 
 # -- phase 9: the dense LM's training path at Qwen3-4B's width ----------------
 
-LM_TRAIN = dict(batch=1, tokens=512, steps=5, peak_lr=1e-3)
+# the Qwen3-4B train steps of phase lm_train_qwen3_4b, at 4 of 36 layers:
+# shape_train_4k_qwen3_4b runs the step at full depth over 4096 tokens
+LM_TRAIN = dict(layers=4, batch=1, tokens=512, steps=5, peak_lr=1e-3)
 LM_TRAIN_LOOP = dict(layers=2, steps=8, every=4, fault=6, resume_to=10)
 LM_TRAIN_TIGHT = dict(layers=2, batch=1, tokens=256)
 # float32 compute on both sides (TF32 off): the loss and the gradient
 # norm differ only in the order of sums; a param after one Adam step is
 # held by its L2 norm (Adam divides each gradient by its own magnitude,
-# so elements whose gradient is near eps amplify that order)
+# so elements whose gradient is near eps amplify that order). Where a
+# leaf's L2 cannot dilute that (a zero-initialised bias, whose every
+# element after the step is lr · g / (|g| + eps)), an element whose
+# clipped gradient is within a few eps of 0 takes the order of sums of
+# its near-cancelling sum into its step (Mamba2-1.3B's and Zamba2-1.2B's
+# conv_bias_x at 4096 tokens). Such a leaf is held stage by stage
+# instead (lm_train_tight), each stage at the same tolerance
 LM_TRAIN_REL = 1e-4
 
 
 def _rel2(torch, a, b) -> float:
-    a, b = a.double(), b.double().to(a.device)
+    a, b = a.double(), b.to(a.device).double()
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def train_tight_opt():
+    """The optimizer of the float32 train checks: the lr at its peak from
+    the first step."""
+    from repro_torch.train.optimizer import OptimizerConfig
+    return OptimizerConfig(warmup_steps=1)
 
 
 def train_tight_inputs(torch, arch: str, t: dict):
@@ -3822,7 +3848,6 @@ def train_tight_inputs(torch, arch: str, t: dict):
     from repro_torch.configs import get_config
     from repro_torch.models.lm import init_params
     from repro_torch.train.data import DataConfig, synthetic_batch
-    from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.train_step import make_train_step
     cfg = replace(get_config(arch), num_layers=t["layers"],
                   compute_dtype="float32",
@@ -3830,8 +3855,26 @@ def train_tight_inputs(torch, arch: str, t: dict):
     host = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     batch = synthetic_batch(cfg, DataConfig(t["tokens"], t["batch"], seed=2),
                             0)
-    return cfg, host, batch, make_train_step(cfg, OptimizerConfig(
-        warmup_steps=1))
+    return cfg, host, batch, make_train_step(cfg, train_tight_opt())
+
+
+@contextlib.contextmanager
+def step_gradients(torch):
+    """While active, each ``adamw_update`` the train steps call keeps the
+    gradients it is given (``kept``: one tree a step; the update reads
+    them and leaves them as they are)."""
+    from repro_torch.train import train_step as tts
+    real, kept = tts.adamw_update, []
+
+    def keeping(cfg, params, grads, state):
+        kept.append(grads)
+        return real(cfg, params, grads, state)
+
+    tts.adamw_update = keeping
+    try:
+        yield kept
+    finally:
+        tts.adamw_update = real
 
 
 def lm_train_tight(torch, dev, arch: str = LM_ARCH,
@@ -3843,26 +3886,26 @@ def lm_train_tight(torch, dev, arch: str = LM_ARCH,
     the host's step here, or in the worker of ``pending`` (see
     ``start_host_checks``)."""
     from repro_torch.train.data import to_device
-    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.optimizer import adamw_update, init_opt_state
     cfg, host, batch, step = train_tight_inputs(torch, arch, t)
     card = _copy_tree(host, dev)
     t0 = time.perf_counter()
-    with routing_recorder(torch) as on_card:
+    with routing_recorder(torch) as on_card, step_gradients(torch) as gc:
         pc, _, mc = step(card, init_opt_state(card), to_device(batch, dev))
     sync(torch, dev)
     card_s = time.perf_counter() - t0
     wait = {}
     if pending is None:
         t0 = time.perf_counter()
-        with routing_recorder(torch) as on_host:
-            ph, _, mh = step(host, init_opt_state(host),
+        with routing_recorder(torch) as on_host, \
+                step_gradients(torch) as gh:
+            ph, _, mh = step(_copy_tree(host, "cpu"), init_opt_state(host),
                              to_device(batch, "cpu"))
         host_s = time.perf_counter() - t0
     else:
-        del host
         result, wait = wait_host_check(torch, pending)
-        ph, mh, host_s, on_host = result["params"], result["metrics"], \
-            result["seconds"], result["routing"]
+        ph, mh, host_s, on_host, gh = result["params"], result["metrics"], \
+            result["seconds"], result["routing"], [result["grads"]]
     # an MoE config: every step's gradient sums over all tokens, so the
     # params compare only if the card and the host routed every token
     # alike (each layer's forward and its recomputation)
@@ -3876,20 +3919,52 @@ def lm_train_tight(torch, dev, arch: str = LM_ARCH,
     rels = {k: rel_diff(mc[k].cpu(), mh[k]) for k in ("loss", "grad_norm")}
     leaves = {}
     for path, a, b in _paired_leaves(pc, ph):
-        leaves[path] = _rel2(torch, a.cpu(), b)
-    worst = max(list(rels.values()) + list(leaves.values()))
+        leaves[path] = _rel2(torch, a, b)       # summed where a lies
+    # a leaf beyond the tolerance after the whole step (see LM_TRAIN_REL)
+    # is held stage by stage: its gradient card vs host, and its param
+    # after the card's step against the host's AdamW fed the card's
+    # gradients (the clip scale of their global norm, the same update)
+    by_stage = {}
+    beyond = [path for path, rel in leaves.items() if rel > LM_TRAIN_REL]
+    if beyond:
+        on_card_grads = _copy_tree(gc[0], "cpu")
+        host_step, _, _ = adamw_update(train_tight_opt(), host,
+                                       on_card_grads, init_opt_state(host))
+        grads_host = dict(_named_leaves(gh[0]))
+        grads_card = dict(_named_leaves(on_card_grads))
+        stepped = dict(_named_leaves(host_step))
+        card_after = dict(_named_leaves(pc))
+        for path in beyond:
+            g = grads_card[path].abs()
+            by_stage[path] = {
+                "grad_rel2": _rel2(torch, grads_card[path], grads_host[path]),
+                "step_on_card_grads_rel2": _rel2(
+                    torch, card_after[path].cpu(), stepped[path]),
+                "card_grad_abs_min": float(g.min()),
+                "card_grad_abs_median": float(g.median())}
+        del on_card_grads, host_step
+    del host
+    worst = max(list(rels.values()) + [v for k, v in leaves.items()
+                                       if k not in by_stage]
+                + [v[k] for v in by_stage.values()
+                   for k in ("grad_rel2", "step_on_card_grads_rel2")])
     check(worst <= LM_TRAIN_REL, f"f32 train step on the card vs the host: "
-          f"{worst} > {LM_TRAIN_REL} ({rels}, {leaves})")
+          f"{worst} > {LM_TRAIN_REL} ({rels}, {leaves}, {by_stage})")
     return {"layers": t["layers"], "batch": t["batch"],
             "tokens": t["tokens"], "vocab": cfg.vocab_size,
             "loss": float(mc["loss"]),
             "loss_rel": rels["loss"], "grad_norm_rel": rels["grad_norm"],
             "param_rel2_max": max(leaves.values()),
-            "param_rel2": leaves, "tolerance_rel": LM_TRAIN_REL, **routed,
+            "param_rel2": leaves, "held_by_stage": by_stage,
+            "tolerance_rel": LM_TRAIN_REL, **routed,
             "card_step_s": card_s, "host_step_s": host_s,
             **wait,
             "measure": "loss, grad_norm: max |a-b| / max |b|; params after "
-            "the step: ||a-b||_2 / ||b||_2"}
+            "the step: ||a-b||_2 / ||b||_2; a leaf beyond the tolerance "
+            "there (held_by_stage): its gradient, and its param against "
+            "the host's AdamW fed the card's gradients, each by "
+            "||a-b||_2 / ||b||_2, beside its gradient's smallest and "
+            "median magnitude (before the clip by min(1, 1 / grad_norm))"}
 
 
 def _copy_tree(tree: dict, dev) -> dict:
@@ -4125,8 +4200,12 @@ def phase_lm_train(torch, dev, pending: dict) -> dict:
     torch.cuda.empty_cache()
 
     cfg = get_config(LM_ARCH)
-    train = train_full_depth(torch, dev, LM_ARCH, LM_TRAIN, seed=6)
+    train = train_full_depth(torch, dev, LM_ARCH, LM_TRAIN, seed=6,
+                             layers=LM_TRAIN["layers"])
     return {"phase": "lm_train_qwen3_4b", "arch": LM_ARCH,
+            "reduced": [f"train steps at {LM_TRAIN['layers']} of "
+                        f"{cfg.num_layers} layers: shape_train_4k_qwen3_4b "
+                        "runs the step at full depth over 4096 tokens"],
             "d_model": cfg.d_model,
             "heads": [cfg.num_heads, cfg.num_kv_heads],
             "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
@@ -4728,7 +4807,10 @@ SSM_PREFILL = (2, 4096)                 # batch, tokens per sequence
 SSM_TIGHT = dict(batch=1, tokens=(256, 200))
 MAMBA_TIGHT_LAYERS = 2
 ZAMBA_TIGHT_LAYERS = 6                  # one shared application (layer 5)
-SSM_TRAIN = dict(batch=1, tokens=512, steps=3, peak_lr=1e-3)
+# the two configs' train step runs at full depth in their shape_train_4k
+# cells, over 4096 tokens
+SSM_TRAIN_CUT = ("no train steps here: the full-depth steps at 1 x 512 "
+                 "tokens moved to the shape_train_4k phase at 1 x 4096")
 # the record_function ranges of models/mamba2.py's mamba2_apply
 MAMBA2_STAGES = ("mamba2/in_proj", "mamba2/conv", "mamba2/ssd",
                  "mamba2/out")
@@ -4842,8 +4924,8 @@ def phase_lm_mamba2(torch, dev) -> dict:
     weights: a prefill of 2 x 4096 tokens (no kernel of the port: the
     SSD is torch ops), two prefills compared bit for bit, one mixer
     profiled by stage, BatchedDecoder at batch 4 and a decode profile;
-    before it the f32 card-vs-host check at 2 layers; after it 3 train
-    steps at full depth."""
+    before it the f32 card-vs-host check at 2 layers (training runs in
+    ``shape_train_4k_mamba2_1_3b``)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -4882,7 +4964,6 @@ def phase_lm_mamba2(torch, dev) -> dict:
     n_params = sum(t.numel() for t in _leaves(params))
     del params, batch, logits, again
     torch.cuda.empty_cache()
-    train = train_full_depth(torch, dev, MAMBA_ARCH, SSM_TRAIN, seed=55)
     return {"phase": "lm_mamba2_1_3b", "arch": MAMBA_ARCH,
             "layers": cfg.num_layers, "d_model": cfg.d_model,
             "ssm_heads": cfg.ssm_heads, "ssm_head_dim": cfg.ssm_head_dim,
@@ -4898,7 +4979,7 @@ def phase_lm_mamba2(torch, dev) -> dict:
                         "peak_memory_gb": peak_gb,
                         "timer": "host clock between synchronisations"},
             "mixer_profile": layer, "server": server,
-            "decode_profile": decode_profile, "train_full_depth": train,
+            "decode_profile": decode_profile, "reduced": [SSM_TRAIN_CUT],
             "ok": True}
 
 
@@ -4907,8 +4988,8 @@ def phase_lm_zamba2(torch, dev, launches: dict) -> dict:
     weights: a flash prefill of 2 x 4096 tokens (its launches read: one
     a shared application, 6), the dense prefill as the yardstick,
     BatchedDecoder at batch 4 and a decode profile; before it the f32
-    card-vs-host check at 6 layers (one shared application); after it
-    3 train steps at full depth."""
+    card-vs-host check at 6 layers (one shared application; training
+    runs in ``shape_train_4k_zamba2_1_2b``)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -4968,7 +5049,6 @@ def phase_lm_zamba2(torch, dev, launches: dict) -> dict:
     n_params = sum(t.numel() for t in _leaves(params))
     del params, batch, logits, again, dense_logits
     torch.cuda.empty_cache()
-    train = train_full_depth(torch, dev, ZAMBA_ARCH, SSM_TRAIN, seed=59)
     return {"phase": "lm_zamba2_1_2b", "arch": ZAMBA_ARCH,
             "layers": cfg.num_layers, "d_model": cfg.d_model,
             "shared_attn_every": cfg.shared_attn_every,
@@ -4993,7 +5073,7 @@ def phase_lm_zamba2(torch, dev, launches: dict) -> dict:
             "mixer_profile": layer,
             "shared_block_ms_events": shared_ms,
             "server": server, "decode_profile": decode_profile,
-            "decode_launches_flash": 0, "train_full_depth": train,
+            "decode_launches_flash": 0, "reduced": [SSM_TRAIN_CUT],
             "ok": True}
 
 
@@ -5076,12 +5156,62 @@ SHAPE_CELLS = {
         layers=DEEPSEEK_LAYERS, seed=144,
         tight=dict(rows="mla", batch=1, seed=145, host_worker="moe"),
         launches="flash_attention_prefill_32k_deepseek_v2"),
+    # the SSM, hybrid and audio-encoder cells, and Nemotron-4-340B's
+    # prefill through the bf16 hd-192 flash instance (PERF.md section 4
+    # reckons each batch from bytes): Mamba2's prefill launches no kernel
+    # of the port (its SSD is torch ops) and holds (B, 256, 128, 128, 64)
+    # float32 temporaries a layer, 1.07 GB a sequence each; its decode
+    # runs decode_32k's whole global batch (100 MB of state a sequence);
+    # Zamba2's decode holds 3.26 GB of shared cache a sequence; the train
+    # cells run full depth; Zamba2's check at 6 layers takes the shared
+    # block under autograd (its host half the longest of these, in the
+    # worker that frees first); Nemotron runs batch 1 (at 2 its 46.5 GB
+    # of weights and two (S, 73 728) FFN intermediates a sequence ran out
+    # of memory, 15.3 GB of it reserved but fragmented) and its check
+    # holds row slices of its first attention layer at a cut vocabulary
+    # (the embedding's rows are independent, and 256 000 rows would be
+    # 37.7 GB in float32)
+    "shape_prefill_32k_mamba2_1_3b": dict(
+        shape="prefill_32k", arch=MAMBA_ARCH, batch=4, seed=153,
+        tight=dict(layers=2, batch=1, seed=154, host_worker="prefill"),
+        launches="flash_attention_prefill_32k_mamba2"),
+    "shape_decode_32k_mamba2_1_3b": dict(
+        shape="decode_32k", arch=MAMBA_ARCH, batch=128, seed=155,
+        tight=dict(layers=2, batch=2, seed=156)),
+    "shape_decode_32k_zamba2_1_2b": dict(
+        shape="decode_32k", arch=ZAMBA_ARCH, batch=18, seed=157,
+        tight=dict(layers=6, batch=2, seed=158)),
+    "shape_train_4k_mamba2_1_3b": dict(
+        shape="train_4k", arch=MAMBA_ARCH, batch=1, seed=159,
+        train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
+        tight=dict(layers=1, batch=1, tokens=4096, vocab=None,
+                   host_worker="moe")),
+    "shape_train_4k_zamba2_1_2b": dict(
+        shape="train_4k", arch=ZAMBA_ARCH, batch=1, seed=160,
+        train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
+        tight=dict(layers=6, batch=1, tokens=4096, vocab=None,
+                   host_worker="prefill")),
+    # peak lr 1e-4: at 1e-3 (the other cells') its loss rose, 6.75 ->
+    # 6.91 -> 8.88 over three steps: Adam's first steps move every weight
+    # by about lr, and random cluster labels on random frames give little
+    # to descend
+    "shape_train_4k_hubert_xlarge": dict(
+        shape="train_4k", arch=AUDIO_ARCH, batch=4, seed=161,
+        train=dict(batch=4, tokens=4096, steps=3, peak_lr=1e-4),
+        tight=dict(layers=1, batch=1, tokens=4096, vocab=None,
+                   host_worker="train")),
+    "shape_prefill_32k_nemotron_4_340b": dict(
+        shape="prefill_32k", arch="nemotron_4_340b", batch=1,
+        layers=DENSE_LM["lm_nemotron_4_340b"]["layers"], seed=162,
+        tight=dict(rows="flash", layers=1, batch=1, seed=163, vocab=32768),
+        launches="flash_attention_prefill_32k_nemotron"),
 }
 # the worker processes of the cells' host halves and their threads: the
 # jobs of one worker run one after another, in SHAPE_CELLS' order (the
 # host's 8 cores also serve the NY-scale ingest check's two workers and
-# the LM phases' launches)
-HOST_WORKERS = {"prefill": 4, "train": 2, "moe": 2}
+# the LM phases' launches); "roofline" probes every cell's path on fake
+# tensors (path_probe: 0.2–14 s of host time a cell) ahead of it
+HOST_WORKERS = {"prefill": 4, "train": 2, "moe": 2, "roofline": 1}
 # the host halves of earlier phases' float32 train steps (LM_TRAIN_TIGHT),
 # run in the "train" worker ahead of train_4k's: (phase, arch)
 TRAIN_TIGHT_HOST = (("lm_train_qwen3_4b", LM_ARCH),
@@ -5134,13 +5264,11 @@ def bf16_params(torch, dev, cfg, seed: int):
 PROBE_MLA_ROWS = 1024
 
 
-def path_roofline(arch: str, layers: int, kind: str, b: int, s: int,
-                  secs: float) -> dict:
-    """``launch/roofline.py`` at the path's shape and depth on one card
-    (``roofline_rows``: the FLOPs at 989 TFLOP/s bf16 and the eager
-    program's bytes, every aten op's inputs and outputs, at 3.35 TB/s)
-    beside the measured seconds; an MLA prefill's probe in blocks of
-    PROBE_MLA_ROWS query rows."""
+def path_probe(arch: str, layers: int | None, kind: str, b: int,
+               s: int) -> dict:
+    """``roofline_probe`` at a shape cell's path, an MLA prefill's probe
+    in blocks of PROBE_MLA_ROWS query rows, and the probe's seconds (a
+    worker of ``start_host_checks`` runs it ahead of the cell)."""
     from repro_torch.configs import get_config
     from repro_torch.models import attention
     t0 = time.perf_counter()
@@ -5151,11 +5279,20 @@ def path_roofline(arch: str, layers: int, kind: str, b: int, s: int,
         attention.SCORE_BLOCK_BYTES = max(
             budget, 4 * b * cfg.num_heads * s * PROBE_MLA_ROWS)
     try:
-        row = roofline_rows([(f"{arch} {kind}", arch, layers, (kind, b, s),
-                              secs)])[0]
+        probed = roofline_probe(arch, layers, kind, b, s)
     finally:
         attention.SCORE_BLOCK_BYTES = budget
-    return {**row, **extra, "probe_s": time.perf_counter() - t0}
+    return {**probed, **extra, "probe_s": time.perf_counter() - t0}
+
+
+def path_roofline(torch, path: str, secs: float, pending: tuple) -> dict:
+    """``launch/roofline.py`` at a cell's path, shape and depth on one
+    card (the FLOPs at 989 TFLOP/s bf16 and the eager program's bytes,
+    every aten op's inputs and outputs, at 3.35 TB/s; ``path_probe``,
+    run by its worker, ``pending``) beside the measured seconds."""
+    result, wait = wait_host_check(torch, pending)
+    return {**roofline_row(path, result["probed"], secs),
+            "probe_waited_s": wait["waited_s"]}
 
 
 def _named_leaves(tree: dict, path: str = ""):
@@ -5236,8 +5373,9 @@ def host_check_work(jobs: list, threads: int) -> None:
     ``forward`` and the routing of each layer; for ``mla_rows`` the
     rows of ``mla_rows_inputs``' MLA output at ``slice_starts``; for
     ``train_4k`` and ``train`` the params and metrics after one step of
-    ``train_tight_inputs`` (and an MoE config's routing); and its
-    seconds and wall-clock end."""
+    ``train_tight_inputs``, its gradients (and an MoE config's routing);
+    for ``roofline`` a cell's ``path_probe``; and its seconds and
+    wall-clock end."""
     sys.path.insert(0, str(SRC))
     import torch
 
@@ -5260,12 +5398,17 @@ def host_check_work(jobs: list, threads: int) -> None:
                     params, {"tokens": tok})}
         elif kind == "mla_rows":
             result = {"rows": mla_rows_host(torch, arch, s, t)}
+        elif kind == "roofline":
+            result = {"probed": path_probe(arch, t["layers"], t["kind"],
+                                           t["batch"], s)}
         else:
             _, params, batch, step = train_tight_inputs(torch, arch, t)
-            with routing_recorder(torch) as routing:
+            with routing_recorder(torch) as routing, \
+                    step_gradients(torch) as grads:
                 p, _, m = step(params, init_opt_state(params),
                                to_device(batch, "cpu"))
-            result = {"params": p, "metrics": m, "routing": routing}
+            result = {"params": p, "metrics": m, "routing": routing,
+                      "grads": grads[0]}
         result["seconds"] = time.perf_counter() - t0
         result["done_at"] = time.time()
         torch.save(result, out + ".part")
@@ -5277,8 +5420,10 @@ def start_host_checks() -> dict:
     """Starts one ``host_check_work`` process for each of HOST_WORKERS,
     with the jobs that name it: TRAIN_TIGHT_HOST's, then the cells of
     SHAPE_CELLS whose float32 check does (minutes of host arithmetic at
-    32 768 or 4096 tokens, run beside the LM phases); returns (worker,
-    output file, threads, start) by phase."""
+    32 768 or 4096 tokens, run beside the LM phases), every cell's
+    roofline probe (``<cell>_roofline``) and LAUNCH_PATHS' probes
+    (``launch_roofline_<i>``); returns (worker, output file, threads,
+    start) by phase."""
     import multiprocessing
 
     from repro_torch.configs.base import SHAPES
@@ -5291,6 +5436,15 @@ def start_host_checks() -> dict:
               SHAPES[spec["shape"]].seq_len, spec["tight"])
              for name, spec in SHAPE_CELLS.items()
              if spec["tight"].get("host_worker")]
+    jobs += [(f"{name}_roofline", "roofline", "roofline", spec["arch"],
+              SHAPES[spec["shape"]].seq_len,
+              dict(layers=spec.get("layers"), kind=SHAPES[spec["shape"]].kind,
+                   batch=spec["batch"]))
+             for name, spec in SHAPE_CELLS.items()]
+    jobs += [(f"launch_roofline_{i}", "roofline", "roofline", arch, s,
+              dict(layers=layers, kind=kind, batch=b))
+             for i, (_, arch, layers, (kind, b, s))
+             in enumerate(LAUNCH_PATHS)]
     pending = {}
     for worker_name, threads in HOST_WORKERS.items():
         mine = [job for job in jobs if job[1] == worker_name]
@@ -5320,7 +5474,9 @@ def wait_host_check(torch, pending: tuple) -> tuple[dict, dict]:
     check(out.exists(), f"no host result {out.name}: the worker ended with "
           f"{worker.exitcode} (None: still running after "
           f"{HOST_CHECK_TIMEOUT_S} s)")
-    result = torch.load(out)
+    # mapped, not read: a train step's gradients are read only where a
+    # leaf is held stage by stage
+    result = torch.load(out, mmap=True)
     out.unlink()
     return result, {"host_threads": threads, "waited_s": waited_s,
                     "host_ready_after_s": result["done_at"] - started}
@@ -5328,8 +5484,9 @@ def wait_host_check(torch, pending: tuple) -> tuple[dict, dict]:
 
 def attention_applications(cfg) -> int:
     """Flash launches of one prefill: one a layer, or one a hybrid's
-    shared application; none where MLA attends."""
-    if cfg.use_mla:
+    shared application; none where MLA attends or no layer attends
+    (``ssm``)."""
+    if cfg.use_mla or cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.shared_attn_every
@@ -5498,13 +5655,18 @@ def mla_rows_check(torch, dev, arch: str, s: int, t: dict,
             "seed; the host's rows in a worker process"}
 
 
-def flash_rows_check(torch, dev, arch: str, s: int, t: dict) -> dict:
-    """float32, full width, ``t["layers"]`` layer(s): one prefill of
-    ``t["batch"]`` x ``s`` frames (or tokens) through ``make_prefill_step``
-    on the card, the first attention layer through the float32 flash
-    kernel; that launch's output held against the plain version on the
-    host on the rows of ``slice_starts`` at the full key length (a whole
-    host pass of the layer would take minutes)."""
+def flash_rows_check(torch, dev, arch: str, s: int, t: dict):
+    """float32, full width, ``t["layers"]`` layer(s) (and ``t["vocab"]``,
+    where given): one prefill of ``t["batch"]`` x ``s`` frames (or
+    tokens) through ``make_prefill_step`` on the card, weights and inputs
+    drawn there from ``t["seed"]``, the first attention layer through the
+    float32 flash kernel; that launch's output held against the plain
+    version on the host on the rows of ``slice_starts`` at the full key
+    length (a whole host pass of the layer would take minutes). The host
+    computes its rows in a thread started here; returns ``finish()``,
+    which waits for that thread (the caller runs the main path on the
+    card meanwhile) and compares."""
+    import threading
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -5513,9 +5675,10 @@ def flash_rows_check(torch, dev, arch: str, s: int, t: dict) -> dict:
     from repro_torch.models.lm import init_params
     from repro_torch.train.train_step import make_prefill_step
     cfg = replace(get_config(arch), num_layers=t["layers"],
-                  compute_dtype="float32", attention_impl="flash")
-    gen = torch.Generator().manual_seed(t["seed"])
-    params = _copy_tree(init_params(cfg, gen, "cpu"), dev)
+                  compute_dtype="float32", attention_impl="flash",
+                  **({"vocab_size": t["vocab"]} if t.get("vocab") else {}))
+    gen = torch.Generator(device=dev).manual_seed(t["seed"])
+    params = init_params(cfg, gen, dev)
     batch = lm_inputs(torch, cfg, t["batch"], s, gen, dev)
     before = fa.LAUNCHES["flash_attention"]
     with last_sequence_of_first_flash(torch) as kept:
@@ -5526,31 +5689,46 @@ def flash_rows_check(torch, dev, arch: str, s: int, t: dict) -> dict:
     check(launched == attention_applications(cfg)
           and bool(torch.isfinite(logits).all()), f"f32 {arch} prefill at "
           f"{s}: {launched} flash launches")
-    del params, batch
-    q, k, v = (kept[n].cpu() for n in ("q", "k", "v"))
-    r = FLASH_SLICE_ROWS
-    t0 = time.perf_counter()
-    rels, errs = [], []
-    for r0 in slice_starts(s):
-        want = ref.attention_rows_ref(q[:, r0:r0 + r], k, v, r0,
-                                      causal=kept["causal"])
-        got = kept["out"][:, r0:r0 + r].cpu()
-        rels.append(rel_diff(got, want))
-        errs.append(max_abs_err(got, want))
-    host_s = time.perf_counter() - t0
-    rel = max(rels)
-    check(rel <= LM_TIGHT_REL, f"f32 {arch} first attention layer at {s}, "
-          f"card vs host: {rels} > {LM_TIGHT_REL}")
-    return {"layers": t["layers"], "batch": t["batch"], "tokens": s,
-            "flash_launches": launched, "causal": kept["causal"],
-            "slice_rows": r, "slice_starts": list(slice_starts(s)),
-            "rel_by_slice": rels, "max_abs_err": max(errs), "rel": rel,
-            "tolerance_rel": LM_TIGHT_REL, "card_s": card_s[0],
-            "host_s": host_s,
-            "measure": "max |a-b| / max |b| over each slice of the first "
-            "attention layer's output: the card's float32 flash kernel "
-            "against the plain version on the host, from the card's own "
-            "q, k, v of that layer"}
+    del params, batch, logits
+    r, starts, causal = FLASH_SLICE_ROWS, slice_starts(s), kept["causal"]
+    k, v = kept["k"].cpu(), kept["v"].cpu()
+    qs = [kept["q"][:, r0:r0 + r].cpu() for r0 in starts]
+    got = [kept["out"][:, r0:r0 + r].cpu() for r0 in starts]
+    kept.clear()
+    host = {}
+
+    def host_rows():
+        t0 = time.perf_counter()
+        host["rows"] = [ref.attention_rows_ref(q, k, v, r0, causal=causal)
+                        for q, r0 in zip(qs, starts)]
+        host["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=host_rows, daemon=True)
+    thread.start()
+
+    def finish() -> dict:
+        t0 = time.perf_counter()
+        thread.join(HOST_CHECK_TIMEOUT_S)
+        waited_s = time.perf_counter() - t0
+        check("rows" in host, f"f32 {arch}: the host's rows did not finish")
+        rels = [rel_diff(a, b) for a, b in zip(got, host["rows"])]
+        errs = [max_abs_err(a, b) for a, b in zip(got, host["rows"])]
+        rel = max(rels)
+        check(rel <= LM_TIGHT_REL, f"f32 {arch} first attention layer at "
+              f"{s}, card vs host: {rels} > {LM_TIGHT_REL}")
+        return {"layers": t["layers"], "batch": t["batch"], "tokens": s,
+                "vocab": cfg.vocab_size, "flash_launches": launched,
+                "causal": causal, "slice_rows": r,
+                "slice_starts": list(starts), "rel_by_slice": rels,
+                "max_abs_err": max(errs), "rel": rel,
+                "tolerance_rel": LM_TIGHT_REL, "card_s": card_s[0],
+                "host_s": host["s"], "waited_s": waited_s,
+                "measure": "max |a-b| / max |b| over each slice of the "
+                "first attention layer's output: the card's float32 flash "
+                "kernel against the plain version on the host (a thread "
+                "beside the main path), from the card's own q, k, v of "
+                "that layer"}
+    return finish
 
 
 def lm_inputs(torch, cfg, b: int, s: int, gen, dev) -> dict:
@@ -5631,10 +5809,12 @@ def decode_tight_long(torch, dev, arch: str, max_len: int, t: dict) -> dict:
 
 
 def phase_shape_prefill(torch, dev, launches: dict, name: str,
-                        pending: dict, errs: dict) -> dict:
+                        pending: dict, errs: dict, finish=None) -> dict:
     """SHAPES["prefill_32k"] on ``SHAPE_CELLS[name]``'s config at full
     depth (or the cell's ``layers``), bf16: before it the float32
-    card-vs-host check at a cut depth and the full length; the main
+    card-vs-host check at a cut depth and the full length (a
+    ``rows="flash"`` check ran before the cells: ``finish`` waits for its
+    host rows and compares); the main
     path, one flash prefill through ``make_prefill_step`` (its flash
     launches read: one a layer, one a shared application, none where MLA
     attends) with finite last-position logits, timed and
@@ -5659,7 +5839,7 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
         tight = mla_rows_check(torch, dev, spec["arch"], s, spec["tight"],
                                pending[name])
     elif rows == "flash":
-        tight = flash_rows_check(torch, dev, spec["arch"], s, spec["tight"])
+        tight = finish
     else:
         tight = prefill_tight_long(torch, dev, spec["arch"], s,
                                    spec["tight"], pending[name])
@@ -5704,6 +5884,10 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
         steps_s["flash_slices"] = time.perf_counter() - t0
     del kept, params, batch, logits
     torch.cuda.empty_cache()
+    if rows == "flash":
+        t0 = time.perf_counter()
+        tight = tight()
+        steps_s["tight_f32_host_rows_wait"] = time.perf_counter() - t0
     reduced = [f"layers {full.num_layers} -> {cfg.num_layers}: one card"] \
         * (cfg.num_layers != full.num_layers)
     reduced.append(
@@ -5712,10 +5896,13 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
         + (f" ({tight['flash_launches']} flash launches)"
            if "flash_launches" in tight else "")
         + (f", on rows {tight['slice_starts']} + {tight['slice_rows']} of "
-           f"its first attention layer" if rows else ""))
+           f"its first attention layer" if rows else "")
+        + (f", vocabulary {tight['vocab']} of {full.vocab_size}"
+           if tight.get("vocab", full.vocab_size) != full.vocab_size
+           else ""))
     t0 = time.perf_counter()
-    roofline = path_roofline(spec["arch"], spec.get("layers"), "prefill", b,
-                             s, secs)
+    roofline = path_roofline(torch, f"{spec['arch']} prefill", secs,
+                             pending[f"{name}_roofline"])
     steps_s["roofline"] = time.perf_counter() - t0
     return {**shape_out(name, spec, full, shape, cfg, b, reduced),
             "weights_gb_bf16": w_bytes / 1e9, "init_s": init_s,
@@ -5730,7 +5917,7 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
             "under torch.profiler (profile)", "ok": True}
 
 
-def phase_shape_decode(torch, dev, name: str) -> dict:
+def phase_shape_decode(torch, dev, name: str, pending: dict) -> dict:
     """SHAPES["decode_32k"] or ["long_500k"] on ``SHAPE_CELLS[name]``'s
     config at full depth (or the cell's ``layers``), bf16: before it the
     float32 card-vs-host step at a cut depth and the full cache length;
@@ -5854,8 +6041,9 @@ def phase_shape_decode(torch, dev, name: str) -> dict:
             "device_share_of_bound": max(bytes_ms, ops_ms)
             / prof["device_ms_per_call"] if prof["device_ms_per_call"]
             else None,
-            "roofline": path_roofline(spec["arch"], spec.get("layers"),
-                                      "decode", b, t_len, step_ms / 1e3),
+            "roofline": path_roofline(torch, f"{spec['arch']} decode",
+                                      step_ms / 1e3,
+                                      pending[f"{name}_roofline"]),
             "timer": "step_ms: host clock between synchronisations, the "
             "median of SHAPE_DECODE_STEPS steps at the same pos; profile: "
             "3 more under torch.profiler", "ok": True}
@@ -5887,27 +6075,36 @@ def phase_shape_train(torch, dev, name: str, pending: dict) -> dict:
     cfg = replace(full, num_layers=layers or full.num_layers)
     return {**shape_out(name, spec, full, shape, cfg, tr["batch"], reduced),
             "tight_f32": tight, **train,
-            "roofline": path_roofline(spec["arch"], layers, "train",
-                                      tr["batch"], tr["tokens"],
-                                      train["ms_per_step"] / 1e3),
+            "roofline": path_roofline(torch, f"{spec['arch']} train",
+                                      train["ms_per_step"] / 1e3,
+                                      pending[f"{name}_roofline"]),
             "ok": True}
 
 
 def phase_shapes(torch, dev, launches: dict, pending: dict,
                  errs: dict) -> list:
     """Every cell of SHAPE_CELLS, one phase line each, freeing the card
-    between them; ``pending``: ``start_host_checks``' workers."""
+    between them; ``pending``: ``start_host_checks``' workers. The card
+    halves of the ``rows="flash"`` checks run first, so that their host
+    rows (a thread each, ``flash_rows_check``) run beside the cells."""
+    from repro_torch.configs.base import SHAPES
+    rows = {name: flash_rows_check(torch, dev, spec["arch"],
+                                   SHAPES[spec["shape"]].seq_len,
+                                   spec["tight"])
+            for name, spec in SHAPE_CELLS.items()
+            if spec["tight"].get("rows") == "flash"}
+    torch.cuda.empty_cache()
     out = []
     for name, spec in SHAPE_CELLS.items():
         kind = spec["shape"]
         t0 = time.perf_counter()
         if kind == "prefill_32k":
             row = phase_shape_prefill(torch, dev, launches, name, pending,
-                                      errs)
+                                      errs, rows.get(name))
         elif kind == "train_4k":
             row = phase_shape_train(torch, dev, name, pending)
         else:
-            row = phase_shape_decode(torch, dev, name)
+            row = phase_shape_decode(torch, dev, name, pending)
         row["phase_s"] = time.perf_counter() - t0
         emit(row)
         out.append(row)
@@ -5934,60 +6131,92 @@ DRYRUN_NO_JAX = ("import runpy, sys; sys.modules['jax'] = None; "
 LAUNCH_WALL_LIMIT_S = 30.0
 
 
-def roofline_rows(measured: list) -> list:
-    """For each measured path, the roofline of the work it does, from
-    the port's probe on fake tensors at that path's shape and depth
-    (None: the published one) on one card, with the path's gather
-    embedding: stub attention plus flash's analytic add-back where the
-    model attends (the reference's optimized probe), the bound, and mfu
-    = model_flops / (measured_s · bf16 peak); flops_share is the same
-    with the FLOPs the step runs (the probe's count plus flash's), which
-    model_flops (2 or 6 · params · tokens) exceeds where the embedding
-    and the head are a large share of a cut model (a gather, and the
-    head at one position a prefill). memory_s counts the eager program's
-    traffic, every aten op's inputs and outputs: what the port's unfused
-    steps move."""
+def roofline_probe(arch: str, layers: int | None, kind: str, b: int,
+                   s: int) -> dict:
+    """The roofline of the work a path does, from the port's probe on
+    fake tensors at that path's shape and depth (None: the published
+    one) on one card, with the path's gather embedding: stub attention
+    plus flash's analytic add-back where the model attends (the
+    reference's optimized probe), and the bound. memory_s counts the
+    eager program's traffic, every aten op's inputs and outputs: what
+    the port's unfused steps move. Plain numbers and names only, so that
+    a worker process can hand it over."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import roofline
     from repro_torch.launch.mesh import AbstractMesh
-    one = AbstractMesh(*ONE_CARD)
-    rows = []
-    for path, arch, layers, (kind, b, s), secs in measured:
-        shape = ShapeSpec(f"{kind}_{b}x{s}", s, b, kind)
-        cfg = get_config(arch)
-        cfg = replace(cfg, num_layers=layers or cfg.num_layers)
-        # decode attends densely over its cache: the probe counts it
-        flash = bool(cfg.num_heads) and not cfg.use_mla and kind != "decode"
-        over = {"onehot_embed": False, **(
-            {"attention_impl": "stub"} if flash else {})}
-        probe = roofline.probe_shape(cfg, shape, over, one)
-        add = roofline.flash_attention_cost(cfg, shape, chips=1) \
-            if flash else (0.0, 0.0)
-        if flash and cfg.family == "hybrid":
-            # flash_attention_cost counts every layer; a hybrid attends
-            # once a shared application
-            share = (cfg.num_layers // cfg.shared_attn_every) \
-                / cfg.num_layers
-            add = (add[0] * share, add[1] * share)
-        probe["hlo_flops"] += add[0]
-        probe["hlo_bytes"] += add[1]
-        t = roofline.roofline_terms(probe, chips=1)
-        rows.append({
-            "path": path, "arch": arch, "layers": cfg.num_layers,
-            "shape": shape.name,
+    shape = ShapeSpec(f"{kind}_{b}x{s}", s, b, kind)
+    cfg = get_config(arch)
+    cfg = replace(cfg, num_layers=layers or cfg.num_layers)
+    # decode attends densely over its cache: the probe counts it
+    flash = bool(cfg.num_heads) and not cfg.use_mla and kind != "decode"
+    over = {"onehot_embed": False, **(
+        {"attention_impl": "stub"} if flash else {})}
+    probe = roofline.probe_shape(cfg, shape, over, AbstractMesh(*ONE_CARD))
+    add = roofline.flash_attention_cost(cfg, shape, chips=1) \
+        if flash else (0.0, 0.0)
+    if flash and cfg.family == "hybrid":
+        # flash_attention_cost counts every layer; a hybrid attends once
+        # a shared application
+        share = (cfg.num_layers // cfg.shared_attn_every) / cfg.num_layers
+        add = (add[0] * share, add[1] * share)
+    probe["hlo_flops"] += add[0]
+    probe["hlo_bytes"] += add[1]
+    t = roofline.roofline_terms(probe, chips=1)
+    return {"arch": arch, "layers": cfg.num_layers, "shape": shape.name,
             "hlo_flops": t["hlo_flops"], "hlo_bytes": t["hlo_bytes"],
             "flash_flops_added": add[0], "flash_bytes_added": add[1],
             "compute_s": t["compute_s"], "memory_s": t["memory_s"],
             "dominant": t["dominant"], "bound_s": t["step_time_bound_s"],
-            "model_flops": t["model_flops"], "measured_s": secs,
-            "mfu": t["model_flops"] / (secs * PEAK_BF16_TENSOR_FLOPS_PER_S),
-            "flops_share": t["hlo_flops"]
+            "model_flops": t["model_flops"]}
+
+
+def roofline_row(path: str, probed: dict, secs: float) -> dict:
+    """``roofline_probe``'s terms beside a path's measured seconds: mfu =
+    model_flops / (measured_s · bf16 peak); flops_share is the same with
+    the FLOPs the step runs (the probe's count plus flash's), which
+    model_flops (2 or 6 · params · tokens) exceeds where the embedding
+    and the head are a large share of a cut model (a gather, and the
+    head at one position a prefill)."""
+    return {"path": path, **probed, "measured_s": secs,
+            "mfu": probed["model_flops"]
             / (secs * PEAK_BF16_TENSOR_FLOPS_PER_S),
-            "bound_share": t["step_time_bound_s"] / secs})
-    return rows
+            "flops_share": probed["hlo_flops"]
+            / (secs * PEAK_BF16_TENSOR_FLOPS_PER_S),
+            "bound_share": probed["bound_s"] / secs}
+
+
+# the LM phases' paths whose roofline phase launch_roofline sets beside
+# their measured seconds: (path, arch, layers or None, (kind, batch,
+# tokens)); their probes run in the "roofline" worker
+LAUNCH_PATHS = (
+    ("lm_qwen3_4b prefill", LM_ARCH, None, ("prefill", *LM_PREFILL)),
+    ("lm_train_qwen3_4b step", LM_ARCH, LM_TRAIN["layers"],
+     ("train", LM_TRAIN["batch"], LM_TRAIN["tokens"])),
+    ("lm_olmoe_1b_7b prefill", OLMOE_ARCH, None, ("prefill", *OLMOE_PREFILL)),
+    ("lm_mamba2_1_3b prefill", MAMBA_ARCH, None, ("prefill", *SSM_PREFILL)),
+    ("lm_zamba2_1_2b prefill", ZAMBA_ARCH, None, ("prefill", *SSM_PREFILL)),
+    *((f"{name} prefill", spec["arch"], spec["layers"],
+       ("prefill", *spec["prefill"]))
+      for name, spec in DENSE_LM.items() if name != "lm_qwen3_4b"),
+    ("lm_starcoder2_7b train step", "starcoder2_7b",
+     STARCODER2_TRAIN["layers"],
+     ("train", STARCODER2_TRAIN["batch"], STARCODER2_TRAIN["tokens"])))
+
+
+def start_dryrun_cli():
+    """The dry-run CLI on DRYRUN_CELL in a subprocess with ``jax``
+    blocked, started ahead of phase launch_roofline, which reads it."""
+    out_json = ROOT / "build" / "chip_smoke" / "dryrun.json"
+    out_json.parent.mkdir(parents=True, exist_ok=True)
+    arch, shape = DRYRUN_CELL
+    return subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_NO_JAX, "--arch", arch, "--shape",
+         shape, "--mesh", "pod", "--out", str(out_json), "--force"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 def roofline_flop_check(torch, dev) -> dict:
@@ -6141,27 +6370,27 @@ def ep_check(torch, dev) -> dict:
             "host_s": host_s}
 
 
-def phase_launch_roofline(torch, dev, smi: str, lm: dict,
-                          measured: list) -> dict:
+def phase_launch_roofline(torch, dev, smi: str, lm: dict, secs: list,
+                          pending: dict, cli) -> dict:
     """The launch and sharding tooling on the card's machine: the
-    roofline of each path the LM phases timed (their seconds, no new
-    timing runs), the FLOP counter against what the card runs, the dry
-    run's argument bytes against the card's, the expert-parallel MoE
-    path card vs host, and the dry-run CLI in a subprocess (this
-    machine has no JAX)."""
+    roofline of each of LAUNCH_PATHS beside the seconds the LM phases
+    measured (``secs``, in that order; no new timing runs; the probes
+    from the "roofline" worker, ``pending``), the FLOP counter against
+    what the card runs, the dry run's argument bytes against the card's,
+    the expert-parallel MoE path card vs host, and the dry-run CLI in
+    its subprocess (``cli``, from ``start_dryrun_cli``; this machine has
+    no JAX)."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     out_json = ROOT / "build" / "chip_smoke" / "dryrun.json"
-    out_json.parent.mkdir(parents=True, exist_ok=True)
     arch, shape = DRYRUN_CELL
-    cli = subprocess.Popen(
-        [sys.executable, "-c", DRYRUN_NO_JAX, "--arch", arch, "--shape",
-         shape, "--mesh", "pod", "--out", str(out_json), "--force"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     parts = {}
     try:
-        for name, fn in (("roofline", lambda: roofline_rows(measured)),
+        for name, fn in (("roofline", lambda: [
+                path_roofline(torch, path, sec,
+                              pending[f"launch_roofline_{i}"])
+                for i, ((path, *_), sec) in enumerate(zip(LAUNCH_PATHS,
+                                                         secs))]),
                          ("flop_check", lambda: roofline_flop_check(torch,
                                                                     dev)),
                          ("argument_bytes", lambda: argument_bytes_check(
@@ -6381,26 +6610,19 @@ def main() -> int:
         emit(dense[name])
         torch.cuda.empty_cache()
     starcoder2 = dense["lm_starcoder2_7b"]
-    phase_shapes(torch, dev, launches, host_checks, errs)
+    dryrun_cli = start_dryrun_cli()
+    try:
+        phase_shapes(torch, dev, launches, host_checks, errs)
+    except BaseException:
+        dryrun_cli.kill()
+        dryrun_cli.wait()
+        raise
     emit(phase_launch_roofline(torch, dev, smi, lm, [
-        ("lm_qwen3_4b prefill", LM_ARCH, None, ("prefill", *LM_PREFILL),
-         min(lm["prefill"]["flash_s"])),
-        ("lm_train_qwen3_4b step", LM_ARCH, None,
-         ("train", LM_TRAIN["batch"], LM_TRAIN["tokens"]),
-         lm_train["ms_per_step"] / 1e3),
-        ("lm_olmoe_1b_7b prefill", OLMOE_ARCH, None,
-         ("prefill", *OLMOE_PREFILL), min(olmoe["prefill"]["flash_s"])),
-        ("lm_mamba2_1_3b prefill", MAMBA_ARCH, None,
-         ("prefill", *SSM_PREFILL), min(mamba["prefill"]["s"])),
-        ("lm_zamba2_1_2b prefill", ZAMBA_ARCH, None,
-         ("prefill", *SSM_PREFILL), min(zamba["prefill"]["flash_s"])),
-        *((f"{name} prefill", DENSE_LM[name]["arch"],
-           DENSE_LM[name]["layers"], ("prefill", *DENSE_LM[name]["prefill"]),
-           min(out["prefill"]["flash_s"])) for name, out in dense.items()),
-        ("lm_starcoder2_7b train step", "starcoder2_7b",
-         STARCODER2_TRAIN["layers"],
-         ("train", STARCODER2_TRAIN["batch"], STARCODER2_TRAIN["tokens"]),
-         starcoder2["train"]["ms_per_step"] / 1e3)]))
+        min(lm["prefill"]["flash_s"]), lm_train["ms_per_step"] / 1e3,
+        min(olmoe["prefill"]["flash_s"]), min(mamba["prefill"]["s"]),
+        min(zamba["prefill"]["flash_s"]),
+        *(min(out["prefill"]["flash_s"]) for out in dense.values()),
+        starcoder2["train"]["ms_per_step"] / 1e3], host_checks, dryrun_cli))
     emit(finish_ingest_check(ingest_pending))
     emit(kernels_line(times["rows"] + sharded_times["rows"]
                       + builder_times["rows"] + flash_times["rows"]

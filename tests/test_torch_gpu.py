@@ -1531,18 +1531,19 @@ def test_zamba2_flash_prefill_on_card_matches_dense(cuda, no_tf32):
 @pytest.mark.parametrize("b,h,kv,hd,causal", [
     (1, 32, 8, 128, True), (8, 32, 8, 128, True), (1, 32, 32, 128, True),
     (4, 32, 32, 128, True), (1, 16, 16, 128, True), (8, 16, 16, 128, True),
-    (1, 16, 16, 80, False), (8, 16, 16, 80, False)])
+    (1, 16, 16, 80, False), (8, 16, 16, 80, False), (1, 96, 8, 192, True)])
 def test_flash_kernel_at_32768_tokens_matches_plain_rows(cuda, b, h, kv, hd,
                                                          causal):
     """bf16 flash at prefill_32k's length (Qwen3-4B's GQA 32 / 8,
     Zamba2-1.2B's shared MHA 32 / 32 and OLMoE-1B-7B's MHA 16 / 16, hd
     128, causal; HuBERT-XLarge's 16 / 16 at hd 80 in its own instance,
-    non-causal), at batch 1 and at the batch each prefill_32k path runs
-    (8, 4): one launch of the kernel, its last sequence held against the
-    plain version on 512 query rows at the start, the middle and the end
-    (all keys, the mask at the rows' absolute positions:
+    non-causal; Nemotron-4-340B's GQA 96 / 8 at hd 192 in the 192
+    instance, causal), at batch 1 and at the batch each prefill_32k path
+    runs (8, 4): one launch of the kernel, its last sequence held against
+    the plain version on 512 query rows at the start, the middle and the
+    end (all keys, the mask at the rows' absolute positions:
     ``attention_rows_ref``) within the bf16 bound of
-    ``_half_bound_ratio`` — the dense plain version would hold up to 137
+    ``_half_bound_ratio`` — the dense plain version would hold up to 412
     GB of scores a sequence."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     s, r = 32768, 512
@@ -1567,6 +1568,29 @@ def test_flash_kernel_at_32768_tokens_matches_plain_rows(cuda, b, h, kv, hd,
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
         bound = ulp + 2.0 ** -8 * mass + 2e-5
         assert float(((g - want).abs() / bound).max()) <= 1.0, r0
+
+
+def test_flash_f32_kernel_at_32768_tokens_matches_plain_rows(cuda, no_tf32):
+    """The float32 flash kernel (``flash_fwd<192>``, CUDA cores) at the
+    shape of Nemotron-4-340B's float32 prefill_32k check, (1, 32768, 96,
+    8, 192) causal: one launch, held against the plain version on 512
+    query rows at the start, the middle and the end within the float32
+    flash tolerance, 2e-5 absolute (the sums run in another order)."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    s, r = 32768, 512
+    gen = torch.Generator(device=cuda).manual_seed(192)
+    q, k, v = (torch.randn((1, s, n, 192), generator=gen, device=cuda)
+               for n in (96, 8, 8))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    for r0 in (0, (s - r) // 2, s - r):
+        want = fa_ref.attention_rows_ref(q[:, r0:r0 + r], k, v, r0,
+                                         causal=True)
+        err = float((got[:, r0:r0 + r] - want).abs().max())
+        assert err <= 2e-5, (r0, err)
 
 
 def test_flash_kernel_batch_of_mha_sequences_keeps_its_rate(cuda):

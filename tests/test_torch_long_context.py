@@ -89,9 +89,11 @@ def _leaf(tree, path):
 
 def _cache_leaves(cfg):
     """Leaves of a cache tree: keys and values (or MLA's latent and RoPE
-    key) a layer group, the hybrid's SSM states and conv windows too;
-    DeepSeek-V2's dense first layers are a group of their own."""
-    return 6 if cfg.family == "hybrid" else 4 if cfg.first_k_dense else 2
+    key) a layer group, the hybrid's SSM states and conv windows too
+    (Mamba2's alone: the state and three windows); DeepSeek-V2's dense
+    first layers are a group of their own."""
+    return 6 if cfg.family == "hybrid" else 4 if cfg.first_k_dense \
+        or cfg.family == "ssm" else 2
 
 
 def _filled_caches(cfg_j, cfg_t, b, t, seed):
@@ -113,12 +115,14 @@ def _filled_caches(cfg_j, cfg_t, b, t, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("where", ["last", "middle"])
 @pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b", "olmoe_1b_7b",
-                                  "deepseek_v2_236b"])
+                                  "deepseek_v2_236b", "mamba2_1_3b"])
 def test_decode_step_over_a_filled_cache_matches_jax(arch, where, dtype):
     """One step at pos = T - 1 (every row attended) or T / 2 (the rows
     after it masked) over a cache of 1024 rows of seeded draws: the
     logits and every cache leaf (the written slot, the untouched rows,
-    the hybrid's SSM states and conv windows) as the JAX package's."""
+    the hybrid's and Mamba2's SSM states and conv windows) as the JAX
+    package's; batch 2, as the card's decode_32k steps run at batch > 1
+    (Mamba2 at the shape's whole batch of 128)."""
     cfg_j, cfg_t = _cfgs(arch, compute_dtype=dtype)
     params, ours = _params(cfg_j, seed=5)
     b, t = 2, CACHE_ROWS
@@ -142,16 +146,19 @@ def test_decode_step_over_a_filled_cache_matches_jax(arch, where, dtype):
 # decode at decode_32k only (long_500k needs an SSM or the hybrid)
 LAST_POSITION = [("qwen3_4b", 32768), ("qwen3_4b", 524288),
                  ("zamba2_1_2b", 32768), ("zamba2_1_2b", 524288),
-                 ("olmoe_1b_7b", 32768), ("deepseek_v2_236b", 32768)]
+                 ("olmoe_1b_7b", 32768), ("deepseek_v2_236b", 32768),
+                 ("nemotron_4_340b", 32768)]
 # the smoke configs at the published RoPE head dim (MLA's RoPE part,
-# 64, is DeepSeek-V2's qk_rope_head_dim) and the depth of one attention
+# 64, is DeepSeek-V2's qk_rope_head_dim; Nemotron-4-340B's 192, whose
+# half is not a power of two) and the depth of one attention
 # layer: the dense and MoE configs 1 layer, the hybrid one shared
 # application, DeepSeek-V2 its dense first layer and one MoE layer
 LAST_POSITION_CFG = {
     "qwen3_4b": dict(head_dim=128, num_kv_heads=1, num_layers=1),
     "zamba2_1_2b": dict(head_dim=128, num_kv_heads=1, num_layers=2),
     "olmoe_1b_7b": dict(head_dim=128, num_kv_heads=1, num_layers=1),
-    "deepseek_v2_236b": dict(qk_rope_head_dim=64, num_layers=2)}
+    "deepseek_v2_236b": dict(qk_rope_head_dim=64, num_layers=2),
+    "nemotron_4_340b": dict(head_dim=192, num_kv_heads=1, num_layers=1)}
 
 
 @pytest.mark.parametrize("arch,t", LAST_POSITION)
@@ -195,20 +202,25 @@ def test_rope_frequencies_are_the_reference_traced_values(arch):
 
 
 @pytest.mark.parametrize("blocked", [False, True])
-@pytest.mark.parametrize("s,h,kv,causal", [(2048, 4, 2, True),
-                                           (2048, 4, 4, False),
-                                           (4096, 2, 1, True)])
+@pytest.mark.parametrize("s,h,kv,causal,hd", [
+    pytest.param(2048, 4, 2, True, 32, id="2048-4-2-True"),
+    pytest.param(2048, 4, 4, False, 32, id="2048-4-4-False"),
+    pytest.param(4096, 2, 1, True, 32, id="4096-2-1-True"),
+    pytest.param(2048, 12, 1, True, 192, id="2048-12-1-True-hd192")])
 def test_flash_plain_version_at_long_length_matches_jax(monkeypatch, s, h,
-                                                        kv, causal, blocked):
+                                                        kv, causal, hd,
+                                                        blocked):
     """The flash wrapper on CPU tensors (its plain version) against the
     JAX package's dense ``attention_ref``, whole and in blocks of 300
-    query rows (the host's path at 32 768 tokens), float32."""
+    query rows (the host's path at 32 768 tokens), float32; at hd 32,
+    and at Nemotron-4-340B's hd 192 with a group of 12 query heads a KV
+    head (its 96 / 8)."""
     if blocked:
         monkeypatch.setattr(fa_ref, "SCORE_BLOCK_BYTES", 4 * h * s * 300)
     rng = np.random.default_rng(s + h)
-    q = rng.standard_normal((1, s, h, 32)).astype(np.float32)
-    k = rng.standard_normal((1, s, kv, 32)).astype(np.float32)
-    v = rng.standard_normal((1, s, kv, 32)).astype(np.float32)
+    q = rng.standard_normal((1, s, h, hd)).astype(np.float32)
+    k = rng.standard_normal((1, s, kv, hd)).astype(np.float32)
+    v = rng.standard_normal((1, s, kv, hd)).astype(np.float32)
     before = dict(fa_kernel.LAUNCHES)
     got = fa_kernel.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                     torch.from_numpy(v), causal=causal)
@@ -258,7 +270,8 @@ def _rel2(got, want):
                  / max(np.linalg.norm(want), 1e-30))
 
 
-@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b", "olmoe_1b_7b"])
+@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1_2b", "olmoe_1b_7b",
+                                  "mamba2_1_3b", "hubert_xlarge"])
 def test_train_step_at_1024_tokens_matches_jax(arch):
     """One float32 train step on one sequence of 1024 tokens: the loss,
     the gradient norm and the learning rate within 1e-4, every param
