@@ -115,10 +115,11 @@ drives the port's twenty-two paths:
 * the three other dense configs, each as Qwen3-4B above (flash prefill
   against dense, one flash launch a layer; ``BatchedDecoder`` and a
   decode profile; the f32 card-vs-host check) at its published width:
-  StarCoder2-7B at full depth (32 layers, 36 / 4 heads: a group of 9,
-  GELU; 2 x 4096 tokens), then 3 train steps at 8 layers and a float32
-  train step at 2 layers against the host; DeepSeek-67B cut to 24 of 95
-  layers (2 x 4096 tokens); Nemotron-4-340B cut to 4 of 96 layers (96 /
+  StarCoder2-7B at 8 of 32 layers (36 / 4 heads: a group of 9, GELU; 2
+  x 4096 tokens; its shape cells run all 32), then 3 train steps at 8
+  layers and a float32 train step at 2 layers against the host;
+  DeepSeek-67B cut to 8 of 95 layers (2 x 4096 tokens; its shape cells
+  run 24); Nemotron-4-340B cut to 4 of 96 layers (96 /
   8 heads at hd 192 through the bf16 kernel's hd-192 instance, squared
   ReLU; 1 x 2048 tokens; its f32 check at 1 layer and a vocabulary of
   32 768);
@@ -131,18 +132,21 @@ drives the port's twenty-two paths:
   OLMoE's full-width layer (data 1 x model 4) against the host; and
   ``python -m repro_torch.launch.dryrun`` for one cell in a subprocess;
 * the JAX package's four LM input shapes (``configs/base.py`` SHAPES) at
-  published widths and full depth, each at the largest batch one card
-  holds — ``prefill_32k`` on Qwen3-4B (8 x 32 768 tokens, 36 flash
-  launches) and Zamba2-1.2B (4 x 32 768, 6), ``decode_32k`` on
-  Qwen3-4B (batch 12 over a 32 768-row cache), ``long_500k`` on
-  Zamba2-1.2B (a 524 288-row shared cache) and Mamba2-1.3B, and
+  published widths: 29 of the 31 (arch, shape) cells that apply
+  (``SHAPE_CELLS``; ``NOT_ON_ONE_CARD`` gives the two left out, in
+  bytes), each at full depth where one card holds it and at the batch
+  it holds or the script's time allows — e.g. ``prefill_32k`` on
+  Qwen3-4B (8 x 32 768 tokens, 36 flash launches) and InternVL2-26B (2
+  x (256 patches + 32 768 tokens), 48 launches over 33 024 positions),
+  ``decode_32k`` on Qwen3-4B (batch 12 over a 32 768-row cache),
+  ``long_500k`` on Zamba2-1.2B (a 524 288-row shared cache), and
   ``train_4k`` on Qwen3-4B (1 x 4096); each with a float32 step of the
   same path on the card against the host at a cut depth and the full
   length, the decode caches filled with seeded draws (the written slot
   and every other slot checked), a profile, peak memory and the path's
-  roofline; and the flash kernel at 32 768 tokens, held against its
-  plain version on slices of query rows, at batch 1 and on the last
-  sequence of each 32 768-token prefill's first launch.
+  roofline; and the flash kernel at 32 768 tokens (33 024 positions),
+  held against its plain version on slices of query rows, at batch 1
+  and on the last sequence of each prefill's first launch.
 
 It checks answers against the scalar loop, the plain versions, the host
 builders and Dijkstra, the dense attention path, and times every
@@ -3017,10 +3021,12 @@ DENSE_LM = {
     "lm_starcoder2_7b": dict(
         arch="starcoder2_7b", published=(32, 4608, 36, 4, 128, 18432, 49152,
                                          "gelu"),
-        layers=None, prefill=(2, 4096), init="cast",
+        layers=8, prefill=(2, 4096), init="cast",
         tight={**LM_TIGHT, "seed": 61}, launches="flash_attention_starcoder2",
         seed=62, server_seed=63, train=STARCODER2_TRAIN,
-        reduced=["f32 card-vs-host check at 4 of 32 layers",
+        reduced=["depth 32 -> 8 layers: the script's time limit (the "
+                 "shape_*_starcoder2_7b cells run all 32 at 32 768 tokens)",
+                 "f32 card-vs-host check at 4 of 32 layers",
                  "training at 8 of 32 layers: f32 params, grads and AdamW's "
                  "two moments (16 B a parameter) of 2.19 B parameters are "
                  "35 GB; the f32 card-vs-host train step at 2 layers",
@@ -3029,14 +3035,13 @@ DENSE_LM = {
     "lm_deepseek_67b": dict(
         arch="deepseek_67b", published=(95, 8192, 64, 8, 128, 22016, 102400,
                                         "swiglu"),
-        layers=24, prefill=(2, 4096), init="bf16",
+        layers=8, prefill=(2, 4096), init="bf16",
         tight=dict(layers=2, batch=2, tokens=128, host_tokens=32,
                    host_steps=3, vocab=None, seed=71),
         launches="flash_attention_deepseek67b", seed=72, server_seed=73,
-        reduced=["depth 95 -> 24 layers: 24 x 1.38 GB + 3.36 GB of "
-                 "embedding and head = 36.6 GB in bf16, which leaves room "
-                 "for the dense yardstick's f32 scores (8.6 GB a layer at 2 "
-                 "x 4096 x 64 heads, with its softmax copies ~22 GB)",
+        reduced=["depth 95 -> 8 layers: the script's time limit (its "
+                 "shape_prefill_32k and shape_decode_32k cells run 24 "
+                 "layers at 32 768 tokens)",
                  "f32 card-vs-host check at 2 layers"]),
     "lm_nemotron_4_340b": dict(
         arch="nemotron_4_340b", published=(96, 18432, 96, 8, 192, 73728,
@@ -3053,6 +3058,12 @@ DENSE_LM = {
                  "embedding's rows are independent): 18.6 GB in f32 on the "
                  "card and as much on the host"]),
 }
+
+
+# DeepSeek-67B's depth in its shape cells: 24 x 1.38 GB + 3.36 GB of
+# embedding and head = 36.6 GB in bf16, which leaves room for a 32 768-token
+# prefill's transients or a decode cache of 11 sequences
+DEEPSEEK67B_LAYERS = 24
 
 
 def rel_diff(a, b) -> float:
@@ -3434,8 +3445,10 @@ FLASH_TIMED = [("flash_b2_s4096", (2, 4096, 32, 8, 128), True, "bfloat16"),
                 "bfloat16")]
 # the 32 768-token prefills of SHAPES["prefill_32k"] (Qwen3-4B's GQA
 # 32 / 8, Zamba2-1.2B's shared MHA 32 / 32, OLMoE-1B-7B's MHA 16 / 16,
-# HuBERT-XLarge's non-causal hd 80 and Nemotron-4-340B's GQA 96 / 8 at hd
-# 192, the bf16 192 instance): the dense plain version would hold
+# HuBERT-XLarge's non-causal hd 80, Nemotron-4-340B's GQA 96 / 8 at hd
+# 192, the bf16 192 instance, InternVL2-26B's 48 / 8 over 256 patches +
+# 32 768 tokens, StarCoder2-7B's group of 9 and DeepSeek-67B's 64 / 8):
+# the dense plain version would hold
 # (B, H, S, S) float32 scores, up to 412 GB, so these rows hold the
 # kernel against the plain version on FLASH_SLICE_ROWS query rows at the
 # start, the middle and the end (all keys, the mask at the rows'
@@ -3448,6 +3461,12 @@ FLASH_LONG = [("flash_b1_s32768", (1, 32768, 32, 8, 128), True, "bfloat16"),
               ("flash_hubert_b1_s32768", (1, 32768, 16, 16, 80), False,
                "bfloat16"),
               ("flash_nemotron_b1_s32768", (1, 32768, 96, 8, 192), True,
+               "bfloat16"),
+              ("flash_internvl2_b1_s33024", (1, 33024, 48, 8, 128), True,
+               "bfloat16"),
+              ("flash_starcoder2_b1_s32768", (1, 32768, 36, 4, 128), True,
+               "bfloat16"),
+              ("flash_deepseek67b_b1_s32768", (1, 32768, 64, 8, 128), True,
                "bfloat16")]
 FLASH_SLICE_ROWS = 512
 
@@ -3839,10 +3858,11 @@ def train_tight_opt():
     return OptimizerConfig(warmup_steps=1)
 
 
-def train_tight_inputs(torch, arch: str, t: dict):
+def train_tight_inputs(torch, arch: str, t: dict, host: dict | None = None):
     """The float32 train check's config (full width, ``t["layers"]``
-    layers, ``t["vocab"]`` where given), params (drawn on the host), batch
-    and step: the same in every process."""
+    layers, ``t["vocab"]`` where given), params (drawn on the host, or
+    ``host``: the same params as a worker drew them, ``shared_inputs``),
+    batch and step: the same in every process."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -3852,7 +3872,8 @@ def train_tight_inputs(torch, arch: str, t: dict):
     cfg = replace(get_config(arch), num_layers=t["layers"],
                   compute_dtype="float32",
                   **({"vocab_size": t["vocab"]} if t.get("vocab") else {}))
-    host = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    if host is None:
+        host = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     batch = synthetic_batch(cfg, DataConfig(t["tokens"], t["batch"], seed=2),
                             0)
     return cfg, host, batch, make_train_step(cfg, train_tight_opt())
@@ -3887,7 +3908,9 @@ def lm_train_tight(torch, dev, arch: str = LM_ARCH,
     ``start_host_checks``)."""
     from repro_torch.train.data import to_device
     from repro_torch.train.optimizer import adamw_update, init_opt_state
-    cfg, host, batch, step = train_tight_inputs(torch, arch, t)
+    shared = shared_inputs(torch, pending)
+    cfg, host, batch, step = train_tight_inputs(
+        torch, arch, t, shared["params"] if shared else None)
     card = _copy_tree(host, dev)
     t0 = time.perf_counter()
     with routing_recorder(torch) as on_card, step_gradients(torch) as gc:
@@ -3951,12 +3974,15 @@ def lm_train_tight(torch, dev, arch: str = LM_ARCH,
     check(worst <= LM_TRAIN_REL, f"f32 train step on the card vs the host: "
           f"{worst} > {LM_TRAIN_REL} ({rels}, {leaves}, {by_stage})")
     return {"layers": t["layers"], "batch": t["batch"],
-            "tokens": t["tokens"], "vocab": cfg.vocab_size,
+            "tokens": t["tokens"],
+            "positions": prefill_positions(cfg, t["tokens"]),
+            "vocab": cfg.vocab_size,
             "loss": float(mc["loss"]),
             "loss_rel": rels["loss"], "grad_norm_rel": rels["grad_norm"],
             "param_rel2_max": max(leaves.values()),
             "param_rel2": leaves, "held_by_stage": by_stage,
             "tolerance_rel": LM_TRAIN_REL, **routed,
+            "inputs_from_worker": bool(shared),
             "card_step_s": card_s, "host_step_s": host_s,
             **wait,
             "measure": "loss, grad_norm: max |a-b| / max |b|; params after "
@@ -4147,6 +4173,13 @@ def train_full_depth(torch, dev, arch: str, tr: dict, seed: int,
     state_gb = torch.cuda.memory_allocated() / 1e9
     batch = to_device(synthetic_batch(
         cfg, DataConfig(tr["tokens"], tr["batch"], seed=seed), 0), dev)
+    if cfg.frontend == "patch":
+        # the patches go before the tokens; the loss scores the tokens
+        check(tuple(batch["patches"].shape) == (tr["batch"], cfg.num_patches,
+                                                cfg.d_model)
+              and batch["patches"].dtype == torch.float32
+              and batch["labels"].shape == batch["tokens"].shape,
+              f"{arch} train batch: {batch['patches'].shape}")
     step = tts.make_train_step(cfg, OptimizerConfig(
         peak_lr=tr["peak_lr"], warmup_steps=1))
     losses, step_s, fwd_bwd_ms, opt_ms = [], [], [], []
@@ -4178,7 +4211,9 @@ def train_full_depth(torch, dev, arch: str, tr: dict, seed: int,
     return {"layers": cfg.num_layers, "published_layers":
             get_config(arch).num_layers, "params_in_tree": n_params,
             "init_s": init_s, "state_gb": state_gb, "batch": tr["batch"],
-            "tokens": tr["tokens"], "peak_lr": tr["peak_lr"],
+            "tokens": tr["tokens"],
+            "positions": prefill_positions(cfg, tr["tokens"]),
+            "peak_lr": tr["peak_lr"],
             "losses": losses, "ln_vocab": ln_v, "step_s": step_s,
             "ms_per_step": 1e3 * warm, "fwd_bwd_ms": fwd_bwd_ms,
             "optimizer_ms": opt_ms,
@@ -5102,6 +5137,8 @@ def phase_lm_zamba2(torch, dev, launches: dict) -> dict:
 # that shape whose contents are data, and filling it token by token
 # through decode_step (as serving does) would take 32 767 eager steps, or
 # 524 287.
+# why a prefill cell runs fewer sequences than the card holds
+TIME_CUT = "the script's time limit (the card holds more)"
 SHAPE_CELLS = {
     "shape_prefill_32k_qwen3_4b": dict(
         shape="prefill_32k", arch=LM_ARCH, batch=8, seed=131,
@@ -5185,7 +5222,7 @@ SHAPE_CELLS = {
         shape="train_4k", arch=MAMBA_ARCH, batch=1, seed=159,
         train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
         tight=dict(layers=1, batch=1, tokens=4096, vocab=None,
-                   host_worker="moe")),
+                   host_worker="train")),
     "shape_train_4k_zamba2_1_2b": dict(
         shape="train_4k", arch=ZAMBA_ARCH, batch=1, seed=160,
         train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
@@ -5205,12 +5242,95 @@ SHAPE_CELLS = {
         layers=DENSE_LM["lm_nemotron_4_340b"]["layers"], seed=162,
         tight=dict(rows="flash", layers=1, batch=1, seed=163, vocab=32768),
         launches="flash_attention_prefill_32k_nemotron"),
+    # InternVL2-26B (256 patch embeddings before the text: its prefill
+    # attends over 33 024 positions, its train step over 4352 and scores
+    # the 4096 text positions), StarCoder2-7B (GQA 36 / 4, a group of 9),
+    # DeepSeek-67B (64 / 8) and Nemotron-4-340B's decode (hd 192), each
+    # batch and depth reckoned from bytes in PERF.md section 4: a
+    # prefill's batch is cut for the script's time; DeepSeek-67B runs
+    # DEEPSEEK67B_LAYERS and Nemotron-4-340B its lm_* phase's 4; the train
+    # cells run the depth whose 16 B of float32 state a parameter, with
+    # the dense f32 scores' backward, one card holds. The prefill checks
+    # hold row slices of the first attention layer (a whole host pass at
+    # 32 768 tokens and these widths would take minutes); Nemotron's
+    # decode check runs 1 layer at a cut vocabulary (2 layers and the
+    # published 256 000 rows are 65 GB of float32 params, which the host
+    # would hold beside the train checks' workers); DeepSeek-67B's and
+    # InternVL2's train checks cut the vocabulary for their host halves'
+    # time and memory (the embedding's rows are independent). The train
+    # checks' host halves run last in their workers: StarCoder2's and
+    # InternVL2's one after the other in "moe", DeepSeek-67B's in
+    # "prefill", so that at most two of them hold the host's memory at
+    # once; Mamba2-1.3B's train check runs in "train", which frees first,
+    # so that InternVL2's is ready before its cell
+    "shape_prefill_32k_internvl2_26b": dict(
+        shape="prefill_32k", arch=VLM_ARCH, batch=2, seed=164,
+        batch_cut=TIME_CUT,
+        tight=dict(rows="flash", layers=1, batch=1, seed=165),
+        launches="flash_attention_prefill_32k_internvl2"),
+    "shape_prefill_32k_starcoder2_7b": dict(
+        shape="prefill_32k", arch="starcoder2_7b", batch=2, seed=166,
+        batch_cut=TIME_CUT,
+        tight=dict(rows="flash", layers=1, batch=1, seed=167),
+        launches="flash_attention_prefill_32k_starcoder2"),
+    "shape_prefill_32k_deepseek_67b": dict(
+        shape="prefill_32k", arch="deepseek_67b", batch=2,
+        layers=DEEPSEEK67B_LAYERS, seed=168,
+        batch_cut=TIME_CUT,
+        tight=dict(rows="flash", layers=1, batch=1, seed=169),
+        launches="flash_attention_prefill_32k_deepseek67b"),
+    "shape_decode_32k_internvl2_26b": dict(
+        shape="decode_32k", arch=VLM_ARCH, batch=5, seed=170,
+        tight=dict(layers=2, batch=1, seed=171)),
+    "shape_decode_32k_starcoder2_7b": dict(
+        shape="decode_32k", arch="starcoder2_7b", batch=24, seed=172,
+        tight=dict(layers=2, batch=1, seed=173)),
+    "shape_decode_32k_deepseek_67b": dict(
+        shape="decode_32k", arch="deepseek_67b", batch=11,
+        layers=DEEPSEEK67B_LAYERS, seed=174,
+        tight=dict(layers=2, batch=1, seed=175)),
+    "shape_decode_32k_nemotron_4_340b": dict(
+        shape="decode_32k", arch="nemotron_4_340b", batch=28,
+        layers=DENSE_LM["lm_nemotron_4_340b"]["layers"], seed=176,
+        tight=dict(layers=1, batch=1, seed=177, vocab=32768)),
+    "shape_train_4k_starcoder2_7b": dict(
+        shape="train_4k", arch="starcoder2_7b", batch=1, layers=15,
+        seed=178, train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
+        tight=dict(layers=1, batch=1, tokens=4096, vocab=None,
+                   host_worker="moe")),
+    "shape_train_4k_deepseek_67b": dict(
+        shape="train_4k", arch="deepseek_67b", batch=1, layers=2, seed=179,
+        train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
+        tight=dict(layers=1, batch=1, tokens=4096, vocab=32768,
+                   host_worker="prefill")),
+    "shape_train_4k_internvl2_26b": dict(
+        shape="train_4k", arch=VLM_ARCH, batch=1, layers=6, seed=180,
+        train=dict(batch=1, tokens=4096, steps=3, peak_lr=1e-3),
+        tight=dict(layers=1, batch=1, tokens=4096, vocab=32768,
+                   host_worker="moe")),
+}
+# the SHAPES cells that applies to a config but one card cannot run at
+# any depth: (arch, shape) -> why, in bytes. A train_4k cell holds 16 B
+# of float32 state a parameter (the param, its gradient and AdamW's two
+# moments) of the embedding and the head at least, and a whole layer
+NOT_ON_ONE_CARD = {
+    ("nemotron_4_340b", "train_4k"): (
+        "the embedding and the head alone are 2 x 256 000 x 18 432 = 9.44 "
+        "B parameters, 151 GB of float32 state; one layer (3.45 B "
+        "parameters) 55.3 GB more; one card holds 80 GB"),
+    ("deepseek_v2_236b", "train_4k"): (
+        "the embedding and the head are 2 x 102 400 x 5120 = 1.05 B "
+        "parameters, 16.8 GB of float32 state, and one MoE layer's 160 "
+        "experts 3.77 B parameters, 60.4 GB: 77 GB before any activation "
+        "on a card of 80 GB"),
 }
 # the worker processes of the cells' host halves and their threads: the
 # jobs of one worker run one after another, in SHAPE_CELLS' order (the
 # host's 8 cores also serve the NY-scale ingest check's two workers and
 # the LM phases' launches); "roofline" probes every cell's path on fake
-# tensors (path_probe: 0.2–14 s of host time a cell) ahead of it
+# tensors (path_probe: 0.2–14 s of host time a cell) ahead of it. Each
+# result carries its worker's peak resident memory so far
+# (host_max_rss_gb): the host has 96 GiB
 HOST_WORKERS = {"prefill": 4, "train": 2, "moe": 2, "roofline": 1}
 # the host halves of earlier phases' float32 train steps (LM_TRAIN_TIGHT),
 # run in the "train" worker ahead of train_4k's: (phase, arch)
@@ -5237,8 +5357,34 @@ def shape_out(name: str, spec: dict, full, shape, cfg, batch: int,
             "shape_global_batch": shape.global_batch, "arch": spec["arch"],
             "batch": batch, "layers": cfg.num_layers,
             "published_layers": full.num_layers, "d_model": cfg.d_model,
-            "reduced": [f"batch {shape.global_batch} -> {batch}: one card"]
+            "reduced": [f"batch {shape.global_batch} -> {batch}: "
+                        + spec.get("batch_cut", "one card")]
             * (batch != shape.global_batch) + reduced}
+
+
+@contextlib.contextmanager
+def whole_large_blocks(torch):
+    """While active, the caching allocator splits no cached block of 1 GiB
+    or more (``max_split_size_mb``): a large request takes a cached block
+    of its own size or a new one, and when the card is full the cached
+    whole blocks are freed first; after it, the cache is emptied. A
+    decode cell runs in it: otherwise a bf16 draw (``bf16_params``)
+    splits the blocks its float32 transients leave (21.7 GB for one of
+    Nemotron-4-340B's stacked FFN weights) to hold the bf16 weights drawn
+    after them, and the holes left, together 22.6 GiB, were none large
+    enough for a decode cache's 10.5 GiB of keys or values; and a step's
+    own transients (MLA's expanded keys and values, 16 GiB each at
+    DeepSeek-V2's batch 16) must not be split either, once the weights
+    leave no holes for them."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("max_split_size_mb:1024")
+    try:
+        yield
+    finally:
+        # the default: no block is too large to split
+        torch.cuda.memory._set_allocator_settings(
+            "max_split_size_mb:2147483647")
+        torch.cuda.empty_cache()
 
 
 def bf16_params(torch, dev, cfg, seed: int):
@@ -5346,20 +5492,48 @@ def kv_slots_check(torch, cache: dict, seed: int, dev, pos: int) -> dict:
             "other_slots_unchanged": True, "written_slot_changed": True}
 
 
-def prefill_tight_inputs(torch, arch: str, s: int, t: dict):
+def prefill_tight_inputs(torch, arch: str, s: int, t: dict,
+                         shared: dict | None = None):
     """The float32 prefill check's config (full width, ``t["layers"]``
     layers, flash attention), params and ``t["batch"]`` x ``s`` tokens,
-    drawn on the host from ``t["seed"]``: the same in every process."""
+    drawn on the host from ``t["seed"]`` (or ``shared``: the same params
+    and tokens as a worker drew them, ``shared_inputs``): the same in
+    every process."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import init_params
     cfg = replace(get_config(arch), num_layers=t["layers"],
                   compute_dtype="float32", attention_impl="flash")
+    if shared is not None:
+        return cfg, shared["params"], shared["tokens"]
     gen = torch.Generator().manual_seed(t["seed"])
     params = init_params(cfg, gen, "cpu")
     tok = torch.randint(0, cfg.vocab_size, (t["batch"], s), generator=gen)
     return cfg, params, tok
+
+
+def share_inputs(torch, inputs: dict, out: str) -> None:
+    """(Worker process.) A job's inputs, saved beside its result's file
+    before the job runs, for ``shared_inputs``."""
+    torch.save(inputs, out + ".inputs.part")
+    os.replace(out + ".inputs.part", out + ".inputs")
+
+
+def shared_inputs(torch, pending: tuple | None) -> dict | None:
+    """The inputs the worker of ``pending`` drew for its job
+    (``share_inputs``), mapped from their file, which is removed; None
+    where the worker has not come to that job yet, and the caller draws
+    the same inputs itself. Drawing float32 params of a layer and a
+    vocabulary at full width on one host core takes 4–10 s."""
+    if pending is None:
+        return None
+    path = Path(f"{pending[1]}.inputs")
+    if not path.exists():
+        return None
+    inputs = torch.load(path, mmap=True)
+    path.unlink()
+    return inputs
 
 
 def host_check_work(jobs: list, threads: int) -> None:
@@ -5376,6 +5550,7 @@ def host_check_work(jobs: list, threads: int) -> None:
     ``train_tight_inputs``, its gradients (and an MoE config's routing);
     for ``roofline`` a cell's ``path_probe``; and its seconds and
     wall-clock end."""
+    import resource
     sys.path.insert(0, str(SRC))
     import torch
 
@@ -5388,6 +5563,7 @@ def host_check_work(jobs: list, threads: int) -> None:
         t0 = time.perf_counter()
         if kind == "prefill_32k":
             cfg, params, tok = prefill_tight_inputs(torch, arch, s, t)
+            share_inputs(torch, {"params": params, "tokens": tok}, out)
             if cfg.num_experts:
                 with routing_recorder(torch) as routing:
                     result = {"hidden": forward(params, cfg,
@@ -5403,6 +5579,7 @@ def host_check_work(jobs: list, threads: int) -> None:
                                            t["batch"], s)}
         else:
             _, params, batch, step = train_tight_inputs(torch, arch, t)
+            share_inputs(torch, {"params": params}, out)  # before the step
             with routing_recorder(torch) as routing, \
                     step_gradients(torch) as grads:
                 p, _, m = step(params, init_opt_state(params),
@@ -5411,6 +5588,8 @@ def host_check_work(jobs: list, threads: int) -> None:
                       "grads": grads[0]}
         result["seconds"] = time.perf_counter() - t0
         result["done_at"] = time.time()
+        result["max_rss_gb"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1e6       # kB on Linux
         torch.save(result, out + ".part")
         os.replace(out + ".part", out)
         del result
@@ -5451,6 +5630,7 @@ def start_host_checks() -> dict:
         outs = {job[0]: GR_DIR / f"{job[0]}_host.pt" for job in mine}
         for out in outs.values():
             out.unlink(missing_ok=True)
+            Path(f"{out}.inputs").unlink(missing_ok=True)
         worker = multiprocessing.get_context("spawn").Process(
             target=host_check_work, daemon=True,
             args=([(kind, arch, s, t, str(outs[name]))
@@ -5478,8 +5658,11 @@ def wait_host_check(torch, pending: tuple) -> tuple[dict, dict]:
     # leaf is held stage by stage
     result = torch.load(out, mmap=True)
     out.unlink()
+    # the job's inputs, where the caller drew its own (shared_inputs)
+    Path(f"{out}.inputs").unlink(missing_ok=True)
     return result, {"host_threads": threads, "waited_s": waited_s,
-                    "host_ready_after_s": result["done_at"] - started}
+                    "host_ready_after_s": result["done_at"] - started,
+                    "host_max_rss_gb": result.get("max_rss_gb")}
 
 
 def attention_applications(cfg) -> int:
@@ -5529,7 +5712,8 @@ def prefill_tight_long(torch, dev, arch: str, s: int, t: dict,
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.models.lm import forward
     from repro_torch.train.train_step import make_prefill_step
-    cfg, host, tok = prefill_tight_inputs(torch, arch, s, t)
+    shared = shared_inputs(torch, pending)
+    cfg, host, tok = prefill_tight_inputs(torch, arch, s, t, shared)
     params = _copy_tree(host, dev)
     del host
     step = make_prefill_step(cfg)
@@ -5577,7 +5761,7 @@ def prefill_tight_long(torch, dev, arch: str, s: int, t: dict,
     del params
     return {"layers": t["layers"], "batch": t["batch"], "tokens": s,
             "flash_launches": launched, "rel": rel,
-            "tolerance_rel": LM_TIGHT_REL,
+            "tolerance_rel": LM_TIGHT_REL, "inputs_from_worker": bool(shared),
             "card_s": card_s[0], "host_s": host_s, **wait, **compared}
 
 
@@ -5655,7 +5839,7 @@ def mla_rows_check(torch, dev, arch: str, s: int, t: dict,
             "seed; the host's rows in a worker process"}
 
 
-def flash_rows_check(torch, dev, arch: str, s: int, t: dict):
+def flash_rows_check(torch, dev, arch: str, s: int, t: dict, rows_pool):
     """float32, full width, ``t["layers"]`` layer(s) (and ``t["vocab"]``,
     where given): one prefill of ``t["batch"]`` x ``s`` frames (or
     tokens) through ``make_prefill_step`` on the card, weights and inputs
@@ -5663,10 +5847,11 @@ def flash_rows_check(torch, dev, arch: str, s: int, t: dict):
     float32 flash kernel; that launch's output held against the plain
     version on the host on the rows of ``slice_starts`` at the full key
     length (a whole host pass of the layer would take minutes). The host
-    computes its rows in a thread started here; returns ``finish()``,
-    which waits for that thread (the caller runs the main path on the
-    card meanwhile) and compares."""
-    import threading
+    computes its rows on ``rows_pool``, an executor of one thread that
+    runs the checks' rows one after another (at once, their threads
+    starved the main path's launches); returns ``finish()``, which waits
+    for them (the caller runs the main path on the card meanwhile) and
+    compares."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -5690,7 +5875,10 @@ def flash_rows_check(torch, dev, arch: str, s: int, t: dict):
           and bool(torch.isfinite(logits).all()), f"f32 {arch} prefill at "
           f"{s}: {launched} flash launches")
     del params, batch, logits
-    r, starts, causal = FLASH_SLICE_ROWS, slice_starts(s), kept["causal"]
+    n = kept["q"].shape[1]                      # + the patches, if any
+    check(n == prefill_positions(cfg, s), f"f32 {arch}: the first flash "
+          f"call attended over {n} positions")
+    r, starts, causal = FLASH_SLICE_ROWS, slice_starts(n), kept["causal"]
     k, v = kept["k"].cpu(), kept["v"].cpu()
     qs = [kept["q"][:, r0:r0 + r].cpu() for r0 in starts]
     got = [kept["out"][:, r0:r0 + r].cpu() for r0 in starts]
@@ -5703,21 +5891,20 @@ def flash_rows_check(torch, dev, arch: str, s: int, t: dict):
                         for q, r0 in zip(qs, starts)]
         host["s"] = time.perf_counter() - t0
 
-    thread = threading.Thread(target=host_rows, daemon=True)
-    thread.start()
+    rows = rows_pool.submit(host_rows)
 
     def finish() -> dict:
         t0 = time.perf_counter()
-        thread.join(HOST_CHECK_TIMEOUT_S)
+        rows.result(HOST_CHECK_TIMEOUT_S)
         waited_s = time.perf_counter() - t0
-        check("rows" in host, f"f32 {arch}: the host's rows did not finish")
         rels = [rel_diff(a, b) for a, b in zip(got, host["rows"])]
         errs = [max_abs_err(a, b) for a, b in zip(got, host["rows"])]
         rel = max(rels)
         check(rel <= LM_TIGHT_REL, f"f32 {arch} first attention layer at "
               f"{s}, card vs host: {rels} > {LM_TIGHT_REL}")
         return {"layers": t["layers"], "batch": t["batch"], "tokens": s,
-                "vocab": cfg.vocab_size, "flash_launches": launched,
+                "positions": n, "vocab": cfg.vocab_size,
+                "flash_launches": launched,
                 "causal": causal, "slice_rows": r,
                 "slice_starts": list(starts), "rel_by_slice": rels,
                 "max_abs_err": max(errs), "rel": rel,
@@ -5733,28 +5920,42 @@ def flash_rows_check(torch, dev, arch: str, s: int, t: dict):
 
 def lm_inputs(torch, cfg, b: int, s: int, gen, dev) -> dict:
     """A prefill's batch drawn from ``gen``: ``b`` x ``s`` frames of unit
-    variance for the ``frame`` frontend (HuBERT), else tokens."""
+    variance for the ``frame`` frontend (HuBERT), else tokens, and for
+    the ``patch`` frontend (InternVL2) then ``b`` x ``num_patches``
+    patch embeddings of unit variance in float32, the inputs the JAX
+    package's ``launch/specs.py`` ``batch_specs`` gives a VLM cell."""
     if cfg.frontend == "frame":
         return {"frames": torch.randn((b, s, cfg.d_model), generator=gen,
                                       device=gen.device).to(dev)}
-    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
-                                    generator=gen,
-                                    device=gen.device).to(dev)}
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                   device=gen.device).to(dev)}
+    if cfg.frontend == "patch":
+        out["patches"] = torch.randn((b, cfg.num_patches, cfg.d_model),
+                                     generator=gen, device=gen.device,
+                                     dtype=torch.float32).to(dev)
+    return out
+
+
+def prefill_positions(cfg, s: int) -> int:
+    """Positions a prefill of ``s`` tokens attends over: the patches
+    before the text for the ``patch`` frontend."""
+    return s + (cfg.num_patches if cfg.frontend == "patch" else 0)
 
 
 def decode_tight_long(torch, dev, arch: str, max_len: int, t: dict) -> dict:
-    """float32, full width, ``t["layers"]`` layers: one ``decode_step``
-    at pos = max_len - 1 over a cache of ``max_len`` rows filled by
-    ``fill_cache``, on the card and on the host from the same params,
-    cache and token; the logits and every written cache entry (the
-    slot's keys and values, the SSM states and conv windows) card vs
-    host."""
+    """float32, full width, ``t["layers"]`` layers (and ``t["vocab"]``,
+    where given): one ``decode_step`` at pos = max_len - 1 over a cache
+    of ``max_len`` rows filled by ``fill_cache``, on the card and on the
+    host from the same params, cache and token; the logits and every
+    written cache entry (the slot's keys and values, the SSM states and
+    conv windows) card vs host."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import decode_step, init_cache, init_params
     cfg = replace(get_config(arch), num_layers=t["layers"],
-                  compute_dtype="float32")
+                  compute_dtype="float32",
+                  **({"vocab_size": t["vocab"]} if t.get("vocab") else {}))
     gen = torch.Generator(device=dev).manual_seed(t["seed"])
     params = init_params(cfg, gen, dev)
     host = _copy_tree(params, "cpu")
@@ -5796,7 +5997,8 @@ def decode_tight_long(torch, dev, arch: str, max_len: int, t: dict) -> dict:
           f"host: logits {rel}, cache {entries} > {LM_TIGHT_REL}")
     del params, host, cache, host_cache
     return {"layers": t["layers"], "batch": t["batch"], "cache_rows": max_len,
-            "pos": pos, "cache_gb_f32": cache_gb, "logits_rel": rel,
+            "vocab": cfg.vocab_size, "pos": pos, "cache_gb_f32": cache_gb,
+            "logits_rel": rel,
             "written_cache_rel": entries, "tolerance_rel": LM_TIGHT_REL,
             **({"assignments": t["batch"] * cfg.experts_per_token
                 * len(on_card), "assignments_routed_differently": differ,
@@ -5871,8 +6073,11 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
     if apps:
         # the main path's own first launch, at its batch, against the
         # plain version on the row slices of its last sequence
-        check(kept.get("batch") == b, f"{name}: the first flash call had "
-              f"batch {kept.get('batch')}, not {b}")
+        check(kept.get("batch") == b
+              and kept["q"].shape[1] == prefill_positions(cfg, s),
+              f"{name}: the first flash call had batch {kept.get('batch')} "
+              f"and {kept['q'].shape[1]} positions, not {b} and "
+              f"{prefill_positions(cfg, s)}")
         t0 = time.perf_counter()
         held = flash_slices_check(torch, kept["out"], kept["q"], kept["k"],
                                   kept["v"], kept["causal"])
@@ -5909,12 +6114,16 @@ def phase_shape_prefill(torch, dev, launches: dict, name: str,
             "tight_f32": tight, "first_flash_last_sequence": held,
             "prefill_s": secs,
             "tokens": b * s, "tokens_per_s": b * s / secs,
+            "positions": b * prefill_positions(cfg, s),
+            "positions_per_s": b * prefill_positions(cfg, s) / secs,
             "flash_launches": launches[key],
             "max_memory_allocated_gb": peak_gb, "profile": prof,
             "roofline": roofline, "steps_s": steps_s,
             "timer": "prefill_s: host clock between synchronisations of "
             "the main path's one call (the first at the shape), which runs "
-            "under torch.profiler (profile)", "ok": True}
+            "under torch.profiler (profile); tokens_per_s counts text "
+            "tokens, positions_per_s the patches before them too",
+            "ok": True}
 
 
 def phase_shape_decode(torch, dev, name: str, pending: dict) -> dict:
@@ -5936,11 +6145,17 @@ def phase_shape_decode(torch, dev, name: str, pending: dict) -> dict:
     spec = SHAPE_CELLS[name]
     full, shape = shape_config(spec)
     t_len, b = shape.seq_len, spec["batch"]
+    steps_s = {}
+    t0 = time.perf_counter()
     tight = decode_tight_long(torch, dev, spec["arch"], t_len, spec["tight"])
     torch.cuda.empty_cache()
+    steps_s["tight_f32"] = time.perf_counter() - t0
     cfg = replace(full, num_layers=spec.get("layers", full.num_layers))
     params, gen, init_s, w_bytes = bf16_params(torch, dev, cfg, spec["seed"])
+    t0 = time.perf_counter()
     cache = init_cache(cfg, b, t_len, dev)
+    sync(torch, dev)
+    steps_s["cache_alloc"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     fill_cache(torch, cache, spec["seed"] + 1, dev)
     sync(torch, dev)
@@ -5958,13 +6173,17 @@ def phase_shape_decode(torch, dev, name: str, pending: dict) -> dict:
     check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), f"{name} logits")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
     slots = kv_slots_check(torch, cache, spec["seed"] + 1, dev, pos) \
         if cfg.family != "ssm" else \
         {"kv_leaves_checked": 0, "note": "no attention cache (SSM)"}
+    steps_s["slots_check"] = time.perf_counter() - t0
     _, step_s = timed(torch, lambda: decode_step(params, cfg, cache, tok,
                                                  pos), SHAPE_DECODE_STEPS)
+    t0 = time.perf_counter()
     prof = device_profile(
         torch, lambda: decode_step(params, cfg, cache, tok, pos), 3)
+    steps_s["profiled"] = time.perf_counter() - t0
     # one more step at the same pos and token (the same routing; the slot
     # written again with the same values) records which experts it runs
     with routing_recorder(torch) as routing:
@@ -6021,11 +6240,14 @@ def phase_shape_decode(torch, dev, name: str, pending: dict) -> dict:
         * (cfg.num_layers != full.num_layers)
     reduced.append(f"f32 card-vs-host step at {tight['layers']} of "
                    f"{full.num_layers} layers, batch {tight['batch']}, the "
-                   f"full {tight['cache_rows']} cache rows")
+                   f"full {tight['cache_rows']} cache rows"
+                   + (f", vocabulary {tight['vocab']} of {full.vocab_size}"
+                      if tight["vocab"] != full.vocab_size else ""))
     return {**shape_out(name, spec, full, shape, cfg, b, reduced),
             "weights_gb_bf16": w_bytes / 1e9, "init_s": init_s,
             "tight_f32": tight, "cache_gb": cache_bytes / 1e9,
-            "cache_fill_s": fill_s, "pos": pos, "slots": slots,
+            "cache_fill_s": fill_s, "steps_s": steps_s, "pos": pos,
+            "slots": slots,
             "first_step_ms": 1e3 * first[0],
             "step_ms": [1e3 * x for x in step_s],
             "ms_per_step": step_ms, "tokens_per_s": b / step_ms * 1e3,
@@ -6071,7 +6293,13 @@ def phase_shape_train(torch, dev, name: str, pending: dict) -> dict:
     reduced = [f"layers {full.num_layers} -> {layers}: one card's 80 GB "
                f"(16 B of float32 state a parameter)"] * bool(layers)
     reduced.append(f"f32 card-vs-host step at {tight['layers']} of "
-                   f"{full.num_layers} layers, {tight['tokens']} tokens")
+                   f"{full.num_layers} layers, {tight['tokens']} tokens"
+                   + (f" after {tight['positions'] - tight['tokens']} "
+                      "patches" if tight["positions"] != tight["tokens"]
+                      else "")
+                   + (f", vocabulary {tight['vocab']} of {full.vocab_size}: "
+                      "the host half's time and memory" if tight["vocab"]
+                      != full.vocab_size else ""))
     cfg = replace(full, num_layers=layers or full.num_layers)
     return {**shape_out(name, spec, full, shape, cfg, tr["batch"], reduced),
             "tight_f32": tight, **train,
@@ -6081,34 +6309,51 @@ def phase_shape_train(torch, dev, name: str, pending: dict) -> dict:
             "ok": True}
 
 
+def host_memory() -> dict:
+    """The host's available memory now and this process's peak resident
+    memory so far, GB (the workers report theirs with each result)."""
+    import resource
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return {"available_gb": int(info["MemAvailable"].split()[0]) / 1e6,
+            "main_max_rss_gb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 1e6}
+
+
 def phase_shapes(torch, dev, launches: dict, pending: dict,
                  errs: dict) -> list:
     """Every cell of SHAPE_CELLS, one phase line each, freeing the card
     between them; ``pending``: ``start_host_checks``' workers. The card
     halves of the ``rows="flash"`` checks run first, so that their host
-    rows (a thread each, ``flash_rows_check``) run beside the cells."""
+    rows (one thread, in the cells' order: ``flash_rows_check``) run
+    beside the cells."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.configs.base import SHAPES
-    rows = {name: flash_rows_check(torch, dev, spec["arch"],
-                                   SHAPES[spec["shape"]].seq_len,
-                                   spec["tight"])
-            for name, spec in SHAPE_CELLS.items()
-            if spec["tight"].get("rows") == "flash"}
-    torch.cuda.empty_cache()
-    out = []
-    for name, spec in SHAPE_CELLS.items():
-        kind = spec["shape"]
-        t0 = time.perf_counter()
-        if kind == "prefill_32k":
-            row = phase_shape_prefill(torch, dev, launches, name, pending,
-                                      errs, rows.get(name))
-        elif kind == "train_4k":
-            row = phase_shape_train(torch, dev, name, pending)
-        else:
-            row = phase_shape_decode(torch, dev, name, pending)
-        row["phase_s"] = time.perf_counter() - t0
-        emit(row)
-        out.append(row)
+    with ThreadPoolExecutor(max_workers=1) as rows_pool:
+        rows = {name: flash_rows_check(torch, dev, spec["arch"],
+                                       SHAPES[spec["shape"]].seq_len,
+                                       spec["tight"], rows_pool)
+                for name, spec in SHAPE_CELLS.items()
+                if spec["tight"].get("rows") == "flash"}
         torch.cuda.empty_cache()
+        out = []
+        for name, spec in SHAPE_CELLS.items():
+            kind = spec["shape"]
+            t0 = time.perf_counter()
+            if kind == "prefill_32k":
+                row = phase_shape_prefill(torch, dev, launches, name,
+                                          pending, errs, rows.get(name))
+            elif kind == "train_4k":
+                row = phase_shape_train(torch, dev, name, pending)
+            else:
+                with whole_large_blocks(torch):
+                    row = phase_shape_decode(torch, dev, name, pending)
+            row["phase_s"] = time.perf_counter() - t0
+            row["host_memory"] = host_memory()
+            emit(row)
+            out.append(row)
+            torch.cuda.empty_cache()
     return out
 
 

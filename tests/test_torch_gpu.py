@@ -1528,25 +1528,33 @@ def test_zamba2_flash_prefill_on_card_matches_dense(cuda, no_tf32):
 
 # -- the long-context shapes (slice 17) ----------------------------------------
 
-@pytest.mark.parametrize("b,h,kv,hd,causal", [
-    (1, 32, 8, 128, True), (8, 32, 8, 128, True), (1, 32, 32, 128, True),
-    (4, 32, 32, 128, True), (1, 16, 16, 128, True), (8, 16, 16, 128, True),
-    (1, 16, 16, 80, False), (8, 16, 16, 80, False), (1, 96, 8, 192, True)])
+@pytest.mark.parametrize("b,h,kv,hd,causal,s", [
+    pytest.param(*case, 32768, id="-".join(map(str, case))) for case in (
+        (1, 32, 8, 128, True), (8, 32, 8, 128, True), (1, 32, 32, 128, True),
+        (4, 32, 32, 128, True), (1, 16, 16, 128, True),
+        (8, 16, 16, 128, True), (1, 16, 16, 80, False),
+        (8, 16, 16, 80, False), (1, 96, 8, 192, True))] + [
+    (1, 48, 8, 128, True, 33024), (2, 48, 8, 128, True, 33024),
+    (1, 36, 4, 128, True, 32768), (4, 36, 4, 128, True, 32768),
+    (1, 64, 8, 128, True, 32768), (2, 64, 8, 128, True, 32768)])
 def test_flash_kernel_at_32768_tokens_matches_plain_rows(cuda, b, h, kv, hd,
-                                                         causal):
+                                                         causal, s):
     """bf16 flash at prefill_32k's length (Qwen3-4B's GQA 32 / 8,
     Zamba2-1.2B's shared MHA 32 / 32 and OLMoE-1B-7B's MHA 16 / 16, hd
     128, causal; HuBERT-XLarge's 16 / 16 at hd 80 in its own instance,
     non-causal; Nemotron-4-340B's GQA 96 / 8 at hd 192 in the 192
-    instance, causal), at batch 1 and at the batch each prefill_32k path
-    runs (8, 4): one launch of the kernel, its last sequence held against
-    the plain version on 512 query rows at the start, the middle and the
-    end (all keys, the mask at the rows' absolute positions:
+    instance, causal; InternVL2-26B's 48 / 8 over its 256 patches and
+    32 768 tokens, 33 024 positions, not a power of two;
+    StarCoder2-7B's 36 / 4, a group of 9; DeepSeek-67B's 64 / 8), at
+    batch 1 and at the batch each prefill_32k path runs (8, 4, 2): one
+    launch of the kernel, its last sequence held against the plain
+    version on 512 query rows at the start, the middle and the end (all
+    keys, the mask at the rows' absolute positions:
     ``attention_rows_ref``) within the bf16 bound of
     ``_half_bound_ratio`` — the dense plain version would hold up to 412
     GB of scores a sequence."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
-    s, r = 32768, 512
+    r = 512
     gen = torch.Generator(device=cuda).manual_seed(b + h + kv + hd)
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda).bfloat16()
     k = torch.randn((b, s, kv, hd), generator=gen, device=cuda).bfloat16()

@@ -147,18 +147,24 @@ def test_decode_step_over_a_filled_cache_matches_jax(arch, where, dtype):
 LAST_POSITION = [("qwen3_4b", 32768), ("qwen3_4b", 524288),
                  ("zamba2_1_2b", 32768), ("zamba2_1_2b", 524288),
                  ("olmoe_1b_7b", 32768), ("deepseek_v2_236b", 32768),
-                 ("nemotron_4_340b", 32768)]
+                 ("nemotron_4_340b", 32768), ("internvl2_26b", 32768),
+                 ("starcoder2_7b", 32768), ("deepseek_67b", 32768)]
 # the smoke configs at the published RoPE head dim (MLA's RoPE part,
 # 64, is DeepSeek-V2's qk_rope_head_dim; Nemotron-4-340B's 192, whose
-# half is not a power of two) and the depth of one attention
-# layer: the dense and MoE configs 1 layer, the hybrid one shared
-# application, DeepSeek-V2 its dense first layer and one MoE layer
+# half is not a power of two; InternVL2-26B's, StarCoder2-7B's and
+# DeepSeek-67B's 128 at their thetas 1e6, 1e5 and 1e4) and the depth of
+# one attention layer: the dense and MoE configs 1 layer, the hybrid one
+# shared application, DeepSeek-V2 its dense first layer and one MoE
+# layer
 LAST_POSITION_CFG = {
     "qwen3_4b": dict(head_dim=128, num_kv_heads=1, num_layers=1),
     "zamba2_1_2b": dict(head_dim=128, num_kv_heads=1, num_layers=2),
     "olmoe_1b_7b": dict(head_dim=128, num_kv_heads=1, num_layers=1),
     "deepseek_v2_236b": dict(qk_rope_head_dim=64, num_layers=2),
-    "nemotron_4_340b": dict(head_dim=192, num_kv_heads=1, num_layers=1)}
+    "nemotron_4_340b": dict(head_dim=192, num_kv_heads=1, num_layers=1),
+    "internvl2_26b": dict(head_dim=128, num_kv_heads=1, num_layers=1),
+    "starcoder2_7b": dict(head_dim=128, num_kv_heads=1, num_layers=1),
+    "deepseek_67b": dict(head_dim=128, num_kv_heads=1, num_layers=1)}
 
 
 @pytest.mark.parametrize("arch,t", LAST_POSITION)

@@ -56,7 +56,9 @@ CELLS = {
 
 
 def test_shape_cells_are_the_19_cells_and_each_shape_applies():
-    assert set(chip_smoke.SHAPE_CELLS) == CELLS
+    # the 19 cells of PRs 27-29 stay; tests/test_torch_shapes_dense.py
+    # holds the whole table (29 cells) against the JAX package's SHAPES
+    assert CELLS <= set(chip_smoke.SHAPE_CELLS)
     for name, spec in chip_smoke.SHAPE_CELLS.items():
         assert name == f"shape_{spec['shape']}_{spec['arch']}"
         ok, reason = shape_applicable(get_config(spec["arch"]),
