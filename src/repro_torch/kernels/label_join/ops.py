@@ -37,13 +37,18 @@ for tensors on the card, its plain version for tensors on the CPU. The
 tensor; ``upload`` puts a host table on a device), row ids from the
 host, and return host numpy. Unlike the reference they do not pad the batch to a multiple of
 256: PyTorch does not retrace per shape, and padding lanes were sliced
-off anyway.
+off anyway. ``join_gathered`` and ``join_quantized_gathered`` range-check
+both id arrays before either is uploaded, and mark their four steps as
+profiler spans (``repro_torch.spans``): ``label_join.ids_check``,
+``label_join.ids_upload``, ``label_join.launch`` and
+``label_join.readback``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ...spans import span
 from .kernel import (MAX_SHARDS, gather_join, multi_shard_gather_join,
                      sharded_gather_join)
 from .ref import INF_I32, join_sparse_ref, pad_value, storage16
@@ -73,13 +78,35 @@ def _table(table) -> torch.Tensor:
     return table
 
 
-def _ids(ids: np.ndarray, rows: int, device: torch.device) -> torch.Tensor:
-    """Host row ids → int64 tensor on ``device``; every id must index
-    one of ``rows`` rows."""
+def _checked(ids: np.ndarray, rows: int) -> np.ndarray:
+    """Host row ids as contiguous int64; every id must index one of
+    ``rows`` rows."""
     ids = np.ascontiguousarray(ids, dtype=np.int64)
     if len(ids) and (ids.min() < 0 or ids.max() >= rows):
         raise IndexError(f"row id out of range [0, {rows})")
-    return torch.from_numpy(ids).to(device)
+    return ids
+
+
+def _ids(ids: np.ndarray, rows: int, device: torch.device) -> torch.Tensor:
+    """Host row ids → int64 tensor on ``device``, range-checked."""
+    return torch.from_numpy(_checked(ids, rows)).to(device)
+
+
+def _serve_gathered(table: torch.Tensor, ss: np.ndarray, ts: np.ndarray,
+                    quant: tuple[int, float] | None = None) -> np.ndarray:
+    """One serving join of rows ``table[ss]`` / ``table[ts]``: both id
+    arrays checked, then both uploaded, the kernel launched, the answers
+    copied back; each step a profiler span (``repro_torch.spans``)."""
+    with span("label_join.ids_check"):
+        ss = _checked(ss, table.shape[0])
+        ts = _checked(ts, table.shape[0])
+    with span("label_join.ids_upload"):
+        rs = torch.from_numpy(ss).to(table.device)
+        rt = torch.from_numpy(ts).to(table.device)
+    with span("label_join.launch"):
+        out = gather_join(table, rs, table, rt, quant=quant)
+    with span("label_join.readback"):
+        return out.cpu().numpy()
 
 
 def _identity(q: int, device: torch.device) -> torch.Tensor:
@@ -120,9 +147,7 @@ def join_gathered(table, ss: np.ndarray, ts: np.ndarray) -> np.ndarray:
     qn = len(ss)
     if qn == 0 or table.shape[1] == 0:
         return np.full(qn, np.inf, dtype=np.float32)
-    rs = _ids(ss, table.shape[0], table.device)
-    rt = _ids(ts, table.shape[0], table.device)
-    return gather_join(table, rs, table, rt).cpu().numpy()
+    return _serve_gathered(table, ss, ts)
 
 
 def join_quantized_gathered(table, ss: np.ndarray, ts: np.ndarray, *,
@@ -133,10 +158,7 @@ def join_quantized_gathered(table, ss: np.ndarray, ts: np.ndarray, *,
     qn = len(ss)
     if qn == 0 or table.shape[1] == 0:
         return np.full(qn, np.inf, dtype=np.float32)
-    rs = _ids(ss, table.shape[0], table.device)
-    rt = _ids(ts, table.shape[0], table.device)
-    return gather_join(table, rs, table, rt,
-                       quant=(sentinel, scale)).cpu().numpy()
+    return _serve_gathered(table, ss, ts, quant=(sentinel, scale))
 
 
 def join_partial_gathered(s_rows: torch.Tensor,
