@@ -38,12 +38,19 @@ tensor; ``upload`` puts a host table on a device), row ids from the
 host, and return host numpy. Unlike the reference they do not pad the batch to a multiple of
 256: PyTorch does not retrace per shape, and padding lanes were sliced
 off anyway. ``join_gathered`` and ``join_quantized_gathered`` range-check
-both id arrays before either is uploaded, and mark their four steps as
+both id arrays (one ``torch.aminmax`` each, on torch's intra-op threads)
+before either is uploaded. For a table on the card they then copy both
+into one reusable pinned host buffer per device and upload them in one
+``non_blocking`` copy, which the kernel follows on the stream;
+``STAGING`` counts the batches staged so and the buffers' allocations.
+For a table on the CPU the ids are read in place. The four steps are
 profiler spans (``repro_torch.spans``): ``label_join.ids_check``,
 ``label_join.ids_upload``, ``label_join.launch`` and
 ``label_join.readback``.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -58,7 +65,7 @@ __all__ = ["INF_I32", "join", "join_with_bound", "join_quantized",
            "join_sparse_gathered", "bound_gathered", "upload",
            "join_partial_gathered",
            "join_sharded_gathered", "join_sharded_border_gathered",
-           "assemble_border_rows"]
+           "assemble_border_rows", "STAGING"]
 
 
 def upload(table: np.ndarray, device: torch.device | str) -> torch.Tensor:
@@ -80,10 +87,13 @@ def _table(table) -> torch.Tensor:
 
 def _checked(ids: np.ndarray, rows: int) -> np.ndarray:
     """Host row ids as contiguous int64; every id must index one of
-    ``rows`` rows."""
+    ``rows`` rows. The range is one ``torch.aminmax`` over the ids in
+    place, on torch's intra-op threads."""
     ids = np.ascontiguousarray(ids, dtype=np.int64)
-    if len(ids) and (ids.min() < 0 or ids.max() >= rows):
-        raise IndexError(f"row id out of range [0, {rows})")
+    if len(ids):
+        lo, hi = torch.aminmax(torch.from_numpy(ids))
+        if lo.item() < 0 or hi.item() >= rows:
+            raise IndexError(f"row id out of range [0, {rows})")
     return ids
 
 
@@ -92,17 +102,73 @@ def _ids(ids: np.ndarray, rows: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_checked(ids, rows)).to(device)
 
 
+# batches whose row ids went through a pinned staging buffer, and the
+# allocations of those buffers (plain-version calls on the CPU stage
+# nothing)
+STAGING = {"pinned": 0, "grown": 0}
+
+
+class _PinnedIds:
+    """One CUDA device's staging buffer for a batch's two id arrays:
+    ``ss`` at [0, Q) and ``ts`` at [Q, 2Q) of one pinned int64 buffer, so
+    that the (2, Q) prefix is contiguous and one DMA uploads both. It
+    grows to twice the next power of two at or above Q and never
+    shrinks. ``uploaded`` is recorded on the stream after each upload;
+    the next batch waits on it before it writes the buffer (a no-op once
+    a readback has synchronised the stream). ``lock`` is held from the
+    first write to that record."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.host: torch.Tensor | None = None
+        self.uploaded = torch.cuda.Event()
+
+
+_PINNED: dict[int, _PinnedIds] = {}
+
+
+def _upload_pinned(ss: np.ndarray, ts: np.ndarray, device: torch.device
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Checked ids of one length → two contiguous int64 rows on the card,
+    through the device's pinned buffer in one ``non_blocking`` copy."""
+    q = len(ss)
+    st = _PINNED.get(device.index)
+    if st is None:
+        st = _PINNED.setdefault(device.index, _PinnedIds())
+    with st.lock:
+        st.uploaded.synchronize()
+        if st.host is None or st.host.numel() < 2 * q:
+            st.host = torch.empty(2 << (q - 1).bit_length(),
+                                  dtype=torch.int64, pin_memory=True)
+            STAGING["grown"] += 1
+        both = st.host[:2 * q]
+        both[:q].copy_(torch.from_numpy(ss))
+        both[q:].copy_(torch.from_numpy(ts))
+        rows = both.view(2, q).to(device, non_blocking=True)
+        st.uploaded.record(torch.cuda.current_stream(device))
+        STAGING["pinned"] += 1
+    return rows[0], rows[1]
+
+
 def _serve_gathered(table: torch.Tensor, ss: np.ndarray, ts: np.ndarray,
                     quant: tuple[int, float] | None = None) -> np.ndarray:
     """One serving join of rows ``table[ss]`` / ``table[ts]``: both id
-    arrays checked, then both uploaded, the kernel launched, the answers
-    copied back; each step a profiler span (``repro_torch.spans``)."""
+    arrays checked, then both uploaded (on the card through the pinned
+    buffer, which the kernel follows on the stream; on the CPU read in
+    place), the kernel launched, the answers copied back; each step a
+    profiler span (``repro_torch.spans``)."""
     with span("label_join.ids_check"):
         ss = _checked(ss, table.shape[0])
         ts = _checked(ts, table.shape[0])
+        if len(ts) != len(ss):
+            raise ValueError(f"row ids must be two vectors of one length, "
+                             f"got {len(ss)} and {len(ts)}")
     with span("label_join.ids_upload"):
-        rs = torch.from_numpy(ss).to(table.device)
-        rt = torch.from_numpy(ts).to(table.device)
+        if table.device.type == "cuda":
+            rs, rt = _upload_pinned(ss, ts, table.device)
+        else:
+            rs = torch.from_numpy(ss).to(table.device)
+            rt = torch.from_numpy(ts).to(table.device)
     with span("label_join.launch"):
         out = gather_join(table, rs, table, rt, quant=quant)
     with span("label_join.readback"):

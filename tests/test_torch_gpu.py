@@ -19,6 +19,9 @@ kernel, whose sums run in another order, must agree with its plain
 version within the tolerances stated at its tests, and the LM path
 through it with the dense path.
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -170,6 +173,110 @@ def test_join_layout_spreads_small_batches_over_the_sms(cuda, q, w, group):
     assert lanes == group
     _, rows_need = kernel.join_layout(table, table, 1 << 30, sms=132)
     assert rows_need <= lanes <= max(rows_need, min(4 * rows_need, 32))
+
+
+# -- the serving joins' row ids, staged through the pinned buffer -----------
+
+def _serving_tables(cuda, rng, rows, w):
+    """A float32 table and a uint16 code table, on the card and on the
+    host (where the joins run their plain versions)."""
+    table = _rand_dist(rng, (rows, w))
+    codes = rng.integers(0, 0xFFFF + 1, (rows, w)).astype(np.uint16)
+    return ((ops.upload(table, cuda), ops.upload(codes, cuda)),
+            (ops.upload(table, "cpu"), ops.upload(codes, "cpu")))
+
+
+def _serve_both(tables, ss, ts):
+    """``join_gathered`` and ``join_quantized_gathered`` over one pair of
+    tables."""
+    table, codes = tables
+    return (ops.join_gathered(table, ss, ts),
+            ops.join_quantized_gathered(codes, ss, ts, sentinel=0xFFFF,
+                                        scale=0.25))
+
+
+@pytest.mark.parametrize("q", [1, 255, 32768, 262144])
+def test_serving_joins_stage_ids_as_the_host_answers(cuda, q):
+    rng = np.random.default_rng(q)
+    card, host = _serving_tables(cuda, rng, 5000, 96)
+    ss, ts = rng.integers(0, 5000, q), rng.integers(0, 5000, q)
+    want = _serve_both(host, ss, ts)
+    _serve_both(card, ss, ts)                    # the buffer fits q now
+    staged = dict(ops.STAGING)
+    for _ in range(3):
+        for got, w in zip(_serve_both(card, ss, ts), want):
+            assert got.dtype == np.float32
+            np.testing.assert_array_equal(got, w)
+    assert ops.STAGING == {"pinned": staged["pinned"] + 6,
+                           "grown": staged["grown"]}
+
+
+def test_bad_row_ids_raise_on_the_card_before_any_launch(cuda):
+    rng = np.random.default_rng(4)
+    card, host = _serving_tables(cuda, rng, 50, 12)
+    ss, ts = rng.integers(0, 50, 300), rng.integers(0, 50, 300)
+    bad = ts.copy()
+    bad[-1] = 50
+    launches, staged = dict(kernel.LAUNCHES), dict(ops.STAGING)
+    with pytest.raises(IndexError):
+        ops.join_gathered(card[0], ss, bad)
+    with pytest.raises(IndexError):
+        ops.join_quantized_gathered(card[1], ss, bad, sentinel=0xFFFF,
+                                    scale=0.25)
+    with pytest.raises(ValueError, match="one length"):
+        ops.join_gathered(card[0], ss, ts[:1])   # would broadcast in a copy
+    assert kernel.LAUNCHES == launches and ops.STAGING == staged
+    for got, w in zip(_serve_both(card, ss, ts), _serve_both(host, ss, ts)):
+        np.testing.assert_array_equal(got, w)
+
+
+def test_a_call_that_fails_after_its_upload_leaves_the_buffer_sound(
+        cuda, monkeypatch):
+    """A launch that raises leaves its upload in flight with no readback;
+    the next call waits for it before it writes the buffer again."""
+    rng = np.random.default_rng(5)
+    card, host = _serving_tables(cuda, rng, 4000, 64)
+    ss, ts = rng.integers(0, 4000, 65536), rng.integers(0, 4000, 65536)
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("launch refused")
+
+    with monkeypatch.context() as m:
+        m.setattr(ops, "gather_join", fail)
+        with pytest.raises(RuntimeError, match="launch refused"):
+            ops.join_gathered(card[0], ts, ss)
+    for got, w in zip(_serve_both(card, ss, ts), _serve_both(host, ss, ts)):
+        np.testing.assert_array_equal(got, w)
+
+
+def test_two_threads_serve_their_own_batches(cuda):
+    rng = np.random.default_rng(6)
+    card, host = _serving_tables(cuda, rng, 3000, 32)
+    batches = [(rng.integers(0, 3000, n), rng.integers(0, 3000, n))
+               for n in (1000, 5000)]
+    wants = [ops.join_gathered(host[0], *b) for b in batches]
+    staged = ops.STAGING["pinned"]
+    wrong = []
+
+    def serve(i):
+        for _ in range(200):
+            if not np.array_equal(ops.join_gathered(card[0], *batches[i]),
+                                  wants[i]):
+                wrong.append(i)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in (0, 1)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert wrong == []
+    assert ops.STAGING["pinned"] == staged + 400
 
 
 def test_card_serves_as_the_host_does(cuda):

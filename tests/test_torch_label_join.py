@@ -238,6 +238,59 @@ def test_row_ids_out_of_range_raise():
         ops.join_gathered(table, np.array([0, 4]), np.array([1, 1]))
     with pytest.raises(IndexError):
         ops.bound_gathered(table, np.array([-1]), np.array([1]))
+    with pytest.raises(ValueError, match="one length"):
+        ops.join_gathered(table, np.array([0, 3]), np.array([1]))
+
+
+# row ids from the host: out of range in either array, or valid but not
+# C-contiguous int64 (cast and copied as ``np.ascontiguousarray`` does)
+ID_ROWS = 20
+OUT_OF_RANGE = ("minus_one", "rows", "int64_min", "t_only")
+RESHAPED = ("int32", "reversed", "strided")
+
+
+def _id_case(case: str) -> tuple[np.ndarray, np.ndarray]:
+    ids = np.random.default_rng(17).integers(0, ID_ROWS, 66)
+    ss, ts = ids[:33], ids[33:]
+    return {
+        "minus_one": (np.r_[ss[:-1], -1], ts),
+        "rows": (np.r_[ss[:-1], ID_ROWS], ts),
+        "int64_min": (np.r_[np.iinfo(np.int64).min, ss[1:]], ts),
+        "t_only": (ss, np.r_[ts[:-1], ID_ROWS]),
+        "int32": (ss.astype(np.int32), ts.astype(np.int32)),
+        "reversed": (ss[::-1], ts[::-1]),
+        "strided": (ids[::2], ids[1::2]),
+    }[case]
+
+
+@pytest.mark.parametrize("case", OUT_OF_RANGE + RESHAPED)
+def test_serving_joins_check_and_normalise_row_ids(case, monkeypatch):
+    joins = []
+    gather_join = ops.gather_join
+
+    def counted(*args, **kwargs):
+        joins.append(1)
+        return gather_join(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "gather_join", counted)
+    rng = np.random.default_rng(18)
+    table = _t(_rand_dist(rng, (ID_ROWS, 9)))
+    codes, sentinel = _rand_codes(rng, (ID_ROWS, 9), np.uint16)
+    codes = _t(codes)
+    calls = (lambda a, b: ops.join_gathered(table, a, b),
+             lambda a, b: ops.join_quantized_gathered(
+                 codes, a, b, sentinel=sentinel, scale=0.5))
+    ss, ts = _id_case(case)
+    for call in calls:
+        if case in OUT_OF_RANGE:         # raised before any join runs
+            with pytest.raises(IndexError):
+                call(ss, ts)
+            assert joins == []
+            continue
+        assert not (ss.flags.c_contiguous and ss.dtype == np.int64)
+        want = call(np.ascontiguousarray(ss, dtype=np.int64),
+                    np.ascontiguousarray(ts, dtype=np.int64))
+        np.testing.assert_array_equal(call(ss, ts), want)
 
 
 @pytest.mark.parametrize("case", ["f32_as_codes", "codes_as_f32",

@@ -4,8 +4,10 @@ With no profiler recording, ``span`` is one shared no-op. Under
 ``torch.profiler`` the label join's serving entry points record four
 spans that tile the call in the order the work happens: the id range
 checks, the id uploads, the launch, the readback. The card test (marker
-``gpu``) shows that the card's kernel and copies fall inside the spans
-that issued and waited on them, on the profiler's one clock:
+``gpu``) shows on the profiler's one clock that the kernel falls inside
+the spans that launched and waited on it, and that the ids' upload,
+sent without blocking, starts inside its span and ends before the
+kernel starts:
 
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_spans.py
 """
@@ -121,5 +123,5 @@ def test_card_events_fall_inside_their_spans():
     htod = [d for d in device if d[0].startswith("Memcpy HtoD")]
     up = step["label_join.ids_upload"]
     assert htod
-    for _, s, e in htod:
-        assert up[1] <= s <= e <= up[2]
+    for _, s, e in htod:        # sent without blocking, awaited by the join
+        assert up[1] <= s <= up[2] and e <= kern[1]
