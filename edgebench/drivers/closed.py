@@ -1,47 +1,18 @@
-"""The ways a traffic mix drives the program, named by the mix's ``driver``
-key. ``closed``: one client sends batches back to back.
-
-A driver warms up every shape its mix uses, measures for ``seconds``
-(the batch in flight when the time is up completes, and its time counts),
-and returns what it measured and the answers to check. It reaches the
-program only through ``deploy.Deployment``'s entry points.
-"""
+"""``closed``: one client sends batches back to back, each answered by the
+center's rule-3 join (``entry``: ``center``, ``pairs``: ``cross``)."""
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
 
 import numpy as np
 
-from . import roofline, workload
-from .network import RoadNetwork
+from .. import roofline, workload
+from ..network import RoadNetwork
+from . import SAMPLE_LANES, Measured, _keep_whole
 
 
-# the window's batches whose answers are all kept for the check: the
-# first four, then every power of two
-def _keep_whole(i: int) -> bool:
-    return i < 4 or (i & (i - 1)) == 0
-
-
-# lanes kept from every other batch, for the check
-SAMPLE_LANES = 64
-
-
-@dataclass
-class Measured:
-    """What a driver measured in its window, and what it answered."""
-    window_s: float
-    attempted: int
-    failed: int = 0
-    queries: int = 0
-    batches: int = 0
-    join_least_bytes: int = 0
-    # the answers to check: (ss, ts, answers)
-    checks: list[tuple] = field(default_factory=list)
-
-
-def closed(dep, net: RoadNetwork, traffic: dict, seconds: float, rng,
-           tracer) -> Measured:
+def drive(dep, net: RoadNetwork, traffic: dict, seconds: float, rng,
+          tracer) -> Measured:
     """Batches of ``batch`` cross-district pairs, a pool of ``pool``
     distinct batches drawn from the seed and cycled, each answered by the
     center's rule-3 join (``entry``: ``center``)."""
@@ -92,6 +63,3 @@ def closed(dep, net: RoadNetwork, traffic: dict, seconds: float, rng,
     m.checks.append((np.concatenate(ss_all), np.concatenate(ts_all),
                      np.concatenate(ans_all)))
     return m
-
-
-DRIVERS = {"closed": closed}

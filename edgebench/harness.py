@@ -4,16 +4,20 @@ The cell names a configuration (its file is named in the manifest), a
 traffic mix (``traffic/<mix>.json``) and, through the manifest's metric
 entries, the metrics it reports (``metrics/<metric>.py``, each a
 ``read(record)`` that returns a number, or None where it finds nothing to
-read). The flow:
+read). The configuration's ``deployment`` names the file that sets it up
+in the program (``deployments/<kind>.py``), the mix's ``driver`` the file
+that drives it (``drivers/<driver>.py``) and its ``pairs`` the file that
+judges the answers (``judges/<pairs>.py``). The flow:
 
-1. the road network is drawn from its configuration's own ``seed`` (a
-   deployment has one road map), the traffic from ``--seed``;
+1. the three files are found (an unknown name fails here); the road
+   network is drawn from its configuration's own ``seed`` (a deployment
+   has one road map), the traffic from ``--seed``;
 2. the configuration is set up in the program (``deploy``) and the mix's
    driver warms up every shape it uses: ``setup_s`` ends there;
 3. the driver measures for ``--seconds`` (with ``--trace 1`` under the
    profiler, the host phases annotated in the same trace);
 4. the device's peak memory is read and the program's state freed;
-5. the plain reference works the answers out again and judges them;
+5. the judge works the answers out again with the plain reference;
 6. one JSON line is printed, the numbers judged last, and beside their
    limits on standard error too.
 
@@ -35,10 +39,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import network, reference
-from .deploy import deploy
+from . import network
+from .deploy import DEPLOYMENTS
 from .devtrace import DeviceTrace, Tracer
 from .drivers import DRIVERS, Measured
+from .judges import JUDGES
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -108,23 +113,12 @@ def forbidden_modules() -> list[str]:
                   & set(FORBIDDEN))
 
 
-def judge(net: network.RoadNetwork, measured: Measured,
+def judge(pairs: str, net: network.RoadNetwork, measured: Measured,
           device: torch.device, control: str | None) -> dict:
-    """Check every kept answer against the reference."""
-    checked = wrong = 0
-    gap = 0.0
-    border = reference.border_distances(net, device) if measured.checks \
-        else None
-    for ss, ts, got in measured.checks:
-        want = reference.cross_join(border, ss, ts)
-        if control == "bf16":
-            got = reference.cross_join(border, ss, ts, dtype=torch.bfloat16)
-        res = reference.compare(got, want)
-        checked += res["checked"]
-        wrong += res["wrong"]
-        gap = max(gap, res["max_gap"])
-    return {"checked": checked, "wrong_answers": wrong, "max_gap": gap,
-            "unanswered": measured.failed}
+    """The verdict of ``judges/<pairs>.py`` on every kept answer, and the
+    queries the driver left unanswered."""
+    return dict(JUDGES[pairs](net, measured.checks, device, control),
+                unanswered=measured.failed)
 
 
 def run_cell(manifest: dict, workload: str, seed: int, seconds: float,
@@ -137,6 +131,10 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float,
     config = dict(cfg_file if config is None else config)
     traffic = dict(mix_file if traffic is None else traffic)
     steps = {"imports_s": (time.perf_counter_ns() - start_ns) / 1e9}
+    # each part by its file: an unknown name fails before the network
+    deploy = DEPLOYMENTS[config["deployment"]]
+    drive = DRIVERS[traffic["driver"]]
+    JUDGES[traffic["pairs"]]
     t = time.perf_counter_ns()
     net = network.continent(**config["network"])
     rng = np.random.default_rng([seed, 1])
@@ -146,8 +144,7 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float,
     steps["deploy_s"] = (time.perf_counter_ns() - t) / 1e9
     tracer = Tracer(trace and device.type == "cuda")
     t = time.perf_counter_ns()
-    measured = DRIVERS[traffic["driver"]](dep, net, traffic, seconds, rng,
-                                          tracer)
+    measured = drive(dep, net, traffic, seconds, rng, tracer)
     steps["warmup_s"] = (tracer.ready_ns - t) / 1e9
     setup_s = (tracer.ready_ns - start_ns) / 1e9
     dev_trace = tracer.trace
@@ -160,7 +157,7 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float,
     del dep
     gc.collect()
     t = time.perf_counter_ns()
-    verdict = judge(net, measured, device, control)
+    verdict = judge(traffic["pairs"], net, measured, device, control)
     steps["reference_s"] = (time.perf_counter_ns() - t) / 1e9
     steps["window_s"] = measured.window_s
     print("edgebench: " + json.dumps(steps), file=sys.stderr)

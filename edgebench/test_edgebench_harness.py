@@ -2,8 +2,9 @@
 configuration, mix and metric by name, its frozen generator still equals
 the program's, a tiny run of each cell is correct against the plain
 reference, the trace is read on the profiler's clock, a run loads nothing
-of JAX or the JAX package, and a new cell takes new files and a manifest
-entry only."""
+of JAX or the JAX package, a new cell and a new deployment kind, driver
+or judge take new files and manifest entries only, and an unknown one
+fails before the network is drawn."""
 import hashlib
 import json
 import os
@@ -265,3 +266,187 @@ for trace in (False, True):
     assert lines[1] == str(["batches_run"])
     after = _digest(tmp_path / "edgebench")
     assert {k: v for k, v in after.items() if k in before} == before
+
+
+ORACLE_DEPLOYMENT = '''
+from dataclasses import dataclass
+
+from ..deploy import Deployment
+
+
+@dataclass
+class OracleDeployment(Deployment):
+    oracle: object = None
+
+    def close(self):
+        self.oracle = None
+        super().close()
+
+
+def deploy(config, net, device):
+    from repro_torch.core import Graph, Partition
+    from repro_torch.core.oracle import DistanceOracle
+    g = Graph(net.indptr, net.indices, net.weights)
+    part = Partition(net.assignment, net.num_districts)
+    return OracleDeployment(device, oracle=DistanceOracle.build(
+        g, part, builder=config["builder"], device=device))
+'''
+
+SAME_DRIVER = '''
+import time
+
+import numpy as np
+
+from . import Measured
+
+
+def drive(dep, net, traffic, seconds, rng, tracer):
+    order, start = net.district_members()
+    batch = int(traffic["batch"])
+    d = rng.integers(0, net.num_districts, batch)
+    size = start[d + 1] - start[d]
+    ss, ts = (order[start[d] + (rng.random(batch) * size).astype(np.int64)]
+              for _ in range(2))
+    dep.oracle.query_many(ss, ts)
+    dep.sync()
+    kept = []
+    tracer.start()
+    t0 = time.perf_counter_ns()
+    while not kept or time.perf_counter_ns() - t0 < seconds * 1e9:
+        with tracer.phase("program: query_many"):
+            kept.append(dep.oracle.query_many(ss, ts))
+    t1 = time.perf_counter_ns()
+    tracer.stop()
+    n = len(kept)
+    return Measured(window_s=(t1 - t0) / 1e9, attempted=n * batch,
+                    queries=n * batch, batches=n,
+                    checks=[(np.tile(ss, n), np.tile(ts, n),
+                             np.concatenate(kept))])
+'''
+
+SAME_JUDGE = '''
+import numpy as np
+import torch
+
+from .. import reference
+
+
+def judge(net, checks, device, control):
+    checked = wrong = 0
+    gap = 0.0
+    for ss, ts, got in checks:
+        src, col = np.unique(ss, return_inverse=True)
+        rows = reference.distances_from(net, src, device=device)
+        want = rows[torch.as_tensor(ts), torch.as_tensor(col)].cpu().numpy()
+        res = reference.compare(got, want)
+        checked += res["checked"]
+        wrong += res["wrong"]
+        gap = max(gap, res["max_gap"])
+    return {"checked": checked, "wrong_answers": wrong, "max_gap": gap}
+'''
+
+
+def test_a_new_deployment_takes_only_new_files_and_a_manifest_entry(
+        tmp_path):
+    """A deployment kind, a driver and a judge the tree does not have,
+    with a configuration, a mix and a metric, as new files only."""
+    shutil.copytree(ROOT / "edgebench", tmp_path / "edgebench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    before = _digest(tmp_path / "edgebench")
+    bench = tmp_path / "edgebench"
+    (bench / "deployments" / "oracle.py").write_text(ORACLE_DEPLOYMENT)
+    (bench / "drivers" / "same_loop.py").write_text(SAME_DRIVER)
+    (bench / "judges" / "same.py").write_text(SAME_JUDGE)
+    (bench / "traffic" / "same_small.json").write_text(json.dumps(
+        {"driver": "same_loop", "pairs": "same", "batch": 80}))
+    (bench / "configs" / "tiny_oracle.json").write_text(json.dumps(
+        {"name": "tiny_oracle", "deployment": "oracle",
+         "builder": "reference",
+         "network": {"grid": [2, 2], "district": [5, 4],
+                     "border_links": 2, "weight_high": 15, "seed": 4}}))
+    (bench / "metrics" / "oracle_batches.py").write_text(
+        "def read(rec):\n    return rec.measured.batches\n")
+    man = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    man["configs"].append({"name": "tiny_oracle", "source": "a test",
+                           "file": "edgebench/configs/tiny_oracle.json",
+                           "reduced": [], "why": "a test"})
+    man["workloads"].append({"name": "tiny.same_small",
+                             "config": "tiny_oracle",
+                             "traffic": "same_small", "chips": 1,
+                             "why": "a test"})
+    man["per_layer"].append({"name": "oracle_batches", "unit": "batches",
+                             "better": "higher", "source": "host_clock",
+                             "layer": "a test", "moves": "queries_per_s",
+                             "workloads": ["tiny.same_small"]})
+    qps = next(m for m in man["end_to_end"] if m["name"] == "queries_per_s")
+    qps["workloads"].append("tiny.same_small")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(man))
+    code = """
+import time, numpy as np, torch
+from edgebench import harness
+from repro_torch.core.oracle import DistanceOracle
+man = harness.load_manifest()
+def run(trace):
+    return harness.run_cell(man, "tiny.same_small", 2**31 + 13, 0.2,
+                            trace, torch.device("cpu"),
+                            time.perf_counter_ns())
+for trace in (False, True):
+    out = run(trace)
+    assert out["correct"], out
+    assert out["checked"] >= 80, out
+    print(sorted(out["metrics"]))
+query_many = DistanceOracle.query_many
+def altered(self, ss, ts):
+    out = np.array(query_many(self, ss, ts))
+    out[0] += 1
+    return out
+DistanceOracle.query_many = altered
+out = run(False)
+print(out["correct"], out["compared"]["wrong_answers"]["value"],
+      out["compared"]["max_gap"]["value"])
+"""
+    res = _child(code, tmp_path, extra_path=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[0] == str(["queries_per_s", "setup_s"])
+    assert lines[1] == str(["oracle_batches"])
+    correct, wrong, gap = lines[2].split()
+    assert correct == "False" and int(wrong) >= 1 and float(gap) == 1.0
+    after = _digest(tmp_path / "edgebench")
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+@pytest.mark.parametrize("key,directory", [
+    ("deployment", "deployments"), ("driver", "drivers"),
+    ("pairs", "judges")])
+def test_an_unknown_deployment_driver_or_pairs_fails_before_the_network(
+        monkeypatch, key, directory):
+    drawn = []
+    monkeypatch.setattr(network, "continent",
+                        lambda *a, **k: drawn.append(1))
+    cfg, mix = tiny(CELLS[0])
+    if key == "deployment":
+        cfg[key] = "nowhere"
+    else:
+        mix[key] = "nowhere"
+    with pytest.raises(LookupError) as err:
+        harness.run_cell(MANIFEST, CELLS[0], 1, 0.1, False,
+                         torch.device("cpu"), time.perf_counter_ns(),
+                         config=cfg, traffic=mix)
+    assert str(harness.BENCH / directory) in str(err.value)
+    assert "nowhere.py" in str(err.value)
+    assert drawn == []
+
+
+def test_every_deployment_and_judge_resolves_to_a_file():
+    from edgebench.deploy import DEPLOYMENTS
+    for c in MANIFEST["configs"]:
+        kind = harness.load_config(MANIFEST, c["name"])["deployment"]
+        assert kind in DEPLOYMENTS
+        assert (DEPLOYMENTS.directory / f"{kind}.py").is_file()
+    for cell in CELLS:
+        _, _, mix = harness.resolve(MANIFEST, cell)
+        assert mix["pairs"] in harness.JUDGES
+        assert (harness.JUDGES.directory / f"{mix['pairs']}.py").is_file()
+        assert (harness.DRIVERS.directory / f"{mix['driver']}.py").is_file()
